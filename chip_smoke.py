@@ -1,0 +1,325 @@
+#!/usr/bin/env python3
+"""Smoke run of the torch port (``pstl_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line of numbers; the first failure exits non-zero
+and no result line is printed:
+
+1. device: needs CUDA (there is no CPU path); TF32 off; the card's name and
+   power limit from nvidia-smi.
+2. build: compiles the fused guidance kernel from ``pstl_tpu_torch/csrc``.
+3. kernel: the kernel against its plain PyTorch version on identical
+   inputs at the closed-loop shapes (16 scenes, T=20, R=192, K=8, S=15,
+   nL=4, 3 Adam iterations), for coarse pair on/off, bf16 cumsum on/off and
+   the offset quirk on/off; maximum error and median times (CUDA events).
+4. reference: one reverse pass on the card against the same pass on the
+   CPU (the plain version, which the CPU tests hold to the JAX package) with
+   pinned noise, at a small size.
+5. closed loop: the heavy ``bench.py`` contract with the e7_round5 weights,
+   16 synthetic scenes, 64 replanning steps; every step must launch the
+   kernel once per denoise step (99 x 64 in all) and every metric must be
+   finite.
+
+The line before the last is the card's ``name, power.limit``; before it a
+JSON line with the kernel's launches, error and times; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+STEPS = 64
+SCENES = 16
+
+# kernel vs plain tolerance (see kernel_phase): controls are normalized
+# (|mu| ~ 1); rtol/atol of the JAX package's own kernel-vs-XLA tests
+RTOL, ATOL = 2e-4, 2e-5
+# share of elements allowed outside RTOL/ATOL, and their bound: a freeze
+# argmin can flip on a near-tie between fp32 sums taken in another order
+# (FMA contraction on the card), which moves that column's Adam path; the
+# move stays inside the trust region |delta| <= beta on either side
+MAX_OFF_SHARE = 1e-3
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def gpu_name_power():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def time_cuda(fn, n=20, warm=3):
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return median(ts)
+
+
+def scene_batch(cfg, dev, n_scenes=SCENES, scene_len=38):
+    from pstl_tpu_torch import sim
+    from pstl_tpu_torch.data import synthetic
+    data = synthetic.generate_dataset(0, n_scenes, cfg, scene_len=scene_len)
+    return sim.scenes_from_dataset(data, device=dev)
+
+
+def plan_inputs(cfg, scenes, seed=0):
+    """The first plan step's observation, dense batch and guidance loss of
+    the scenes, and a posterior mean from a seeded draw."""
+    import torch
+    from pstl_tpu_torch import sim, specs
+    dev = scenes.ego_full.device
+    bs = scenes.ego_full.shape[0]
+    obs = sim.observe(scenes, scenes.ego_full[:, 0],
+                      torch.zeros(bs, dtype=torch.long, device=dev), cfg)
+    n = bs * cfg.n_randoms * 3
+    stlp = torch.as_tensor(sim.AGGRESSIVE_STLP, device=dev)
+    dense = specs.densify_batch(obs, stlp.expand(bs, 6), cfg,
+                                stlp.expand(n, 1, 6))
+    fused = specs.make_guidance_loss(obs, dense, cfg,
+                                     obs["ego_traj"][:, 0, :4],
+                                     dense["valids_dense"].reshape(-1))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    mu = torch.randn((bs, cfg.nt, 2, fused.R), generator=g, device=dev)
+    return dense, fused, mu
+
+
+def kernel_phase(dev):
+    """Kernel vs plain at the main-path shapes for every flag combination
+    the kernel branches on; returns the JSON record's numbers."""
+    import torch
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    base = bench_config("heavy")
+    scenes = scene_batch(base, dev)
+    coeffs = diffusion.get_coeffs(base, device=dev)
+    worst = 0.0
+    heavy_ms = heavy_plain_ms = None
+    outs = {}
+    for coarse in (True, False):
+        for bf16 in (True, False):
+            for quirk in (False, True):
+                cfg = base.with_(clearance_coarse_pair=coarse,
+                                 guidance_pallas_bf16_cumsum=bf16,
+                                 guidance_positive_offset_quirk=quirk)
+                _, fused, mu = plan_inputs(cfg, scenes)
+                ops = gk.kernel_operands(fused, cfg)
+                p = gk.kernel_params(cfg, fused)
+                # a mid-chain beta_t, where the trust region rarely binds,
+                # and a late one, where it does
+                for t in (60, 5):
+                    gvec = torch.stack([coeffs.beta[t],
+                                        torch.tensor(100.0, device=dev),
+                                        ops.gscale])
+                    w = mu[:, :, 0].contiguous()
+                    a = mu[:, :, 1].contiguous()
+                    args = (w, a, *ops[:-1], gvec, p)
+                    ow, oa = gk.guidance_fused(*args)
+                    pw, pa = gk.guidance_fused_plain(*args)
+                    torch.cuda.synchronize()
+                    got = torch.stack([ow, oa])
+                    ref = torch.stack([pw, pa])
+                    if not torch.isfinite(got).all():
+                        raise RuntimeError("kernel output is not finite")
+                    err = (got - ref).abs()
+                    off = err > ATOL + RTOL * ref.abs()
+                    share = float(off.float().mean())
+                    max_err = float(err.max())
+                    bound = 2 * float(coeffs.beta[t]) + 1e-6
+                    moved = float((got - torch.stack([w, a])).abs().max())
+                    log(f"kernel coarse={int(coarse)} bf16={int(bf16)} "
+                        f"quirk={int(quirk)} t={t}: max_abs_err="
+                        f"{max_err:.3e} off_share={share:.2e} "
+                        f"moved={moved:.3e}")
+                    if share > MAX_OFF_SHARE or max_err > bound:
+                        raise RuntimeError(
+                            f"kernel disagrees with the plain version: "
+                            f"{share:.2e} of elements beyond rtol {RTOL} / "
+                            f"atol {ATOL} (allowed {MAX_OFF_SHARE}), max "
+                            f"error {max_err:.3e} (bound {bound:.3e})")
+                    if moved <= 0:
+                        raise RuntimeError("the kernel did not move mu")
+                    worst = max(worst, max_err)
+                    outs[(coarse, bf16, quirk, t)] = got
+                    if coarse and bf16 and not quirk and t == 60:
+                        heavy_ms = time_cuda(lambda: gk.guidance_fused(*args))
+                        heavy_plain_ms = time_cuda(
+                            lambda: gk.guidance_fused_plain(*args))
+    # every flag must change the kernel's result on this problem
+    for i, flag in enumerate(("coarse", "bf16", "quirk")):
+        on = (True, True, False, 60)
+        off = tuple((not v) if j == i else v for j, v in enumerate(on))
+        d = float((outs[on] - outs[off]).abs().max())
+        log(f"kernel flag {flag}: on vs off max diff {d:.3e}")
+        if not d > 0:
+            raise RuntimeError(f"flag {flag} does not change the kernel")
+    log(f"kernel times (coarse+bf16, bs={SCENES}, R={3 * base.n_randoms}, "
+        f"niters={base.guidance_niters}): kernel {heavy_ms:.4f} ms, plain "
+        f"{heavy_plain_ms:.4f} ms (median of 20)")
+    return worst, heavy_ms, heavy_plain_ms
+
+
+def reference_phase(dev, net_cpu, net_dev):
+    """One small reverse pass on the card (kernel) against the CPU (plain
+    version) on pinned noise."""
+    import torch
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.models import net as models
+
+    cfg = bench_config("heavy").with_(n_randoms=4, diffusion_steps=12,
+                                      compute_dtype="float32")
+    out = {}
+    for d, net in (("cpu", net_cpu), (dev, net_dev)):
+        dense, fused, _ = plan_inputs(cfg, scene_batch(cfg, d, n_scenes=2))
+        g = torch.Generator()
+        g.manual_seed(3)
+        noise = torch.randn((cfg.diffusion_steps, 2, cfg.nt, 2, fused.R),
+                            generator=g).to(d)
+        with torch.no_grad():
+            feature = torch.repeat_interleave(net.encode(dense),
+                                              cfg.n_randoms * 3, 0)
+            cm_fn = models.make_cm_eps_fn(net, dense,
+                                          dense["highlevel_dense"], feature,
+                                          cfg)
+            ctrl, _ = diffusion.reverse_sample(
+                cm_fn, fused, cfg, diffusion.get_coeffs(cfg, device=d),
+                maximize=True, noise=noise)
+        out[str(d)] = ctrl.cpu()
+    err = float((out[str(dev)] - out["cpu"]).abs().max())
+    tol = 1e-3
+    log(f"reference: reverse pass card vs cpu, max_abs_err={err:.3e} "
+        f"(tolerance {tol})")
+    if not err <= tol:
+        raise RuntimeError(f"card and cpu reverse passes disagree: {err}")
+
+
+def closed_loop_phase(dev, net):
+    import torch
+    from pstl_tpu_torch import diffusion, sim
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    cfg = bench_config("heavy")
+    scenes = scene_batch(cfg, dev)
+    coeffs = diffusion.get_coeffs(cfg, device=dev)
+    init_carry, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs)
+    c = init_carry(0)
+    torch.cuda.synchronize()
+    gk.launches = 0
+    step_s = []
+    t_all = time.time()
+    for _ in range(STEPS):
+        t0 = time.time()
+        c = step(c)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+    wall = time.time() - t_all
+    launches = gk.launches
+    m = {k: v.cpu() for k, v in sim._carry_metrics(c).items()}
+    guided = int(diffusion._trigger_schedule(cfg).sum())
+    want = guided * STEPS
+    for k, v in m.items():
+        if not torch.isfinite(v.float()).all():
+            raise RuntimeError(f"closed-loop metric {k} is not finite")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want} "
+                           f"({guided} guided steps x {STEPS})")
+    sps = SCENES / median(step_s)
+    log(f"closed loop: {SCENES} scenes x {STEPS} steps, launches={launches},"
+        f" stl_compliance={float(m['stl_acc'].mean()):.4f} "
+        f"collide_rate={float(m['collide'].mean()):.4f} "
+        f"out_of_lane_rate={float(m['out_of_lane'].mean()):.4f} "
+        f"mean_progress_m={float(m['progress'].mean()):.3f} "
+        f"agent_steps_per_s={sps:.3f} (median step "
+        f"{median(step_s) * 1e3:.1f} ms, first {step_s[0] * 1e3:.1f} ms, "
+        f"wall {wall:.2f} s)")
+    return launches
+
+
+def main():
+    if not os.path.isdir(os.path.join(HERE, "pstl_tpu_torch")):
+        print("chip_smoke.py: the pstl_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "false); the port has no CPU path here", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    name_power = gpu_name_power()
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"(torch {torch.__version__}, cuda {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} visible); nvidia-smi: {name_power}")
+
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.models import convert
+    from pstl_tpu_torch.models.net import Net
+    from pstl_tpu_torch.ops import _build, guidance_kernel as gk
+
+    t0 = time.time()
+    _build.load("guidance_fused")
+    info = _build.BUILD_INFO["guidance_fused"]
+    ptx = [ln.strip() for ln in info["report"].splitlines()
+           if "registers" in ln or "spill" in ln]
+    log(f"build: guidance_fused in {time.time() - t0:.2f} s "
+        f"(nvcc {info['build_s']:.2f} s); " + " | ".join(ptx))
+
+    max_err, ms, plain_ms = kernel_phase(dev)
+
+    net_cpu = Net(bench_config("heavy").with_(compute_dtype="float32"))
+    convert.load_weights(net_cpu, "e7_round5")
+    net_dev = Net(bench_config("heavy").with_(compute_dtype="float32"))
+    convert.load_weights(net_dev, "e7_round5")
+    reference_phase(dev, net_cpu.eval(), net_dev.to(dev).eval())
+
+    net = Net(bench_config("heavy"))
+    convert.load_weights(net, "e7_round5")
+    launches = closed_loop_phase(dev, net.to(dev).eval())
+
+    print(json.dumps({"kernels": [{
+        "name": "guidance_fused", "route": "cuda",
+        "source": "pstl_tpu_torch/csrc/guidance_fused.cu",
+        "replaces": "pstl_tpu/ops/pallas_guidance.py:396",
+        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms}]}), flush=True)
+    print(name_power, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

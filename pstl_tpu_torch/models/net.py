@@ -1,0 +1,282 @@
+"""Policy network (diffusion head + RefineNet) as torch ``nn.Module``s —
+port of ``pstl_tpu/models/net.py``.
+
+Dtypes follow the flax model: fp32 parameters, matmuls in the compute dtype
+(``cfg.compute_dtype``, bf16 by default) with the input, weight and bias
+cast to it, ReLU in the compute dtype, fp32 out of every MLP.  The matmul
+and the bias add are separate ops (two roundings in bf16), as in flax's
+``Dense``.  Not ported yet: the VAE and BC heads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from pstl_tpu_torch.config import Config
+
+Tensor = torch.Tensor
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+
+
+def normalize_xyth(state: Tensor, base: Tensor,
+                   valid: Optional[Tensor] = None,
+                   no_theta: bool = False) -> Tensor:
+    """Ego-frame normalization: translate by base (x, y) (gated by
+    ``valid``) and rotate into the base heading frame."""
+    x, y = state[..., 0], state[..., 1]
+    bx, by, bth = base[..., 0], base[..., 1], base[..., 2]
+    if valid is not None:
+        xt = x - bx * valid
+        yt = y - by * valid
+    else:
+        xt = x - bx
+        yt = y - by
+    c, s = torch.cos(bth), torch.sin(bth)
+    x_rel = xt * c + yt * s
+    y_rel = -xt * s + yt * c
+    if no_theta:
+        return torch.stack([x_rel, y_rel], dim=-1)
+    th = state[..., 2]
+    th_rel = th - bth * valid if valid is not None else th - bth
+    return torch.stack([x_rel, y_rel, th_rel], dim=-1)
+
+
+def pos_encoding(t: Tensor, channels: int) -> Tensor:
+    """Sinusoidal diffusion-timestep embedding.  t: (n, 1) -> (n, channels)."""
+    inv_freq = 1.0 / (10000 ** (torch.arange(0, channels, 2,
+                                             dtype=torch.float32,
+                                             device=t.device) / channels))
+    ang = t.float() * inv_freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def dense(x: Tensor, layer: nn.Linear, dt: torch.dtype) -> Tensor:
+    """flax ``Dense(dtype=dt, param_dtype=float32)``: cast, matmul, add."""
+    return x.to(dt) @ layer.weight.to(dt).t() + layer.bias.to(dt)
+
+
+class MLP(nn.Module):
+    """Dense-ReLU stack, ReLU between layers only.  ``layers[i]`` holds
+    flax's ``Dense_i``."""
+
+    def __init__(self, d_in: int, features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = [d_in] + list(features)
+        self.layers = nn.ModuleList(nn.Linear(dims[i], dims[i + 1])
+                                    for i in range(len(features)))
+        self.dtype = dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        x = x.to(self.dtype)
+        for i, layer in enumerate(self.layers):
+            x = dense(x, layer, self.dtype)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x.float()
+
+
+class Net(nn.Module):
+    """Conditional diffusion policy with the RefineNet rectification head."""
+    FEAT_DIM = 32
+    STLP_DIM = 6
+    TIME_DIM = 32
+    LANE_DIM = 3
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        if cfg.vae or cfg.bc or not cfg.diffusion:
+            raise NotImplementedError(
+                "the torch port has the diffusion head only (VAE and BC "
+                "heads are not ported yet)")
+        if not cfg.multi_check or cfg.use_init_hint:
+            raise NotImplementedError(
+                "the single-candidate (gt_data_training) and init-hint "
+                "diffusion inputs are not ported yet")
+        self.cfg = cfg
+        h = tuple(cfg.hiddens)
+        dt = compute_dtype(cfg)
+        F = self.FEAT_DIM
+        self.ego_encoder = MLP(6, h + (F,), dt)
+        self.neighbor_encoder = MLP(7, h + (F,), dt)
+        self.lane_encoder = MLP(cfg.n_segs * self.LANE_DIM, h + (F,), dt)
+        feat = 7 * F
+        self.policy_net = MLP(feat + cfg.latent_dim, h + (cfg.nt * 2,), dt)
+        if cfg.rect_head:
+            rect_in = feat + 1 + self.STLP_DIM + cfg.nt * 2
+            if cfg.diverse_loss:
+                self.merge_net = MLP(cfg.nt * 2, (32, 32, cfg.nt * 2), dt)
+                if cfg.diverse_fuse_type == "cat":
+                    rect_in += cfg.nt * 2
+            self.rect_net = MLP(rect_in, tuple(cfg.rect_hiddens)
+                                + (cfg.nt * 2,), dt)
+
+    # ------------------------------------------------------------------
+    def encode(self, batch: Dict[str, Tensor]) -> Tensor:
+        """Scene feature (bs, 7*32)."""
+        cfg = self.cfg
+        bs = batch["ego_traj"].shape[0]
+        ego = batch["ego_traj"][:, 0]
+        ego_un = ego[:, None, :]
+        neis = batch["neighbors"]                          # (bs, K, 7)
+        neis_xyth = normalize_xyth(neis[..., 1:4], ego_un[..., :3],
+                                   neis[..., 0])
+        neis_in = torch.cat([neis[..., 0:1], neis_xyth, neis[..., 4:7]], -1)
+        lanes = torch.stack(
+            [normalize_xyth(batch[f"{k}lane_wpts"], ego_un[..., :3],
+                            batch[f"{k}_id"])
+             for k in ("curr", "left", "right")], dim=1)   # (bs,3,S,3)
+        lanes_in = torch.cat(
+            [lanes[..., 0:1, :], lanes[..., 1:, :] - lanes[..., :-1, :]],
+            dim=-2).reshape(bs, 3, cfg.n_segs * self.LANE_DIM)
+        ego_xyth = normalize_xyth(ego[..., :3], ego[..., :3])
+        ego_in = torch.cat([ego_xyth, ego[..., 3:]], dim=-1)
+        ego_feat = self.ego_encoder(ego_in)
+        nei_feat = self.neighbor_encoder(neis_in)          # (bs, K, 32)
+        nei_feat = torch.cat([torch.amin(nei_feat, 1),
+                              torch.mean(nei_feat, 1),
+                              torch.amax(nei_feat, 1)], dim=-1)
+        lane_feat = self.lane_encoder(lanes_in).reshape(bs, -1)
+        return torch.cat([ego_feat, nei_feat, lane_feat], dim=-1)
+
+    # ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, Tensor], ext: Dict[str, Tensor],
+                prev_feature: Optional[Tensor] = None,
+                n_randoms: Optional[int] = None,
+                get_feature: bool = False):
+        """Diffusion forward of the multi-candidate rows: epsilon prediction
+        (n, nt, 2).  ext: timestep (n,1), highlevel (n,1), noise (n, nt*2);
+        the scene feature is tiled to bs * n_randoms * 3 rows and
+        ``stlp_dense`` supplies the pSTL parameters."""
+        cfg = self.cfg
+        if n_randoms is None:
+            n_randoms = cfg.n_randoms
+        if prev_feature is not None:
+            feature = prev_feature
+        else:
+            feature = torch.repeat_interleave(self.encode(batch),
+                                              n_randoms * 3, 0)
+        time_feat = pos_encoding(ext["timestep"], self.TIME_DIM)
+        pin = torch.cat([feature, ext["noise"], time_feat, ext["highlevel"],
+                         batch["stlp_dense"][:, 0]], -1)
+        raw = self.policy_net(pin) + ext["noise"]
+        controls = raw.reshape(-1, cfg.nt, 2)
+        if get_feature:
+            return controls, feature
+        return controls
+
+    # ------------------------------------------------------------------
+    def rect(self, feature: Tensor, highlevel: Tensor, stlp: Tensor,
+             init_controls: Tensor, scores: Tensor) -> Tensor:
+        """RefineNet rectification of violating candidates (scores < 0),
+        with the merge-net shard max (``diverse_loss``) and the tanh
+        interval reparameterization (``interval``)."""
+        cfg = self.cfg
+        n = feature.shape[0]
+        D = cfg.nt * 2
+        if cfg.diverse_loss and not cfg.no_arch:
+            fused = self.merge_net(init_controls.reshape(-1, D))
+            M, NS = cfg.n_randoms, cfg.n_shards
+            if M % NS or n % (3 * M):
+                raise ValueError(
+                    f"rect diversity fusion needs n_randoms ({M}) divisible "
+                    f"by n_shards ({NS}) and rows ({n}) divisible by 3*M")
+            bs = n // (3 * M)
+            fused = fused.reshape(bs, M, 3, D).transpose(1, 2)
+            fused = fused.reshape(bs, 3, NS, M // NS, D)
+            fused = torch.amax(fused, dim=3, keepdim=True).expand(
+                bs, 3, NS, M // NS, D).reshape(bs, 3, M, D)
+            fused = fused.transpose(1, 2).reshape(n, cfg.nt, 2)
+            if cfg.diverse_fuse_type == "add":
+                pin = torch.cat([feature, highlevel, stlp,
+                                 (init_controls + fused).reshape(n, D)], -1)
+            elif cfg.diverse_fuse_type == "cat":
+                pin = torch.cat([feature, highlevel, stlp,
+                                 init_controls.reshape(n, D),
+                                 fused.reshape(n, D)], -1)
+            else:
+                raise NotImplementedError(cfg.diverse_fuse_type)
+        else:
+            pin = torch.cat([feature, highlevel, stlp,
+                             init_controls.reshape(n, D)], -1)
+        raw = self.rect_net(pin).reshape(n, cfg.nt, 2)
+        if cfg.interval:
+            init_w, init_a = init_controls[..., 0], init_controls[..., 1]
+            t = torch.tanh(raw)
+            w_mask = (t[..., 0] >= 0).to(t.dtype)
+            a_mask = (t[..., 1] >= 0).to(t.dtype)
+            w0 = t[..., 0] * (init_w + cfg.mul_w_max)
+            w1 = t[..., 0] * (cfg.mul_w_max - init_w)
+            a0 = t[..., 1] * (init_a + cfg.mul_a_max)
+            a1 = t[..., 1] * (cfg.mul_a_max - init_a)
+            raw = torch.stack([w0 * (1 - w_mask) + w1 * w_mask,
+                               a0 * (1 - a_mask) + a1 * a_mask], dim=-1)
+        violated = (scores < 0).to(raw.dtype)[:, None, None]
+        out = init_controls + raw * violated
+        if cfg.clip_rect:
+            out = torch.stack(
+                [torch.clamp(out[..., 0], -cfg.mul_w_max, cfg.mul_w_max),
+                 torch.clamp(out[..., 1], -cfg.mul_a_max, cfg.mul_a_max)],
+                dim=-1)
+        return out
+
+
+# ----------------------------------------------------------------------
+def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
+                   feature: Tensor, cfg: Config,
+                   n_randoms: Optional[int] = None):
+    """Candidate-minor epsilon predictor for the DDPM reverse loop.
+
+    Layer 1 of the policy MLP is linear, so it splits by input block: the
+    feature / highlevel / stlp contribution ``base`` is computed
+    once per plan and laid out candidate-minor (bs, h1, R); the timestep
+    embedding gives one (h1,) vector per denoise step; only the noise block
+    depends on x.  Returns ``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` with
+    r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout).
+    """
+    layers = net.policy_net.layers
+    kern = [l.weight.t() for l in layers]                 # flax (in, out)
+    bias = [l.bias for l in layers]
+    dt = compute_dtype(cfg)
+    M = n_randoms if n_randoms is not None else cfg.n_randoms
+    D = cfg.nt * 2
+    TD = Net.TIME_DIM
+    F = feature.shape[-1]
+    bs = feature.shape[0] // (M * 3)
+    R = M * 3
+    stlp_feat = batch["stlp_dense"][:, 0]
+    W1 = kern[0]
+    o = F + D + TD
+    base = (feature.to(dt) @ W1[:F].to(dt)
+            + highlevel.to(dt) @ W1[o:o + 1].to(dt)
+            + stlp_feat.to(dt) @ W1[o + 1:o + 1 + Net.STLP_DIM].to(dt)
+            + bias[0].to(dt))
+    h1 = base.shape[-1]
+    base_cm = base.reshape(bs, M, 3, h1).permute(0, 3, 2, 1).reshape(
+        bs, h1, R)
+    WnT = W1[F:F + D].to(dt).t().contiguous()             # (h1, D)
+    Wt = W1[F + D:o].to(dt)
+    midT = [(kern[i].to(dt).t().contiguous(), bias[i].to(dt)[None, :, None])
+            for i in range(1, len(kern) - 1)]
+    WoT = kern[-1].to(dt).t().contiguous()
+    bo = bias[-1].to(dt)[None, :, None]
+
+    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
+        te = pos_encoding(torch.full((1, 1), float(t), device=x_cm.device),
+                          TD)
+        h = (base_cm + (te.to(dt) @ Wt)[0][None, :, None]
+             + WnT @ x_cm.reshape(bs, D, R).to(dt))
+        h = torch.relu(h)
+        for WT, b in midT:
+            h = torch.relu(WT @ h + b)
+        raw = WoT @ h + bo
+        return raw.float().reshape(bs, cfg.nt, 2, R) + x_cm
+
+    return eps_cm

@@ -1,0 +1,428 @@
+"""Closed-loop replanning simulator (port of ``pstl_tpu/sim.py``).
+
+Every scene is pre-extracted into fixed-shape tensors, so one step —
+observe around the simulated pose, plan (DDPM reverse pass with fused
+guidance, multi-candidate selection, RefineNet + ``n_rolls``
+re-rectification, lane-keep argmax), Euler env step with collision and
+drivable-area checks, metric update — runs on the device for a batch of
+scenes.  The JAX package writes observe / env_step per scene and vmaps
+them; here they take the scene batch directly.  ``chunk`` (steps per
+dispatch in JAX) becomes a Python loop in the caller.
+
+Not ported yet: the backup controller and the refinement options
+(``refine.py``), the VAE / BC planners.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pstl_tpu_torch import diffusion, specs
+from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.models import net as models
+from pstl_tpu_torch.models.net import Net
+from pstl_tpu_torch.ops import dynamics as dyn
+from pstl_tpu_torch.ops import geometry as geom
+
+Tensor = torch.Tensor
+
+LANE_OFFSET = 3.5
+D_SAFE = 0.1
+CORRIDOR_HALF = 3.25
+AGGRESSIVE_STLP = np.array([1.0, 9.0, -3.0, 2.0, 0.1, 0.2], np.float32)
+
+
+class SceneTensors(NamedTuple):
+    """Per-scene pre-extracted tensors, stacked over a batch of scenes."""
+    ego_full: Tensor        # (bs, L_full, 4) GT ego states
+    nei_full: Tensor        # (bs, K, L_full, 7) neighbor tracks
+    center_dense: Tensor    # (bs, n_dense, 3) dense current-lane centerline
+    lane_valids: Tensor     # (bs, 3)
+    length: Tensor          # (bs,) scene length (sim steps)
+    drivable: Tensor        # (bs, H, W) bool drivable-area raster
+    drivable_origin: Tensor  # (bs, 2)
+    drivable_res: Tensor    # (bs,)
+    lanes_t: Optional[Tensor] = None        # (bs, Lt, 3, n_segs, 3)
+    lane_valids_t: Optional[Tensor] = None  # (bs, Lt, 3)
+    hl_t: Optional[Tensor] = None           # (bs, Lt)
+
+
+def rasterize_corridor(center_dense: np.ndarray, lane_valids: np.ndarray,
+                       resolution: float = 0.5, margin: float = 12.0):
+    """Drivable raster of the analytic lane corridor: a cell is drivable
+    within CORRIDOR_HALF of a valid lane's centerline.  Returns (mask
+    (H, W) bool, origin (2,), resolution)."""
+    pts = center_dense[:, :2]
+    lo = pts.min(axis=0) - (LANE_OFFSET + margin)
+    hi = pts.max(axis=0) + (LANE_OFFSET + margin)
+    H = int(np.ceil((hi[1] - lo[1]) / resolution))
+    W = int(np.ceil((hi[0] - lo[0]) / resolution))
+    gx = lo[0] + (np.arange(W) + 0.5) * resolution
+    gy = lo[1] + (np.arange(H) + 0.5) * resolution
+    offsets = [0.0] + [LANE_OFFSET * s for s, v in
+                       ((+1.0, lane_valids[1]), (-1.0, lane_valids[2]))
+                       if v > 0.5]
+    nx = -np.sin(center_dense[:, 2])
+    ny = np.cos(center_dense[:, 2])
+    mask = np.zeros((H, W), bool)
+    for i0 in range(0, H, 64):
+        gyc = gy[i0:i0 + 64]
+        ok = np.zeros((len(gyc), W), bool)
+        for off in offsets:
+            ox = pts[None, None, :, 0] + nx[None, None, :] * off
+            oy = pts[None, None, :, 1] + ny[None, None, :] * off
+            dd = (gx[None, :, None] - ox) ** 2 \
+                + (gyc[:, None, None] - oy) ** 2
+            ok |= np.min(dd, axis=-1) <= CORRIDOR_HALF ** 2
+        mask[i0:i0 + 64] = ok
+    return mask, lo.astype(np.float32), np.float32(resolution)
+
+
+def scenes_from_dataset(data: Dict[str, np.ndarray],
+                        device=None) -> SceneTensors:
+    if "scene_drivable" in data:
+        mask = np.asarray(data["scene_drivable"])
+        origin = np.asarray(data["scene_drivable_origin"])
+        res = np.asarray(data["scene_drivable_res"])
+    else:
+        masks, origins, ress = [], [], []
+        for i in range(len(data["scene_center_dense"])):
+            m, o, r = rasterize_corridor(
+                np.asarray(data["scene_center_dense"][i]),
+                np.asarray(data["scene_lane_valids"][i]))
+            masks.append(m)
+            origins.append(o)
+            ress.append(r)
+        Hm = max(m.shape[0] for m in masks)
+        Wm = max(m.shape[1] for m in masks)
+        mask = np.zeros((len(masks), Hm, Wm), bool)
+        for i, m in enumerate(masks):
+            mask[i, :m.shape[0], :m.shape[1]] = m
+        origin = np.stack(origins)
+        res = np.stack(ress)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    opt = {k: (t(data[f"scene_{k}"]) if f"scene_{k}" in data else None)
+           for k in ("lanes_t", "lane_valids_t", "hl_t")}
+    return SceneTensors(
+        ego_full=t(data["scene_ego_full"]),
+        nei_full=t(data["scene_nei_full"]),
+        center_dense=t(data["scene_center_dense"]),
+        lane_valids=t(data["scene_lane_valids"]),
+        length=t(data["scene_len"]).long(),
+        drivable=t(mask),
+        drivable_origin=t(origin),
+        drivable_res=t(res),
+        **opt)
+
+
+# ---------------------------------------------------------------------------
+# observation
+# ---------------------------------------------------------------------------
+
+def _rows(x: Tensor, idx: Tensor) -> Tensor:
+    """x[b, idx[b]] for a leading batch axis: (bs, n, ...) -> (bs, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def lane_window_device(center_dense: Tensor, pose_xy: Tensor,
+                       n_segs: int) -> Tensor:
+    """Re-window each scene's dense centerline around its pose.
+    center_dense (bs, n_dense, 3), pose_xy (bs, 2) -> (bs, n_segs, 3)."""
+    n_dense = center_dense.shape[1]
+    d2 = torch.sum((center_dense[..., :2] - pose_xy[:, None]) ** 2, dim=-1)
+    i0 = torch.clamp(torch.argmin(d2, dim=-1) - 2, min=0)
+    stride = torch.clamp((n_dense - i0 - 1) // (n_segs * 2), min=1)
+    idx = torch.clamp(i0[:, None] + torch.arange(n_segs, device=d2.device)
+                      * stride[:, None], 0, n_dense - 1)
+    return torch.gather(center_dense, 1, idx[..., None].expand(-1, -1, 3))
+
+
+def offset_lane_device(lane: Tensor, offset: float) -> Tensor:
+    nx = -torch.sin(lane[..., 2])
+    ny = torch.cos(lane[..., 2])
+    return torch.stack([lane[..., 0] + nx * offset,
+                        lane[..., 1] + ny * offset, lane[..., 2]], dim=-1)
+
+
+def observe(scenes: SceneTensors, ego_state: Tensor, t: Tensor,
+            cfg: Config) -> Dict[str, Tensor]:
+    """Fixed-shape observations of a scene batch at sim times t (bs,)
+    around the simulated poses ego_state (bs, 4)."""
+    nt = cfg.nt
+    bs = ego_state.shape[0]
+    dev = ego_state.device
+    steps = t[:, None] + torch.arange(nt, device=dev)            # (bs, nt)
+    nei = scenes.nei_full                                        # (bs,K,L,7)
+    nei_win = torch.gather(nei, 2, steps[:, None, :, None].expand(
+        -1, nei.shape[1], -1, 7))                                # (bs,K,nt,7)
+    curr = lane_window_device(scenes.center_dense, ego_state[:, :2],
+                              cfg.n_segs)
+    if scenes.lanes_t is not None:
+        Lt = scenes.lanes_t.shape[1]
+        d2g = torch.sum((scenes.ego_full[:, :Lt, :2]
+                         - ego_state[:, None, :2]) ** 2, dim=-1)
+        it = torch.argmin(d2g, dim=-1)
+        valids = (_rows(scenes.lane_valids_t, it)
+                  if scenes.lane_valids_t is not None
+                  else scenes.lane_valids)
+        lanes = _rows(scenes.lanes_t, it)                        # (bs,3,S,3)
+        left = lanes[:, 1] * valids[:, 1, None, None]
+        right = lanes[:, 2] * valids[:, 2, None, None]
+    else:
+        valids = scenes.lane_valids
+        left = offset_lane_device(curr, LANE_OFFSET) \
+            * valids[:, 1, None, None]
+        right = offset_lane_device(curr, -LANE_OFFSET) \
+            * valids[:, 2, None, None]
+    ego_traj = torch.cat(
+        [ego_state[:, None, :].expand(bs, nt, 4),
+         torch.full((bs, nt, 1), cfg.ego_L, device=dev),
+         torch.full((bs, nt, 1), cfg.ego_W, device=dev)], dim=-1)
+    if scenes.hl_t is not None and scenes.lanes_t is not None:
+        hl = _rows(scenes.hl_t, it).float()
+    else:
+        d0 = geom.point_to_polyline(ego_state[:, None, :3], curr)[:, 0]
+        zero = torch.zeros_like(d0)
+        hl = torch.where(
+            d0 > LANE_OFFSET / 2,
+            torch.where(valids[:, 1] > 0.5, zero + 1.0, zero),
+            torch.where(d0 < -LANE_OFFSET / 2,
+                        torch.where(valids[:, 2] > 0.5, zero + 2.0, zero),
+                        zero))
+    return {
+        "ego_traj": ego_traj,
+        "neighbors": nei_win[:, :, 0],
+        "neighbors_traj": nei_win,
+        "neighbor_trajs_aug": nei_win,
+        "currlane_wpts": curr,
+        "leftlane_wpts": left,
+        "rightlane_wpts": right,
+        "curr_id": valids[:, 0:1],
+        "left_id": valids[:, 1:2],
+        "right_id": valids[:, 2:3],
+        "gt_high_level": hl[:, None],
+    }
+
+
+# ---------------------------------------------------------------------------
+# planner
+# ---------------------------------------------------------------------------
+
+def check_supported(cfg: Config) -> None:
+    """Raise for planner configurations the port does not run yet."""
+    if cfg.backup:
+        raise NotImplementedError("the backup controller (refine.py) is "
+                                  "not ported")
+    if cfg.refinement or cfg.raw_refinement:
+        raise NotImplementedError("refinement (refine.py) is not ported")
+    if cfg.vae or cfg.bc or not cfg.diffusion:
+        raise NotImplementedError("only the diffusion planner is ported")
+    if cfg.use_pallas_clearance:
+        raise NotImplementedError("use_pallas_clearance (the fused "
+                                  "min-clearance kernel) is not ported")
+    if cfg.use_init_hint:
+        raise NotImplementedError("use_init_hint needs the hint draws, "
+                                  "which are not ported")
+    diffusion.check_supported(cfg)
+
+
+def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
+    """Returns ``plan(obs, noise=None, generator=None) -> (u0 (bs, 2),
+    info)``: dense batching with the aggressive stlp override, the DDPM
+    reverse pass with guidance (maximize), multi-cands + RefineNet +
+    n_rolls re-rectification, lane-keep restriction with the forward
+    shield, argmax robustness.  (The per-scene ``stlp_override`` presets of
+    the JAX planner are not ported.)"""
+    check_supported(cfg)
+    M = cfg.n_randoms
+
+    @torch.no_grad()
+    def plan(obs: Dict[str, Tensor], noise: Optional[Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+        bs = obs["ego_traj"].shape[0]
+        dev = obs["ego_traj"].device
+        n = bs * M * 3
+        override = torch.as_tensor(AGGRESSIVE_STLP, device=dev)
+        states = obs["ego_traj"][:, 0, :4]
+        dense = specs.densify_batch(obs, override.expand(bs, 6), cfg,
+                                    override.expand(n, 1, 6))
+        highlevel = dense["highlevel_dense"]
+        valid = dense["valids_dense"].reshape(-1)
+        states_flat = torch.repeat_interleave(states, M * 3, 0)
+        score_rows = specs.make_score_rows(obs, dense, cfg)
+
+        def score_controls(u):
+            trajs = dyn.rollout(states_flat, u, cfg.dt)
+            s = score_rows(trajs[:, :-1])
+            return s, trajs
+
+        # the scene feature, tiled to the n candidate rows (the JAX planner
+        # reads it from Net.__call__(get_feature=True))
+        feature = torch.repeat_interleave(net.encode(dense), M * 3, 0)
+        fused = specs.make_guidance_loss(obs, dense, cfg, states, valid)
+        cm_fn = models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
+        nn_controls, all_steps = diffusion.reverse_sample(
+            cm_fn, fused, cfg, coeffs, maximize=True, noise=noise,
+            generator=generator)
+
+        if cfg.rect_head and not cfg.not_use_rect:
+            if cfg.multi_cands is not None:
+                nn_controls, prev_scores = diffusion.select_multi_cands(
+                    all_steps, cfg.multi_cands, states_flat, score_rows, cfg)
+            else:
+                prev_scores, _ = score_controls(nn_controls)
+            stlp_rows = dense["stlp_dense"][:, 0]
+            controls = net.rect(feature, highlevel, stlp_rows, nn_controls,
+                                prev_scores)
+            for _ in range(cfg.n_rolls or 0):
+                s_re, _ = score_controls(controls)
+                controls = net.rect(feature, highlevel, stlp_rows, controls,
+                                    s_re)
+        else:
+            controls = nn_controls
+
+        scores, trajs = score_controls(controls)
+        scores3 = scores.reshape(bs, M, 3)
+        if cfg.forward_shield:
+            min_v = torch.amin(trajs[..., 3], dim=-1).reshape(bs, M, 3)
+            scores3 = scores3 - torch.clamp(-min_v, min=0.0) * 1e3
+        keep = torch.arange(3, device=dev)[None, None, :] == 0
+        keep_scores = torch.where(keep, scores3,
+                                  torch.full_like(scores3, -10000.0))
+        best = torch.argmax(keep_scores.reshape(bs, M * 3), dim=-1)
+        u_all = controls.reshape(bs, M * 3, cfg.nt, 2)
+        tr_all = trajs.reshape(bs, M * 3, cfg.nt + 1, 4)
+        u_best = _rows(u_all, best)
+        tr_best = _rows(tr_all, best)
+        stl_acc = torch.mean((keep_scores[:, :, 0] > 0).float(), dim=-1)
+        info = {"controls": controls, "trajs": trajs, "scores": scores,
+                "plan_traj": tr_best, "stl_acc": stl_acc,
+                "valids_dense": dense["valids_dense"]}
+        return u_best[:, 0, :], info
+
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# environment step
+# ---------------------------------------------------------------------------
+
+def env_step(scenes: SceneTensors, ego_state: Tensor, t: Tensor, u: Tensor,
+             cfg: Config):
+    """One Euler step + collision / out-of-lane checks for a scene batch.
+    Returns (new_state (bs, 4), collide, out_of_lane, done_t) (bs,)."""
+    new_state = ego_state + dyn.dynamics(ego_state, u) * cfg.dt
+    if cfg.env_nonnegative_speed:
+        new_state = torch.cat([new_state[:, :3],
+                               torch.clamp(new_state[:, 3:4], min=0.0)], -1)
+    nei = scenes.nei_full
+    nei_next = torch.gather(nei, 2, (t + 1)[:, None, None, None].expand(
+        -1, nei.shape[1], 1, 7))[:, :, 0]                        # (bs,K,7)
+    clear = geom.car_clearance(new_state[:, None, :3], cfg.ego_L, cfg.ego_W,
+                               nei_next[..., 1:4], nei_next[..., 5],
+                               nei_next[..., 6], cfg.refined_nL,
+                               cfg.refined_nW)
+    clear = torch.clamp(clear, -5.0, 20.0) * nei_next[..., 0] \
+        + (1 - nei_next[..., 0]) * 100.0
+    collide = torch.amin(clear, dim=-1) < D_SAFE
+    rel = (new_state[:, :2] - scenes.drivable_origin) \
+        / scenes.drivable_res[:, None]
+    j = torch.floor(rel[:, 0]).long()
+    i = torch.floor(rel[:, 1]).long()
+    H, W = scenes.drivable.shape[1:]
+    in_bounds = (i >= 0) & (i < H) & (j >= 0) & (j < W)
+    cell = scenes.drivable[torch.arange(i.shape[0], device=i.device),
+                           torch.clamp(i, 0, H - 1), torch.clamp(j, 0, W - 1)]
+    out_of_lane = ~(in_bounds & cell)
+    done_t = t + 1 >= scenes.length - 2
+    return new_state, collide, out_of_lane, done_t
+
+
+# ---------------------------------------------------------------------------
+# episode runner
+# ---------------------------------------------------------------------------
+
+class Carry(NamedTuple):
+    """Closed-loop episode state (batched over scenes)."""
+    ego: Tensor          # (bs, 4)
+    t: Tensor            # (bs,) long
+    done: Tensor         # (bs,) bool
+    collide: Tensor
+    out_of_lane: Tensor
+    progress: Tensor
+    stl_acc_sum: Tensor
+    steps: Tensor
+    repairs: Tensor
+    generator: torch.Generator   # the planner's noise source
+
+
+def _init_carry(scenes: SceneTensors, generator: torch.Generator,
+                t0: Optional[Tensor] = None) -> Carry:
+    bs = scenes.ego_full.shape[0]
+    dev = scenes.ego_full.device
+    t0 = (torch.zeros((bs,), dtype=torch.long, device=dev) if t0 is None
+          else torch.as_tensor(t0, device=dev).long())
+    ego0 = _rows(scenes.ego_full, t0)
+    zf = torch.zeros((bs,), device=dev)
+    zb = torch.zeros((bs,), dtype=torch.bool, device=dev)
+    return Carry(ego=ego0, t=t0, done=zb, collide=zb, out_of_lane=zb,
+                 progress=zf, stl_acc_sum=zf, steps=zf, repairs=zf,
+                 generator=generator)
+
+
+def _make_body(scenes: SceneTensors, cfg: Config, plan):
+    """The (observe -> plan -> env step -> metric update) step."""
+
+    def body(c: Carry, noise: Optional[Tensor] = None):
+        obs = observe(scenes, c.ego, c.t, cfg)
+        u0, info = plan(obs, noise=noise, generator=c.generator)
+        new_ego, collide, ool, done_t = env_step(scenes, c.ego, c.t, u0, cfg)
+        active = ~c.done
+        carry = Carry(
+            ego=torch.where(active[:, None], new_ego, c.ego),
+            t=torch.where(active, c.t + 1, c.t),
+            done=c.done | ((collide | ool | done_t) & active),
+            collide=c.collide | (collide & active),
+            out_of_lane=c.out_of_lane | (ool & active),
+            progress=c.progress + active * c.ego[:, 3] * cfg.dt,
+            stl_acc_sum=c.stl_acc_sum + active * info["stl_acc"],
+            steps=c.steps + active,
+            repairs=c.repairs,     # the backup controller is not ported
+            generator=c.generator)
+        return carry
+
+    return body
+
+
+def _carry_metrics(c: Carry) -> Dict[str, Tensor]:
+    steps = torch.clamp(c.steps, min=1.0)
+    return {
+        "collide": c.collide.float(),
+        "out_of_lane": c.out_of_lane.float(),
+        "traj_len": c.steps,
+        "progress": c.progress,
+        "stl_acc": c.stl_acc_sum / steps,
+        "agent_steps": torch.sum(c.steps),
+        "repairs": c.repairs,
+    }
+
+
+def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
+                          coeffs: diffusion.Coeffs):
+    """Returns (init_carry, step).  ``init_carry(seed=0, t0=None)`` starts
+    the episodes (the planner draws its noise from a device generator
+    seeded with ``seed``); ``step(carry, noise=None)`` runs one replanning
+    step for every scene (done scenes are masked, not skipped).  Call
+    ``step`` in a loop for several steps."""
+    body = _make_body(scenes, cfg, make_planner(cfg, net, coeffs))
+    dev = scenes.ego_full.device
+
+    def init_carry(seed: int = 0, t0=None):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        return _init_carry(scenes, gen, t0=t0)
+
+    return init_carry, body

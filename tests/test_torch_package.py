@@ -1,0 +1,113 @@
+"""The torch port as a package: it never imports jax or the JAX package,
+and its mirrored flag table and synthetic generator equal the JAX ones."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import bench
+from pstl_tpu.config import Config as JConfig
+from pstl_tpu.data import synthetic as jsyn
+from pstl_tpu_torch.config import Config as TConfig, bench_config
+from pstl_tpu_torch.data import synthetic as tsyn
+
+import torch_parity  # noqa: F401  (torch thread count)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pstl_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pstl_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_package_imports_no_jax_ast():
+    """No module of the port (nor chip_smoke.py) names jax, flax, optax,
+    orbax or the JAX package in an import."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    bad = []
+    for f in files:
+        for mod in _imported_modules(f):
+            top = mod.split(".")[0]
+            if top in FORBIDDEN:
+                bad.append((os.path.relpath(f, REPO), mod))
+    assert not bad, bad
+
+
+def test_package_import_loads_no_jax():
+    """Importing the port (its entry modules) loads no jax, even
+    indirectly."""
+    code = ("import pstl_tpu_torch, pstl_tpu_torch.sim, "
+            "pstl_tpu_torch.models.convert; import sys; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_config_fields_and_defaults_mirror_jax():
+    jf = {f.name: (f.default, str(f.type)) for f in dataclasses.fields(
+        JConfig)}
+    tf = {f.name: (f.default, str(f.type)) for f in dataclasses.fields(
+        TConfig)}
+    assert list(jf) == list(tf)
+    assert jf == tf
+
+
+@pytest.mark.parametrize("mode", ["heavy", "parity", "parity_nog"])
+def test_bench_configs_finalize_equal(mode, monkeypatch):
+    """bench.build_cfg(mode) (every BENCH_* knob unset) and the port's
+    bench_config(mode) finalize to equal field dicts; so do the same flags
+    given to both Config classes."""
+    for k in list(os.environ):
+        if k.startswith("BENCH_"):
+            monkeypatch.delenv(k)
+    assert bench.build_cfg(mode).to_dict() == bench_config(mode).to_dict()
+    flags = dict(diffusion=True, rect_head=True, diverse_loss=True,
+                 multi_cands=10, guidance=True, n_rolls=3,
+                 guidance_pallas_pack=2, clearance_coarse_pair=True,
+                 flex=True)
+    assert (JConfig(**flags).finalize().to_dict()
+            == TConfig(**flags).finalize().to_dict())
+
+
+def test_finalize_rejections_mirror_jax():
+    for kw in (dict(guidance_pallas_pack=2, guidance_pallas_fold2=True),
+               dict(guidance_pallas_fuse_freeze=True, guidance_sel_every=2),
+               dict(guidance_pallas=True, robustness_dtype="bfloat16"),
+               dict(guidance_pallas_superstep=True, cm_sampler=False)):
+        with pytest.raises(ValueError):
+            JConfig(**kw).finalize()
+        with pytest.raises(ValueError):
+            TConfig(**kw).finalize()
+
+
+@pytest.mark.parametrize("t_samples", [1, 3])
+def test_synthetic_dataset_bit_identical(t_samples):
+    """generate_dataset is a line-for-line numpy mirror: same draws, same
+    arrays, key for key."""
+    kw = dict(n_randoms=4, n_neighbors=8, synth_low_speed_frac=0.3)
+    a = jsyn.generate_dataset(0, 4, JConfig(**kw), scene_len=38,
+                              t_samples=t_samples)
+    b = tsyn.generate_dataset(0, 4, TConfig(**kw), scene_len=38,
+                              t_samples=t_samples)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -1,0 +1,215 @@
+"""Torch transcription of the fused guidance kernel's hand-written backward
+pass (``pstl_tpu_torch/csrc/guidance_fused.cu``, ``score_grad``),
+vectorized over the candidate columns with the kernel's serial loops over
+t kept as loops.  It exists for the tests: the CUDA kernel cannot run on a
+CPU, so its VJP algebra is checked here against ``torch.autograd`` of the
+plain version (``tests/test_torch_guidance.py``), and the kernel is
+compared with the plain version on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+
+import torch
+
+from pstl_tpu_torch.ops import guidance_kernel as gk
+
+
+def _grad_clip(x, lo, hi):
+    """d/dx of jnp.clip(x, lo, hi) (0.5 at a boundary)."""
+    f1 = torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0))
+    f2 = torch.where(x < hi, 1.0, torch.where(x == hi, 0.5, 0.0))
+    return f1 * f2
+
+
+def _grad_max(x, lo):
+    return torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0))
+
+
+def _stats(z, dim=1):
+    m = torch.amax(z, dim=dim, keepdim=True)
+    return m, torch.sum(torch.exp(z - m), dim=dim, keepdim=True)
+
+
+def _ev_fwd(z, nt2):
+    """Serial suffix logaddexp and its (m2, S2) stats; z (bs, T, R)."""
+    T = z.shape[1]
+    suf = [None] * T
+    suf[T - 1] = z[:, T - 1]
+    for t in range(T - 2, -1, -1):
+        suf[t] = torch.logaddexp(z[:, t], suf[t + 1])
+    suf = torch.stack(suf, dim=1)
+    m2, S2 = _stats(-suf[:, :nt2])
+    return suf, m2, S2, (m2 + torch.log(S2))[:, 0]
+
+
+def _ev_bwd(z, suf, nt2, m2, S2, gout):
+    """d ev / d g_u = sum_{t <= min(u, nt2-1)} q_t exp(z_u - s_t)."""
+    T = z.shape[1]
+    B = torch.zeros_like(z[:, 0])
+    out = []
+    for u in range(T):
+        if u > 0:
+            B = B * torch.exp(suf[:, u] - suf[:, u - 1])
+        if u < nt2:
+            B = B + torch.exp(-suf[:, u] - m2[:, 0]) / S2[:, 0]
+        out.append(gout * torch.exp(z[:, u] - suf[:, u]) * B)
+    return torch.stack(out, dim=1)
+
+
+def score_grad(w, a, pay, ops, p, thres, gscale):
+    """Per-column robustness (bs, R) and the gradient of
+    sum relu(thres - score) * valid * gscale w.r.t. (w, a), both (bs, T, R),
+    as the kernel computes them."""
+    tau, M, T = p.tau, p.M, p.T
+    R = w.shape[-1]
+    x, y, th, v, c, s = gk.rollout_cm(w, a, ops.scal, p)
+    x2, y2, th2, x3, y3 = (pay[k] for k in ("x2", "y2", "th2", "x3", "y3"))
+    area = x * (y2 - y3) + x2 * (y3 - y) + x3 * (y - y2)
+    bottom = torch.sqrt((x2 - x3) ** 2 + (y2 - y3) ** 2)
+    bc = torch.clamp(bottom, min=1e-7)
+    normal = (bottom != 0).float()
+    q = (x - x2) ** 2 + (y - y2) ** 2
+    l2d = torch.sqrt(torch.clamp(q, min=1e-3))
+    d0 = normal * area / bc + (1 - normal) * l2d
+    zero = torch.zeros_like(d0)
+    nc, ba, aa, sgn, l2d1, q1 = zero + 1, zero, zero, zero, zero + 1, zero
+    dpre = d0
+    if p.inline:
+        q1 = (x - x3) ** 2 + (y - y3) ** 2
+        l2d1 = torch.sqrt(torch.clamp(q1, min=1e-3))
+        behind = ((x - x2) * (x3 - x2) + (y - y2) * (y3 - y2)) <= 0
+        ahead = ((x - x3) * (x2 - x3) + (y - y3) * (y2 - y3)) <= 0
+        ba_b = (pay["first"] > 0) & behind
+        aa_b = (pay["last"] > 0) & ahead
+        ba, aa = ba_b.float(), aa_b.float()
+        nc = (~(ba_b | aa_b)).float()
+        sgn = torch.sign(d0)
+        dpre = nc * d0 + ba * l2d * sgn + aa * l2d1 * sgn
+    d = torch.clamp(dpre, -5.0, 5.0) if p.clip_dist else dpre
+    tha = 1.0 - torch.cos(th2 - th)
+
+    # clearance: min over k, whole gradient to the earliest minimal k
+    best, kmin = None, None
+    pieces = []
+    for k in range(p.K):
+        ax = pay["caxe"][:, k]
+        dxk = x + ax * c - pay["cnx"][:, k]
+        dyk = y + ax * s - pay["cny"][:, k]
+        dist = torch.sqrt(dxk ** 2 + dyk ** 2 + 1e-12)
+        per = dist - ops.crad[:, k, :, None]
+        vk = ops.cvalid[:, k, :, None].expand_as(per)
+        masked = torch.clamp(per, -5.0, 20.0) * vk + (1.0 - vk) * 100.0
+        pieces.append((ax, dxk, dyk, dist, per, vk))
+        if best is None:
+            best, kmin = masked, torch.zeros_like(masked, dtype=torch.long)
+        else:
+            better = masked < best
+            best = torch.where(better, masked, best)
+            kmin = torch.where(better, k, kmin)
+    mnd = best
+
+    P = lambda i: ops.stlp[:, i:i + 1]
+    vf, df, sf = ops.nf[:, 0:1], ops.nf[:, 1:2], ops.nf[:, 2:3]
+    zv1 = -((v - P(0)) / vf) * tau
+    zv2 = -((-v + P(1)) / vf) * tau
+    zsf = -((mnd - P(4)) / sf) * tau
+    (m_v1, S_v1), (m_v2, S_v2), (m_sf, S_sf) = (_stats(z) for z in
+                                                 (zv1, zv2, zsf))
+    alw = lambda m, S: (-(m + torch.log(S)) / tau)[:, 0]
+    # keep clauses
+    zd1 = -((d - P(2)) / df) * tau
+    zd2 = -((-d + P(3)) / df) * tau
+    zth = -((P(5) - tha) / P(5)) * tau
+    (m_d1, S_d1), (m_d2, S_d2), (m_th, S_th) = (_stats(z) for z in
+                                                 (zd1, zd2, zth))
+    # change clauses
+    xa = -((d - P(2)) / df) * tau
+    xb = -((-d + P(3)) / df) * tau
+    mab = torch.maximum(xa, xb)
+    band = -(mab + torch.log(torch.exp(xa - mab) + torch.exp(xb - mab))) \
+        / tau
+    zb = -band * tau
+    sufb, mb, Sb, evb = _ev_fwd(zb, p.nt2)
+    sufh, mh, Sh, evh = _ev_fwd(zth, p.nt2)
+    rows_keep = torch.stack([alw(m_v1, S_v1), alw(m_v2, S_v2),
+                             alw(m_d1, S_d1), alw(m_d2, S_d2),
+                             alw(m_th, S_th), alw(m_sf, S_sf)], dim=1)
+    big = torch.full_like(evb, -1e30)
+    rows_change = torch.stack([alw(m_v1, S_v1), alw(m_v2, S_v2), evb / tau,
+                               evh / tau, alw(m_sf, S_sf), big], dim=1)
+    keep = (torch.arange(R) < M)[None]
+    rows = torch.where(keep[:, None], rows_keep, rows_change)  # (bs, 6, R)
+    xr = -rows * tau
+    xr = torch.where(keep[:, None] | (torch.arange(6) < 5)[None, :, None],
+                     xr, torch.full_like(xr, -torch.inf))
+    mr, Sr = _stats(xr)
+    score = (-(mr + torch.log(Sr)) / tau)[:, 0]
+
+    # ---- backward -----------------------------------------------------
+    gs = torch.where(thres - score > 0, -ops.valid * gscale, 0.0)
+    gr = gs[:, None] * torch.exp(xr - mr) / Sr                 # (bs, 6, R)
+    wgt = lambda z, m, S: torch.exp(z - m) / S
+    g_v1 = gr[:, 0:1]
+    g_v2 = gr[:, 1:2]
+    g_sf = torch.where(keep, gr[:, 5], gr[:, 4])[:, None]
+    gv = g_v1 * wgt(zv1, m_v1, S_v1) / vf - g_v2 * wgt(zv2, m_v2, S_v2) / vf
+    gmnd = g_sf * wgt(zsf, m_sf, S_sf) / sf
+    gd_keep = (gr[:, 2:3] * wgt(zd1, m_d1, S_d1) / df
+               - gr[:, 3:4] * wgt(zd2, m_d2, S_d2) / df)
+    gtha_keep = -gr[:, 4:5] * wgt(zth, m_th, S_th) / P(5)
+    gband = _ev_bwd(zb, sufb, p.nt2, mb, Sb, gr[:, 2])
+    gthe = _ev_bwd(zth, sufh, p.nt2, mh, Sh, gr[:, 3])
+    ea, eb = torch.exp(xa - mab), torch.exp(xb - mab)
+    pa, pb = ea / (ea + eb), eb / (ea + eb)
+    gd_change = gband * (pa / df - pb / df)
+    gtha_change = -gthe / P(5)
+    gd = torch.where(keep[:, None], gd_keep, gd_change)
+    gtha = torch.where(keep[:, None], gtha_keep, gtha_change)
+
+    gth = -gtha * torch.sin(th2 - th)
+    g = gd * _grad_clip(dpre, -5.0, 5.0) if p.clip_dist else gd
+    gd0 = g * nc
+    gl2d = g * ba * sgn + gd0 * (1 - normal)
+    gl2d1 = g * aa * sgn
+    garea = gd0 * normal / bc
+    gx = garea * (y2 - y3)
+    gy = garea * (x3 - x2)
+    gq = gl2d * 0.5 / l2d * _grad_max(q, 1e-3)
+    gx = gx + gq * 2 * (x - x2)
+    gy = gy + gq * 2 * (y - y2)
+    if p.inline:
+        gq1 = gl2d1 * 0.5 / l2d1 * _grad_max(q1, 1e-3)
+        gx = gx + gq1 * 2 * (x - x3)
+        gy = gy + gq1 * 2 * (y - y3)
+    gc = torch.zeros_like(gx)
+    gsn = torch.zeros_like(gx)
+    for k, (ax, dxk, dyk, dist, per, vk) in enumerate(pieces):
+        on = (kmin == k).float()
+        gper = gmnd * on * vk * _grad_clip(per, -5.0, 20.0)
+        gd2 = gper * 0.5 / dist
+        gx = gx + gd2 * 2 * dxk
+        gy = gy + gd2 * 2 * dyk
+        gc = gc + gd2 * 2 * dxk * ax
+        gsn = gsn + gd2 * 2 * dyk * ax
+
+    rnd = gk._bf16 if p.bf16_cumsum else (lambda u: u)
+    GX = rnd(gk._excl_rev_cumsum(gx))
+    GY = rnd(gk._excl_rev_cumsum(gy))
+    gv = gv + GX * p.dt * c + GY * p.dt * s
+    gc = gc + GX * p.dt * v
+    gsn = gsn + GY * p.dt * v
+    gth = gth - s * gc + c * gsn
+    gw = rnd(gk._excl_rev_cumsum(p.dt * gth)) * p.mul_w
+    ga = rnd(gk._excl_rev_cumsum(p.dt * gv)) * p.mul_a
+    return score, gw, ga
+
+
+def guidance_fused_twin(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf,
+                        valid, scal, gvec, p):
+    """The whole fused step with the hand-written gradient."""
+    ops = gk.Operands(lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal,
+                      gvec[2])
+    pay = gk.payloads(gk.freeze(muw, mua, lanes, ndx, ndy, scal, p), lanes,
+                      ndx, ndy, p)
+    grad_fn = lambda w, a: score_grad(w, a, pay, ops, p, gvec[1],
+                                      gvec[2])[1:]
+    return gk.adam_clip(muw, mua, grad_fn, gvec[0], p)
