@@ -8,21 +8,36 @@ and no result line is printed:
 
 1. device: needs CUDA (there is no CPU path); TF32 off; the card's name and
    power limit from nvidia-smi.
-2. build: compiles the fused guidance kernel from ``pstl_tpu_torch/csrc``.
-3. kernel: the kernel against its plain PyTorch version on identical
-   inputs at the closed-loop shapes (16 scenes, T=20, R=192, K=8, S=15,
-   nL=4, 3 Adam iterations), for coarse pair on/off, bf16 cumsum on/off and
-   the offset quirk on/off; maximum error and median times (CUDA events).
-4. reference: one reverse pass on the card against the same pass on the
-   CPU (the plain version, which the CPU tests hold to the JAX package) with
-   pinned noise, at a small size.
-5. closed loop: the heavy ``bench.py`` contract with the e7_round5 weights,
+2. build: compiles the kernels from ``pstl_tpu_torch/csrc`` (one nvcc per
+   source, all at once) and prints ptxas's report of each.
+3. kernel: the fused guidance kernel against its plain PyTorch version on
+   identical inputs at the closed-loop shapes (16 scenes, T=20, R=192, K=8,
+   S=15, nL=4, 3 Adam iterations), for coarse pair on/off, bf16 cumsum
+   on/off and the offset quirk on/off; maximum error and median times (CUDA
+   events).
+4. superstep kernel: the whole-denoise-step kernel against its plain
+   version on identical inputs at the main shapes (16 scenes, R=192, hidden
+   256, bf16, e7_round5 weights), guided and unguided, for the same flag
+   combinations at t=60 and t=5; maximum error and median times.
+5. reference: one small reverse pass on the card against the same pass on
+   the CPU (the plain versions, which the CPU tests hold to the JAX
+   package) with pinned noise, on the default path and under superstep.
+6. closed loop: the heavy ``bench.py`` contract with the e7_round5 weights,
    16 synthetic scenes, 64 replanning steps; every step must launch the
-   kernel once per denoise step (99 x 64 in all) and every metric must be
-   finite.
+   guidance kernel once per denoise step (99 x 64 in all) and every metric
+   must be finite.
+7. fold2: ``guidance_adam_cm`` under ``guidance_pallas_fold2`` (BENCH_GPALLAS=3)
+   on the card against the plain version, then 8 closed-loop steps, which
+   must launch the guidance kernel 99 x 8 times.
+8. superstep closed loop: the heavy contract under
+   ``guidance_pallas_superstep`` (BENCH_GPALLAS=4), 16 scenes x 64 steps:
+   99 x 64 superstep launches, all guided, none of the guidance kernel.
+9. superstep, mixed schedule: the ``parity`` contract (guidance on the last
+   10 denoise steps, one Adam iteration) under superstep, 8 steps: 99 x 8
+   superstep launches, of which 10 x 8 guided.
 
 The line before the last is the card's ``name, power.limit``; before it a
-JSON line with the kernel's launches, error and times; the last line is
+JSON line with each kernel's launches, error and times; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,6 +49,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 64
+FOLD2_STEPS = 8
+MIXED_STEPS = 8
 SCENES = 16
 
 # kernel vs plain tolerance (see kernel_phase): controls are normalized
@@ -44,6 +61,12 @@ RTOL, ATOL = 2e-4, 2e-5
 # (FMA contraction on the card), which moves that column's Adam path; the
 # move stays inside the trust region |delta| <= beta on either side
 MAX_OFF_SHARE = 1e-3
+# unguided superstep vs plain, elementwise on x_next: the MLP sums in fp32
+# in another order than the library matmul, so a bf16 activation can round
+# one step (2^-8 relative) the other way; that moves eps by about that step
+# times an output weight (~1e-4 per flip at the e7 weights) and x_next by
+# c1/c2 of it (0.019 at t=60, 0.013 at t=5)
+SS_RTOL, SS_ATOL = 1e-4, 1e-4
 
 
 def log(msg):
@@ -107,6 +130,54 @@ def plan_inputs(cfg, scenes, seed=0):
     g.manual_seed(seed)
     mu = torch.randn((bs, cfg.nt, 2, fused.R), generator=g, device=dev)
     return dense, fused, mu
+
+
+def superstep_inputs(cfg, scenes, net, seed=0):
+    """Superstep operands of the first plan step (the net's split MLP at
+    its compute dtype, the guidance operands, the step tables) and a seeded
+    x and z, all at the scenes' shapes."""
+    import torch
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.models import net as models
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+    from pstl_tpu_torch.ops import superstep_kernel as sk
+    dev = scenes.ego_full.device
+    dense, fused, _ = plan_inputs(cfg, scenes, seed)
+    with torch.no_grad():
+        feature = torch.repeat_interleave(net.encode(dense),
+                                          cfg.n_randoms * 3, 0)
+        cm = models.make_cm_eps_fn(net, dense, dense["highlevel_dense"],
+                                   feature, cfg)
+    gops = gk.kernel_operands(fused, cfg)
+    te_all, gvec_all = sk.step_tables(
+        cfg, diffusion.get_coeffs(cfg, device=dev), cm.operands,
+        gops.gscale, True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    shape = (fused.bs, cfg.nt, 2, fused.R)
+    x = torch.randn(shape, generator=g, device=dev)
+    z = torch.randn(shape, generator=g, device=dev)
+    return (x, z, te_all, gvec_all, sk.mlp_operands(cm.operands), gops,
+            gk.kernel_params(cfg, fused))
+
+
+def check_guided(got, ref, start, beta, what):
+    """The guided tolerance (see MAX_OFF_SHARE); returns the max error."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{what}: output is not finite")
+    err = (got - ref).abs()
+    share = float((err > ATOL + RTOL * ref.abs()).float().mean())
+    max_err = float(err.max())
+    bound = 2 * beta + 1e-6
+    log(f"{what}: max_abs_err={max_err:.3e} off_share={share:.2e} "
+        f"moved={float((got - start).abs().max()):.3e}")
+    if share > MAX_OFF_SHARE or max_err > bound:
+        raise RuntimeError(
+            f"{what} disagrees with the plain version: {share:.2e} of "
+            f"elements beyond rtol {RTOL} / atol {ATOL} (allowed "
+            f"{MAX_OFF_SHARE}), max error {max_err:.3e} (bound {bound:.3e})")
+    return max_err
 
 
 def kernel_phase(dev):
@@ -186,16 +257,90 @@ def kernel_phase(dev):
     return worst, heavy_ms, heavy_plain_ms
 
 
+def superstep_phase(dev, net):
+    """The superstep kernel vs its plain version at the main shapes, guided
+    and unguided, for every flag combination the guided update branches on,
+    at t=60 and t=5; returns the JSON record's numbers."""
+    import torch
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.ops import superstep_kernel as sk
+
+    base = bench_config("heavy", gpallas="4")
+    scenes = scene_batch(base, dev)
+    T = base.diffusion_steps
+    worst = 0.0
+    times = {}
+    for coarse in (True, False):
+        for bf16 in (True, False):
+            for quirk in (False, True):
+                cfg = base.with_(clearance_coarse_pair=coarse,
+                                 guidance_pallas_bf16_cumsum=bf16,
+                                 guidance_positive_offset_quirk=quirk)
+                x, z, te_all, gvec_all, mlp, gops, p = superstep_inputs(
+                    cfg, scenes, net)
+                for t in (60, 5):
+                    j = T - 1 - t
+                    outs = {}
+                    for guided in (True, False):
+                        args = (x, z, te_all[j], gvec_all[j], mlp, gops, p,
+                                guided)
+                        with torch.no_grad():
+                            got = sk.superstep(*args)
+                            ref = sk.superstep_plain(*args)
+                        torch.cuda.synchronize()
+                        what = (f"superstep coarse={int(coarse)} "
+                                f"bf16={int(bf16)} quirk={int(quirk)} t={t} "
+                                f"{'guided' if guided else 'unguided'}")
+                        if guided:
+                            err = check_guided(got, ref, x,
+                                               float(gvec_all[j, 0]), what)
+                        else:
+                            if not torch.isfinite(got).all():
+                                raise RuntimeError(f"{what}: not finite")
+                            d = (got - ref).abs()
+                            err = float(d.max())
+                            bad = int((d > SS_ATOL + SS_RTOL
+                                       * ref.abs()).sum())
+                            log(f"{what}: max_abs_err={err:.3e} "
+                                f"beyond_tol={bad}")
+                            if bad:
+                                raise RuntimeError(
+                                    f"{what} disagrees with the plain "
+                                    f"version beyond rtol {SS_RTOL} / atol "
+                                    f"{SS_ATOL}: {err:.3e}")
+                        worst = max(worst, err)
+                        outs[guided] = got
+                        if coarse and bf16 and not quirk and t == 60:
+                            times[guided] = (
+                                time_cuda(lambda: sk.superstep(*args)),
+                                time_cuda(lambda: sk.superstep_plain(*args)))
+                    if not float((outs[True] - outs[False]).abs().max()) > 0:
+                        raise RuntimeError("the guided superstep did not "
+                                           "change the step")
+    for guided, (ms, plain_ms) in times.items():
+        log(f"superstep times ({'guided' if guided else 'unguided'}, "
+            f"coarse+bf16, bs={SCENES}, R={3 * base.n_randoms}, hidden "
+            f"{base.hiddens}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"(median of 20)")
+    return worst, times[True][0], times[True][1]
+
+
 def reference_phase(dev, net_cpu, net_dev):
-    """One small reverse pass on the card (kernel) against the CPU (plain
-    version) on pinned noise."""
+    """One small reverse pass on the card (kernels) against the CPU (plain
+    versions) on pinned noise, on the default path and under superstep."""
+    from pstl_tpu_torch.config import bench_config
+
+    for gpallas in ("2", "4"):
+        cfg = bench_config("heavy", gpallas=gpallas).with_(
+            n_randoms=4, diffusion_steps=12, compute_dtype="float32")
+        reference_pass(dev, net_cpu, net_dev, cfg)
+
+
+def reference_pass(dev, net_cpu, net_dev, cfg):
     import torch
     from pstl_tpu_torch import diffusion
-    from pstl_tpu_torch.config import bench_config
     from pstl_tpu_torch.models import net as models
 
-    cfg = bench_config("heavy").with_(n_randoms=4, diffusion_steps=12,
-                                      compute_dtype="float32")
     out = {}
     for d, net in (("cpu", net_cpu), (dev, net_dev)):
         dense, fused, _ = plan_inputs(cfg, scene_batch(cfg, d, n_scenes=2))
@@ -215,53 +360,136 @@ def reference_phase(dev, net_cpu, net_dev):
         out[str(d)] = ctrl.cpu()
     err = float((out[str(dev)] - out["cpu"]).abs().max())
     tol = 1e-3
-    log(f"reference: reverse pass card vs cpu, max_abs_err={err:.3e} "
-        f"(tolerance {tol})")
+    log(f"reference: reverse pass card vs cpu "
+        f"(superstep={int(cfg.guidance_pallas_superstep)}), "
+        f"max_abs_err={err:.3e} (tolerance {tol})")
     if not err <= tol:
         raise RuntimeError(f"card and cpu reverse passes disagree: {err}")
 
 
-def closed_loop_phase(dev, net):
+def run_loop(dev, net, cfg, steps):
+    """``steps`` closed-loop steps of the scenes under ``cfg``, with every
+    kernel's launch count set to 0 just before and read just after; every
+    metric must be finite.  Returns (counts, metrics, step seconds, wall)."""
     import torch
     from pstl_tpu_torch import diffusion, sim
-    from pstl_tpu_torch.config import bench_config
     from pstl_tpu_torch.ops import guidance_kernel as gk
+    from pstl_tpu_torch.ops import superstep_kernel as sk
 
-    cfg = bench_config("heavy")
     scenes = scene_batch(cfg, dev)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
     init_carry, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs)
     c = init_carry(0)
     torch.cuda.synchronize()
-    gk.launches = 0
+    gk.launches = sk.launches = sk.guided_launches = 0
     step_s = []
     t_all = time.time()
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.time()
         c = step(c)
         torch.cuda.synchronize()
         step_s.append(time.time() - t0)
     wall = time.time() - t_all
-    launches = gk.launches
+    counts = {"guidance_fused": gk.launches, "superstep": sk.launches,
+              "superstep_guided": sk.guided_launches}
     m = {k: v.cpu() for k, v in sim._carry_metrics(c).items()}
-    guided = int(diffusion._trigger_schedule(cfg).sum())
-    want = guided * STEPS
     for k, v in m.items():
         if not torch.isfinite(v.float()).all():
             raise RuntimeError(f"closed-loop metric {k} is not finite")
-    if launches != want:
-        raise RuntimeError(f"kernel launches {launches} != {want} "
-                           f"({guided} guided steps x {STEPS})")
+    return counts, m, step_s, wall
+
+
+def check_counts(counts, want, what):
+    if counts != want:
+        raise RuntimeError(f"{what}: kernel launches {counts}, expected "
+                           f"{want}")
+
+
+def report_loop(what, steps, counts, m, step_s, wall):
     sps = SCENES / median(step_s)
-    log(f"closed loop: {SCENES} scenes x {STEPS} steps, launches={launches},"
-        f" stl_compliance={float(m['stl_acc'].mean()):.4f} "
+    log(f"{what}: {SCENES} scenes x {steps} steps, launches={counts}, "
+        f"stl_compliance={float(m['stl_acc'].mean()):.4f} "
         f"collide_rate={float(m['collide'].mean()):.4f} "
         f"out_of_lane_rate={float(m['out_of_lane'].mean()):.4f} "
         f"mean_progress_m={float(m['progress'].mean()):.3f} "
         f"agent_steps_per_s={sps:.3f} (median step "
         f"{median(step_s) * 1e3:.1f} ms, first {step_s[0] * 1e3:.1f} ms, "
         f"wall {wall:.2f} s)")
-    return launches
+
+
+def closed_loop_phase(dev, net):
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.config import bench_config
+
+    cfg = bench_config("heavy")
+    counts, m, step_s, wall = run_loop(dev, net, cfg, STEPS)
+    guided = int(diffusion._trigger_schedule(cfg).sum())
+    check_counts(counts, {"guidance_fused": guided * STEPS, "superstep": 0,
+                          "superstep_guided": 0}, "closed loop")
+    report_loop("closed loop", STEPS, counts, m, step_s, wall)
+    return counts["guidance_fused"], median(step_s)
+
+
+def fold2_phase(dev, net):
+    """The fold2 configuration: its guidance call on the card against the
+    plain version, then FOLD2_STEPS closed-loop steps."""
+    import torch
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    cfg = bench_config("heavy", gpallas="3")
+    coeffs = diffusion.get_coeffs(cfg, device=dev)
+    _, fused, mu = plan_inputs(cfg, scene_batch(cfg, dev))
+    beta = coeffs.beta[60]
+    with torch.no_grad():
+        got = gk.guidance_adam_cm(fused, mu, beta, 100.0, cfg)
+    ops = gk.kernel_operands(fused, cfg)
+    gvec = torch.stack([beta, torch.tensor(100.0, device=dev), ops.gscale])
+    args = (mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous(), *ops[:-1],
+            gvec, gk.kernel_params(cfg, fused))
+    ref = torch.stack(gk.guidance_fused_plain(*args), dim=2)
+    torch.cuda.synchronize()
+    err = check_guided(got, ref, mu, float(beta), "fold2 guidance_adam_cm")
+    ms = time_cuda(lambda: gk.guidance_adam_cm(fused, mu, beta, 100.0, cfg))
+    plain_ms = time_cuda(lambda: gk.guidance_fused_plain(*args))
+    log(f"fold2 times: guidance_adam_cm {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(median of 20)")
+    counts, m, step_s, wall = run_loop(dev, net, cfg, FOLD2_STEPS)
+    guided = int(diffusion._trigger_schedule(cfg).sum())
+    check_counts(counts, {"guidance_fused": guided * FOLD2_STEPS,
+                          "superstep": 0, "superstep_guided": 0},
+                 "fold2 closed loop")
+    report_loop("fold2 closed loop", FOLD2_STEPS, counts, m, step_s, wall)
+    return counts["guidance_fused"], err, ms, plain_ms
+
+
+def superstep_loop_phase(dev, net):
+    """The heavy contract and the mixed-schedule parity contract under the
+    superstep configuration."""
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.config import bench_config
+
+    cfg = bench_config("heavy", gpallas="4")
+    counts, m, step_s, wall = run_loop(dev, net, cfg, STEPS)
+    n = (cfg.diffusion_steps - 1) * STEPS
+    check_counts(counts, {"guidance_fused": 0, "superstep": n,
+                          "superstep_guided": n}, "superstep closed loop")
+    report_loop("superstep closed loop", STEPS, counts, m, step_s, wall)
+    launches, step_med = counts["superstep"], median(step_s)
+
+    cfg = bench_config("parity", gpallas="4")
+    guided = int(diffusion._trigger_schedule(cfg).sum())
+    counts, m, step_s, wall = run_loop(dev, net, cfg, MIXED_STEPS)
+    check_counts(counts, {
+        "guidance_fused": 0,
+        "superstep": (cfg.diffusion_steps - 1) * MIXED_STEPS,
+        "superstep_guided": guided * MIXED_STEPS},
+        "superstep mixed schedule")
+    report_loop(f"superstep mixed schedule ({guided} guided of "
+                f"{cfg.diffusion_steps - 1} denoise steps)", MIXED_STEPS,
+                counts, m, step_s, wall)
+    return launches, step_med
 
 
 def main():
@@ -286,17 +514,25 @@ def main():
     from pstl_tpu_torch.config import bench_config
     from pstl_tpu_torch.models import convert
     from pstl_tpu_torch.models.net import Net
-    from pstl_tpu_torch.ops import _build, guidance_kernel as gk
+    from pstl_tpu_torch.ops import _build
 
     t0 = time.time()
-    _build.load("guidance_fused")
-    info = _build.BUILD_INFO["guidance_fused"]
-    ptx = [ln.strip() for ln in info["report"].splitlines()
-           if "registers" in ln or "spill" in ln]
-    log(f"build: guidance_fused in {time.time() - t0:.2f} s "
-        f"(nvcc {info['build_s']:.2f} s); " + " | ".join(ptx))
+    libs = ("guidance_fused", "superstep")
+    _build.load_all(libs)
+    for name in libs:
+        info = _build.BUILD_INFO[name]
+        ptx = [ln.strip() for ln in info["report"].splitlines()
+               if "registers" in ln or "spill" in ln]
+        log(f"build: {name} (nvcc {info['build_s']:.2f} s); "
+            + " | ".join(ptx))
+    log(f"build: both libraries in {time.time() - t0:.2f} s")
 
     max_err, ms, plain_ms = kernel_phase(dev)
+
+    net = Net(bench_config("heavy"))
+    convert.load_weights(net, "e7_round5")
+    net = net.to(dev).eval()
+    ss_err, ss_ms, ss_plain_ms = superstep_phase(dev, net)
 
     net_cpu = Net(bench_config("heavy").with_(compute_dtype="float32"))
     convert.load_weights(net_cpu, "e7_round5")
@@ -304,16 +540,26 @@ def main():
     convert.load_weights(net_dev, "e7_round5")
     reference_phase(dev, net_cpu.eval(), net_dev.to(dev).eval())
 
-    net = Net(bench_config("heavy"))
-    convert.load_weights(net, "e7_round5")
-    launches = closed_loop_phase(dev, net.to(dev).eval())
+    launches, step_med = closed_loop_phase(dev, net)
+    f2_launches, f2_err, f2_ms, f2_plain_ms = fold2_phase(dev, net)
+    ss_launches, ss_step_med = superstep_loop_phase(dev, net)
+    log(f"median closed-loop step, heavy contract: default path "
+        f"{step_med * 1e3:.1f} ms, superstep {ss_step_med * 1e3:.1f} ms")
 
-    print(json.dumps({"kernels": [{
-        "name": "guidance_fused", "route": "cuda",
-        "source": "pstl_tpu_torch/csrc/guidance_fused.cu",
-        "replaces": "pstl_tpu/ops/pallas_guidance.py:396",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}), flush=True)
+    guidance = {"name": "guidance_fused", "route": "cuda",
+                "source": "pstl_tpu_torch/csrc/guidance_fused.cu"}
+    print(json.dumps({"kernels": [
+        dict(guidance, replaces="pstl_tpu/ops/pallas_guidance.py:396",
+             launches=launches, max_abs_err=max_err, ms=ms,
+             plain_ms=plain_ms),
+        dict(guidance, replaces="pstl_tpu/ops/pallas_guidance.py:495",
+             launches=f2_launches, max_abs_err=f2_err, ms=f2_ms,
+             plain_ms=f2_plain_ms),
+        {"name": "superstep", "route": "cuda",
+         "source": "pstl_tpu_torch/csrc/superstep.cu",
+         "replaces": "pstl_tpu/ops/pallas_guidance.py:589",
+         "launches": ss_launches, "max_abs_err": ss_err, "ms": ss_ms,
+         "plain_ms": ss_plain_ms}]}), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 The port cannot import ``pstl_tpu`` (its ``__init__`` imports jax), so the
 flag table is mirrored here field for field, with the same names, defaults
-and ``finalize()`` coupling rules; ``tests/test_torch_config.py`` holds the
+and ``finalize()`` coupling rules; ``tests/test_torch_package.py`` holds the
 two tables equal.  Field documentation lives with the reference
 (``pstl_tpu/config.py``); the comments below only mark what the port does
 differently.
@@ -279,19 +279,42 @@ class Config:
         return dataclasses.asdict(self)
 
 
-def bench_config(mode: str = "heavy") -> Config:
+#: BENCH_GPALLAS values whose guidance kernel is not ported yet, with the
+#: TPU kernel each needs (PERF.md's kernel table)
+_GPALLAS_UNPORTED = {
+    "0": "the XLA guidance loop",
+    "1": "the frozen-payload kernel _kernel (row 2)",
+    "1f": "the scene-folded frozen-payload kernel _kernel_f (row 3)",
+    "2f": "the scene-folded fused kernel _kernel_fused_f (row 3)",
+}
+
+
+def bench_config(mode: str = "heavy", gpallas: str = "2") -> Config:
     """The closed-loop contract rows of ``bench.py``'s ``build_cfg`` with
-    every environment knob at its default: the heavy all-step guidance row
-    (fused guidance kernel, coarse-pair freeze, bf16 cumsum), the
-    reference-parity guidance schedule, and the no-guidance row."""
+    ``BENCH_GPALLAS=gpallas`` and every other environment knob at its
+    default: the heavy all-step guidance row (coarse-pair freeze, bf16
+    cumsum), the reference-parity guidance schedule, and the no-guidance
+    row.  ``gpallas`` picks the guidance kernel as ``bench.py`` does: "2"
+    the fused kernel with G=2 packing (the default), "3" the column-grid
+    fold2 kernel, "4" the whole-denoise-step superstep kernel."""
+    if gpallas in _GPALLAS_UNPORTED:
+        raise NotImplementedError(
+            f"BENCH_GPALLAS={gpallas}: {_GPALLAS_UNPORTED[gpallas]} is not "
+            "ported yet")
+    if gpallas not in ("2", "3", "4"):
+        raise ValueError(f"unknown BENCH_GPALLAS value {gpallas!r}")
     cfg = Config(diffusion=True, rect_head=True, diverse_loss=True,
                  multi_cands=10, guidance=True, guidance_niters=3,
                  n_rolls=3, n_randoms=64, n_neighbors=8,
                  flex=True).finalize().with_(epochs=1, test=True)
-    cfg = cfg.with_(guidance_pallas=True, guidance_pallas_fuse_freeze=True,
-                    guidance_pallas_fold=False, guidance_pallas_fold2=False,
-                    guidance_pallas_superstep=False, guidance_pallas_cols=0,
-                    guidance_pallas_pack=2).finalize()
+    cfg = cfg.with_(guidance_pallas=True,
+                    guidance_pallas_fuse_freeze=gpallas == "2",
+                    guidance_pallas_fold=False,
+                    guidance_pallas_fold2=gpallas == "3",
+                    guidance_pallas_superstep=gpallas == "4",
+                    guidance_pallas_cols=0,
+                    guidance_pallas_pack=2 if gpallas == "2" else 1
+                    ).finalize()
     cfg = cfg.with_(guidance_reuse_selection=True,
                     clearance_coarse_pair=True,
                     guidance_pallas_bf16_cumsum=True)

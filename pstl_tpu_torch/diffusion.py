@@ -8,9 +8,14 @@ guided step is one launch of the fused guidance kernel
 (``ops/guidance_kernel.py``).  Noise is injectable for parity tests: a
 (T, bs, nt, 2, R) tensor holds x0 and then one draw per step.
 
+Under ``guidance_pallas_superstep`` the loop is :func:`_reverse_superstep`
+instead: one launch of the superstep kernel (``ops/superstep_kernel.py``:
+eps MLP, posterior, guidance, noise) per denoise step.
+
 Not ported yet: the DDIM and DPM++ samplers, the row-major (non-cm) path,
 the frozen-payload kernel path (``guidance_pallas_fuse_freeze=False``), the
-``guidance_sel_every`` carry and the superstep kernel.
+scene-folded kernels (``guidance_pallas_fold``) and the
+``guidance_sel_every`` carry.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import dynamics as dyn
-from pstl_tpu_torch.ops import guidance_kernel
+from pstl_tpu_torch.ops import guidance_kernel, superstep_kernel
 
 Tensor = torch.Tensor
 
@@ -91,10 +96,10 @@ def check_supported(cfg: Config) -> None:
                 "guidance runs through the fused guidance kernel only: set "
                 "guidance_pallas_fuse_freeze=True (the frozen-payload and "
                 "XLA-loop guidance paths are not ported)")
-        if (cfg.guidance_pallas_fold or cfg.guidance_pallas_fold2
-                or cfg.guidance_pallas_superstep):
+        if cfg.guidance_pallas_fold:
             raise NotImplementedError(
-                "guidance_pallas_fold / fold2 / superstep are not ported")
+                "guidance_pallas_fold (the scene-folded kernels) is not "
+                "ported")
 
 
 def _guidance_step(mu_cm: Tensor, beta_t: Tensor, fused_loss, cfg: Config,
@@ -130,6 +135,10 @@ def reverse_sample(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
                          f"{tuple(noise.shape)}")
     draw = (lambda j: noise[j]) if noise is not None else (
         lambda j: torch.randn(shape, generator=generator, device=dev))
+    if (cfg.guidance_pallas_superstep and trig.any()
+            and hasattr(cm_fn, "operands")):
+        return _reverse_superstep(cm_fn, fused_loss, cfg, coeffs, trig,
+                                  maximize, draw)
     x = draw(0)
     hist = [x]
     for j, t in enumerate(range(T - 1, 0, -1)):
@@ -146,6 +155,39 @@ def reverse_sample(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
         x = mu + cfg.sample_noise_scale * torch.sqrt(beta) * z
         if cfg.diff_full:
             hist.append(x)
+    return _decodings(x, hist, fused_loss, cfg)
+
+
+def _reverse_superstep(cm_fn: Callable, fused_loss, cfg: Config,
+                       coeffs: Coeffs, trig: np.ndarray, maximize: bool,
+                       draw: Callable):
+    """The reverse pass as one superstep launch per denoise step (eps MLP,
+    posterior, guidance when ``trig`` says so, noise), the port of
+    ``pstl_tpu/diffusion.py:_reverse_superstep``.  Every draw is made
+    before the loop, in ``reverse_sample``'s order and shapes (x0, then one
+    per step, the last one zeroed: t = 1), and so are the per-step tables;
+    the loop body is the launch and the history append only."""
+    T = cfg.diffusion_steps
+    x = draw(0)
+    z_all = torch.stack([draw(j + 1) for j in range(T - 1)])
+    z_all[-1].zero_()                      # the last step (t = 1) adds none
+    gops = guidance_kernel.kernel_operands(fused_loss, cfg)
+    p = guidance_kernel.kernel_params(cfg, fused_loss)
+    mlp = superstep_kernel.mlp_operands(cm_fn.operands)
+    te_all, gvec_all = superstep_kernel.step_tables(
+        cfg, coeffs, cm_fn.operands, gops.gscale, maximize)
+    hist = [x]
+    for j in range(T - 1):
+        x = superstep_kernel.superstep(x, z_all[j], te_all[j], gvec_all[j],
+                                       mlp, gops, p, bool(trig[j]))
+        if cfg.diff_full:
+            hist.append(x)
+    return _decodings(x, hist, fused_loss, cfg)
+
+
+def _decodings(x: Tensor, hist, fused_loss, cfg: Config):
+    """(controls (n, nt, 2), all_steps) from the last sample and the
+    history (see ``reverse_sample``)."""
     conv = fused_loss._from_cand_minor
     if not cfg.diff_full:
         final = denormalize_controls(conv(x), cfg)

@@ -239,7 +239,8 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
     once per plan and laid out candidate-minor (bs, h1, R); the timestep
     embedding gives one (h1,) vector per denoise step; only the noise block
     depends on x.  Returns ``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` with
-    r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout).
+    r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout); its
+    ``operands`` dict holds the pieces for the superstep kernel.
     """
     layers = net.policy_net.layers
     kern = [l.weight.t() for l in layers]                 # flax (in, out)
@@ -279,4 +280,21 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
         raw = WoT @ h + bo
         return raw.float().reshape(bs, cfg.nt, 2, R) + x_cm
 
+    # the same split-MLP pieces for the superstep kernel
+    # (ops/superstep_kernel.py), in the JAX package's names and layouts:
+    # split by control channel (row d = t*2 + c of the noise block and of
+    # the output) and transposed so every product is W (rows, k) @ h (k, R)
+    Wo = kern[-1].to(dt)
+    bo_all = bias[-1].to(dt)
+    eps_cm.operands = dict(
+        base_cm=base_cm,                                  # (bs, h1, R)
+        Wt=Wt,                                            # (TIME_DIM, h1)
+        WnwT=WnT[:, 0::2].contiguous(),                   # (h1, nt)
+        WnaT=WnT[:, 1::2].contiguous(),
+        mid=[(WT, b.reshape(-1, 1)) for WT, b in midT],   # (k, h), (k, 1)
+        WowT=Wo[:, 0::2].t().contiguous(),                # (nt, h_last)
+        WoaT=Wo[:, 1::2].t().contiguous(),
+        bow=bo_all[0::2].reshape(-1, 1),                  # (nt, 1)
+        boa=bo_all[1::2].reshape(-1, 1),
+        dt=dt, bs=bs, R=R, nt=cfg.nt)
     return eps_cm

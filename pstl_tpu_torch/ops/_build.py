@@ -2,9 +2,12 @@
 
 Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers: a build takes
-seconds).  Libraries land in ``build/pstl_tpu_torch/<hash of the sources and
-flags>/`` under the repository root, so a changed source rebuilds and an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+seconds).  Libraries land in ``build/pstl_tpu_torch/<hash>/`` under the
+repository root, where the hash covers the flags, ``csrc/<name>.cu`` and
+every header under ``csrc/`` (a ``.cu`` may include any of them), so a
+changed source or header rebuilds and an unchanged one is loaded as it is.
+:func:`load_all` starts one ``nvcc`` per library at once.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Iterable
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -23,6 +26,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(REPO_DIR, "build", "pstl_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HEADER_SUFFIXES = (".cuh", ".h")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: per library: seconds the build took (0.0 when it was already built) and
@@ -41,33 +45,68 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source_hash(name: str, csrc_dir: str = CSRC_DIR) -> str:
+    """Hash of what ``lib<name>.so`` is built from: the nvcc flags, the
+    ``.cu`` and every header in ``csrc_dir`` (file names and contents)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    files = [f"{name}.cu"] + sorted(
+        f for f in os.listdir(csrc_dir) if f.endswith(HEADER_SUFFIXES))
+    for fname in files:
+        h.update(fname.encode() + b"\0")
+        with open(os.path.join(csrc_dir, fname), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _paths(name: str):
+    out_dir = os.path.join(BUILD_ROOT, source_hash(name))
+    return (os.path.join(out_dir, f"lib{name}.so"),
+            os.path.join(out_dir, f"{name}.log"))
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Build (one concurrent ``nvcc`` per missing library) and load
+    ``csrc/<name>.cu`` as ``lib<name>.so`` for every name."""
+    names = list(names)
+    t0 = time.time()
+    procs = {}
+    for name in names:
+        if name in _LIBS:
+            continue
+        lib_path, _ = _paths(name)
+        if os.path.exists(lib_path):
+            continue
+        os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        lib_path, log_path = _paths(name)
+        with open(log_path, "w") as f:
+            f.write(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (rc {proc.returncode}):"
+                          f"\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_s = time.time() - t0
+    for name in names:
+        if name in _LIBS:
+            continue
+        lib_path, log_path = _paths(name)
+        report = open(log_path).read() if os.path.exists(log_path) else ""
+        BUILD_INFO[name] = {"build_s": build_s if name in procs else 0.0,
+                            "report": report, "path": lib_path}
+        _LIBS[name] = ctypes.CDLL(lib_path)
+    return {name: _LIBS[name] for name in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as ``lib<name>.so``."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
-    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, f"lib{name}.so")
-    log_path = os.path.join(out_dir, f"{name}.log")
-    t0 = time.time()
-    if not os.path.exists(lib_path):
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        with open(log_path, "w") as f:
-            f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} "
-                               f"(rc {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    build_s = time.time() - t0
-    report = open(log_path).read() if os.path.exists(log_path) else ""
-    BUILD_INFO[name] = {"build_s": build_s, "report": report,
-                        "path": lib_path}
-    lib = ctypes.CDLL(lib_path)
-    _LIBS[name] = lib
-    return lib
+    return load_all([name])[name]

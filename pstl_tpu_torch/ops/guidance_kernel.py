@@ -12,6 +12,14 @@ This is the port of the Pallas kernel ``_kernel_fused``
 gradient from ``torch.autograd.grad``.  There is no fallback from one to the
 other.  ``launches`` counts kernel launches (not plain-version calls).
 
+The same launch also ports ``_kernel_fused_f2`` (``guidance_pallas_fold2``,
+the TPU's column-chunk grid over scenes folded into (T, bs*R) lanes, with
+the compact scene constants broadcast inside the kernel): on the H100 that
+layout is the launch configuration ``guidance_fused`` already has, one block
+per (scene, 32 columns) with the scene's constants in shared memory, so
+``guidance_adam_cm`` runs the fold2 configuration through it unchanged.
+``guidance_pallas_cols`` (the TPU chunk width) is accepted and ignored.
+
 Operand layout (all float32, contiguous), for bs scenes, T steps, R = 3*M
 candidate columns r = j*M + m (j = maneuver, whose lane the column reads):
 
@@ -141,12 +149,13 @@ def kernel_operands(fused_loss, cfg: Config) -> Operands:
 def guidance_adam_cm(fused_loss, mu_cm: Tensor, beta_t: Tensor,
                      thres: float, cfg: Config) -> Tensor:
     """Guided posterior mean, candidate-minor (bs, T, 2, R) in and out —
-    the port of ``pallas_guidance.guidance_adam_cm(fuse_freeze=True)``."""
-    if cfg.guidance_pallas_fold or cfg.guidance_pallas_fold2 \
-            or cfg.guidance_pallas_superstep:
+    the port of ``pallas_guidance.guidance_adam_cm(fuse_freeze=True)``,
+    with and without ``guidance_pallas_fold2`` (one launch of the same
+    kernel serves both, see the module docstring)."""
+    if cfg.guidance_pallas_fold:
         raise NotImplementedError(
-            "the scene-folded / column-grid / superstep guidance kernels "
-            "(guidance_pallas_fold, fold2, superstep) are not ported yet")
+            "the scene-folded guidance kernels (guidance_pallas_fold) are "
+            "not ported yet")
     ops = kernel_operands(fused_loss, cfg)
     p = kernel_params(cfg, fused_loss)
     dev = mu_cm.device
@@ -421,55 +430,66 @@ def _lib():
     return fn
 
 
-def _check(name, x, shape, dev):
+def _check(name, x, shape, dev, dtype=torch.float32, who="guidance_fused"):
     if x.device != dev:
-        raise ValueError(f"guidance_fused: {name} is on {x.device}, "
-                         f"expected {dev}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"guidance_fused: {name} must be float32, got "
-                        f"{x.dtype}")
+        raise ValueError(f"{who}: {name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{who}: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"guidance_fused: {name} has shape "
-                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"guidance_fused: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def check_operands(ops, p: KernelParams, bs: int, T: int, R: int, dev,
+                   who: str) -> None:
+    """The checks a launch of the guidance device code needs: sizes within
+    the kernels' fixed arrays and the scene operands' device, dtype, shape
+    and contiguity (``ops``: the first nine fields of :class:`Operands`)."""
+    if R != 3 * p.M or T != p.T:
+        raise ValueError(f"{who}: T={T}, R={R} do not match T={p.T}, "
+                         f"R=3*M={3 * p.M}")
+    if not (T <= _MAXT and p.K <= _MAXK and p.nLe <= _MAXNL
+            and p.nLn <= _MAXNL and 2 <= p.S <= _MAXS
+            and 1 <= p.nt2 <= T):
+        raise ValueError(f"{who}: sizes beyond the kernel's limits "
+                         f"(T<={_MAXT}, K<={_MAXK}, nL<={_MAXNL}, "
+                         f"2<=S<={_MAXS}): {p}")
+    shapes = ((bs, 3, p.S, 3), (bs, p.K, p.nLn, T), (bs, p.K, p.nLn, T),
+              (bs, p.K, T), (bs, p.K, T), (bs, 6, R), (bs, 3, R), (bs, R),
+              (bs, 2))
+    for name, x, shape in zip(Operands._fields, ops, shapes):
+        _check(name, x, shape, dev, who=who)
+
+
+def flags(p: KernelParams) -> int:
+    """The kernels' flag word (``F_*`` in csrc/guidance_device.cuh)."""
+    return ((_FLAG_INLINE if p.inline else 0)
+            | (_FLAG_CLIP if p.clip_dist else 0)
+            | (_FLAG_QUIRK if p.quirk else 0)
+            | (_FLAG_COARSE if p.coarse else 0)
+            | (_FLAG_BF16 if p.bf16_cumsum else 0))
 
 
 def _launch(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal,
             gvec, p: KernelParams):
     global launches
     bs, T, R = muw.shape
-    if R != 3 * p.M or T != p.T:
-        raise ValueError(f"guidance_fused: muw shape {tuple(muw.shape)} "
-                         f"does not match T={p.T}, R=3*M={3 * p.M}")
-    if not (T <= _MAXT and p.K <= _MAXK and p.nLe <= _MAXNL
-            and p.nLn <= _MAXNL and 2 <= p.S <= _MAXS
-            and 1 <= p.nt2 <= T):
-        raise ValueError(f"guidance_fused: sizes beyond the kernel's "
-                         f"limits (T<={_MAXT}, K<={_MAXK}, nL<={_MAXNL}, "
-                         f"2<=S<={_MAXS}): {p}")
     dev = muw.device
-    shapes = dict(muw=(bs, T, R), mua=(bs, T, R), lanes=(bs, 3, p.S, 3),
-                  ndx=(bs, p.K, p.nLn, T), ndy=(bs, p.K, p.nLn, T),
-                  crad=(bs, p.K, T), cvalid=(bs, p.K, T), stlp=(bs, 6, R),
-                  nf=(bs, 3, R), valid=(bs, R), scal=(bs, 2), gvec=(3,))
-    args = dict(muw=muw, mua=mua, lanes=lanes, ndx=ndx, ndy=ndy, crad=crad,
-                cvalid=cvalid, stlp=stlp, nf=nf, valid=valid, scal=scal,
-                gvec=gvec)
-    for name, shape in shapes.items():
-        _check(name, args[name], shape, dev)
+    ops = (lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal)
+    check_operands(ops, p, bs, T, R, dev, "guidance_fused")
+    for name, x, shape in (("muw", muw, (bs, T, R)), ("mua", mua, (bs, T, R)),
+                           ("gvec", gvec, (3,))):
+        _check(name, x, shape, dev)
     outw = torch.empty_like(muw)
     outa = torch.empty_like(mua)
-    flags = ((_FLAG_INLINE if p.inline else 0)
-             | (_FLAG_CLIP if p.clip_dist else 0)
-             | (_FLAG_QUIRK if p.quirk else 0)
-             | (_FLAG_COARSE if p.coarse else 0)
-             | (_FLAG_BF16 if p.bf16_cumsum else 0))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(*(t.data_ptr() for t in args.values()), outw.data_ptr(),
-                 outa.data_ptr(), bs, T, R, p.M, p.S, p.K, p.nLe, p.nLn,
-                 p.nt2, p.niters, p.tau, p.dt, p.mul_w, p.mul_a, p.lr,
-                 p.ego_L, p.re, flags, stream)
+    err = _lib()(muw.data_ptr(), mua.data_ptr(),
+                 *(t.data_ptr() for t in ops), gvec.data_ptr(),
+                 outw.data_ptr(), outa.data_ptr(), bs, T, R, p.M, p.S, p.K,
+                 p.nLe, p.nLn, p.nt2, p.niters, p.tau, p.dt, p.mul_w,
+                 p.mul_a, p.lr, p.ego_L, p.re, flags(p), stream)
     if err != 0:
         raise RuntimeError(f"guidance_fused kernel launch failed: CUDA "
                            f"error {err}")

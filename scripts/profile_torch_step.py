@@ -1,14 +1,17 @@
 """Profile closed-loop replanning steps of the torch port on one GPU.
 
 Runs the heavy ``bench.py`` contract (e7_round5 weights, synthetic scenes
-from seed 0) for ``--warmup`` untimed steps, then ``--steps`` steps under
-``torch.profiler`` and as many again untraced, and writes to ``--out``:
+from seed 0) with the guidance kernel that ``--gpallas`` picks, as
+``BENCH_GPALLAS`` does (2: the fused guidance kernel, the default; 3: the
+fold2 configuration; 4: the superstep kernel), for ``--warmup`` untimed
+steps, then ``--steps`` steps untraced and as many again under
+``torch.profiler``, and writes to ``--out``:
 the untraced step times, the traced window's device busy time by kernel
 name, and the device busy share of the window (sum of kernel times over
 the window's wall time; one stream, so kernels do not overlap).
 
-    python scripts/profile_torch_step.py [--scenes 16] [--steps 3]
-        [--out build/profile_step.json]
+    python scripts/profile_torch_step.py [--gpallas 2|3|4] [--scenes 16]
+        [--steps 3] [--out build/profile_step.json]
 """
 
 import argparse
@@ -23,6 +26,7 @@ sys.path.insert(0, HERE)
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gpallas", choices=("2", "3", "4"), default="2")
     ap.add_argument("--scenes", type=int, default=16)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
@@ -43,7 +47,7 @@ def main():
         sys.exit("profile_torch_step.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = bench_config("heavy")
+    cfg = bench_config("heavy", gpallas=args.gpallas)
     data = synthetic.generate_dataset(0, args.scenes, cfg, scene_len=38)
     scenes = sim.scenes_from_dataset(data, device=dev)
     net = Net(cfg)
@@ -82,6 +86,7 @@ def main():
     busy_ms = sum(r["device_ms"] for r in rows)
     launches = sum(r["calls"] for r in rows)
     out = {"device": torch.cuda.get_device_name(0), "scenes": args.scenes,
+           "gpallas": args.gpallas,
            "device_launches_per_step": launches / args.steps,
            "steps": args.steps, "untraced_step_ms": step_ms,
            "traced_window_ms": window_ms, "device_busy_ms": busy_ms,
@@ -89,7 +94,8 @@ def main():
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"untraced step ms: {[round(s, 3) for s in step_ms]}")
+    print(f"BENCH_GPALLAS={args.gpallas}: untraced step ms: "
+          f"{[round(s, 3) for s in step_ms]}")
     print(f"traced window {window_ms:.3f} ms for {args.steps} steps, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.3f} of the window), "
           f"{launches / args.steps:.0f} device launches per step")

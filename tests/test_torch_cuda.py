@@ -1,14 +1,17 @@
-"""The fused guidance CUDA kernel on the card, against its plain PyTorch
-version on identical inputs.  Marked ``cuda``: skipped where
-``torch.cuda.is_available()`` is false (a CUDA kernel has no CPU mode).
-This file imports no jax, so it also runs on a host without it:
+"""The port's CUDA kernels on the card (the fused guidance kernel and the
+superstep kernel), against their plain PyTorch versions on identical
+inputs.  Marked ``cuda``: skipped where ``torch.cuda.is_available()`` is
+false (a CUDA kernel has no CPU mode).  This file imports no jax, so it
+also runs on a host without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: chip_smoke.py's (rtol 2e-4 / atol 2e-5 on guided controls for
-all but a 1e-3 share of elements, all within the 2*beta_t trust region;
-the kernel's hand-written gradient and the plain version's autograd differ
-in fp32 rounding, which bf16 cumsum rounding can turn into one bf16 step).
+Tolerances: chip_smoke.py's.  Guided outputs: rtol 2e-4 / atol 2e-5 for
+all but a 1e-3 share of elements, all within the 2*beta_t trust region
+(the kernel's hand-written gradient and the plain version's autograd
+differ in fp32 rounding, which bf16 cumsum rounding can turn into one bf16
+step).  Unguided superstep: SS_RTOL / SS_ATOL elementwise (MLP sums in
+another order, a bf16 activation rounding the other way).
 """
 
 import pytest
@@ -17,7 +20,9 @@ import torch
 import chip_smoke
 from pstl_tpu_torch import diffusion
 from pstl_tpu_torch.config import bench_config
+from pstl_tpu_torch.models.net import Net
 from pstl_tpu_torch.ops import guidance_kernel as gk
+from pstl_tpu_torch.ops import superstep_kernel as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -25,7 +30,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the guidance kernel runs only on "
+        pytest.skip("needs a CUDA device: the port's kernels run only on "
                     "the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -68,3 +73,60 @@ def test_kernel_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         gk.guidance_fused(args[0][:, :, :-1].contiguous(),
                           args[1][:, :, :-1].contiguous(), *args[2:])
+
+
+def _superstep_problem(dev, hiddens, n_scenes=4):
+    """Superstep operands of a randomly initialised net (seeded) with the
+    given hidden widths, at the main path's other shapes."""
+    cfg = bench_config("heavy", gpallas="4").with_(hiddens=hiddens)
+    torch.manual_seed(0)
+    net = Net(cfg).to(dev).eval()
+    scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=n_scenes)
+    return cfg, chip_smoke.superstep_inputs(cfg, scenes, net)
+
+
+@pytest.mark.parametrize("hiddens", [(256, 256), (256,)],
+                         ids=["nmid1", "nmid0"])
+@pytest.mark.parametrize("guided", [True, False], ids=["guided", "unguided"])
+def test_superstep_matches_plain(dev, hiddens, guided):
+    cfg, (x, z, te_all, gvec_all, mlp, gops, p) = _superstep_problem(
+        dev, hiddens)
+    j = cfg.diffusion_steps - 1 - 60
+    args = (x, z, te_all[j], gvec_all[j], mlp, gops, p, guided)
+    before = (sk.launches, sk.guided_launches)
+    with torch.no_grad():
+        got = sk.superstep(*args)
+        ref = sk.superstep_plain(*args)
+    torch.cuda.synchronize()
+    assert (sk.launches, sk.guided_launches) == (before[0] + 1,
+                                                 before[1] + int(guided))
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    if guided:
+        off = err > chip_smoke.ATOL + chip_smoke.RTOL * ref.abs()
+        assert float(off.float().mean()) <= chip_smoke.MAX_OFF_SHARE
+        assert float(err.max()) <= 2 * float(gvec_all[j, 0]) + 1e-6
+    else:
+        assert bool((err <= chip_smoke.SS_ATOL
+                     + chip_smoke.SS_RTOL * ref.abs()).all())
+
+
+def test_superstep_wrapper_launches_on_cuda(dev):
+    """A CUDA tensor always launches the kernel (the count moves, the plain
+    version is not taken); a mixed-device operand raises."""
+    cfg, (x, z, te_all, gvec_all, mlp, gops, p) = _superstep_problem(
+        dev, (256,), n_scenes=2)
+    calls = []
+    real = sk.superstep_plain
+    sk.superstep_plain = lambda *a: calls.append(1) or real(*a)
+    try:
+        before = sk.launches
+        with torch.no_grad():
+            sk.superstep(x, z, te_all[0], gvec_all[0], mlp, gops, p, False)
+        torch.cuda.synchronize()
+        assert sk.launches == before + 1 and not calls
+        with pytest.raises(ValueError):
+            sk.superstep(x, z.cpu(), te_all[0], gvec_all[0], mlp, gops, p,
+                         False)
+    finally:
+        sk.superstep_plain = real

@@ -144,6 +144,6 @@ def test_unported_sampler_options_raise():
     tdiff.check_supported(cfg)
     for kw in (dict(sampler="ddim"), dict(cm_sampler=False),
                dict(guidance_pallas_fuse_freeze=False),
-               dict(guidance_pallas_fold2=True)):
+               dict(guidance_pallas_fold=True)):
         with pytest.raises(NotImplementedError):
             tdiff.check_supported(cfg.with_(**kw))

@@ -15,6 +15,7 @@ from pstl_tpu.config import Config as JConfig
 from pstl_tpu.data import synthetic as jsyn
 from pstl_tpu_torch.config import Config as TConfig, bench_config
 from pstl_tpu_torch.data import synthetic as tsyn
+from pstl_tpu_torch.ops import _build
 
 import torch_parity  # noqa: F401  (torch thread count)
 
@@ -85,6 +86,50 @@ def test_bench_configs_finalize_equal(mode, monkeypatch):
                  flex=True)
     assert (JConfig(**flags).finalize().to_dict()
             == TConfig(**flags).finalize().to_dict())
+
+
+@pytest.mark.parametrize("mode", ["heavy", "parity", "parity_nog"])
+@pytest.mark.parametrize("gpallas", ["3", "4"], ids=["fold2", "superstep"])
+def test_bench_gpallas_configs_equal(mode, gpallas, monkeypatch):
+    """bench.build_cfg(mode) with BENCH_GPALLAS=3 (fold2) or 4 (superstep)
+    equals bench_config(mode, gpallas=...)."""
+    for k in list(os.environ):
+        if k.startswith("BENCH_"):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv("BENCH_GPALLAS", gpallas)
+    want = bench.build_cfg(mode).to_dict()
+    got = bench_config(mode, gpallas=gpallas)
+    assert got.to_dict() == want
+    assert got.guidance_pallas_fold2 and got.guidance_pallas_fuse_freeze
+    assert got.guidance_pallas_superstep == (gpallas == "4")
+
+
+def test_bench_gpallas_unported_raise():
+    for gp in ("0", "1", "1f", "2f"):
+        with pytest.raises(NotImplementedError):
+            bench_config("heavy", gpallas=gp)
+    with pytest.raises(ValueError):
+        bench_config("heavy", gpallas="5")
+
+
+def test_build_hash_covers_headers(tmp_path):
+    """The build directory's hash changes with the .cu, with any header
+    under csrc/ (a .cu may include it) and with nothing else there."""
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("a\n")
+    h0 = _build.source_hash("k", str(tmp_path))
+    assert _build.source_hash("k", str(tmp_path)) == h0
+    (tmp_path / "notes.txt").write_text("b\n")
+    assert _build.source_hash("k", str(tmp_path)) == h0
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    h1 = _build.source_hash("k", str(tmp_path))
+    assert h1 != h0
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edit\n')
+    assert _build.source_hash("k", str(tmp_path)) not in (h0, h1)
+    # the repo's kernels share guidance_device.cuh
+    src = open(os.path.join(_build.CSRC_DIR, "superstep.cu")).read()
+    assert '#include "guidance_device.cuh"' in src
 
 
 def test_finalize_rejections_mirror_jax():
