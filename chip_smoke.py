@@ -8,8 +8,8 @@ and no result line is printed:
 
 1. device: needs CUDA (there is no CPU path); TF32 off; the card's name and
    power limit from nvidia-smi.
-2. build: compiles the kernels from ``pstl_tpu_torch/csrc`` (one nvcc per
-   source, all at once) and prints ptxas's report of each.
+2. build: compiles the three kernel libraries from ``pstl_tpu_torch/csrc``
+   (one nvcc per source, all at once) and prints ptxas's report of each.
 3. kernel: the fused guidance kernel against its plain PyTorch version on
    identical inputs at the closed-loop shapes (16 scenes, T=20, R=192, K=8,
    S=15, nL=4, 3 Adam iterations), for coarse pair on/off, bf16 cumsum
@@ -23,18 +23,30 @@ and no result line is printed:
    the CPU (the plain versions, which the CPU tests hold to the JAX
    package) with pinned noise, on the default path and under superstep.
 6. closed loop: the heavy ``bench.py`` contract with the e7_round5 weights,
-   16 synthetic scenes, 64 replanning steps; every step must launch the
-   guidance kernel once per denoise step (99 x 64 in all) and every metric
-   must be finite.
-7. fold2: ``guidance_adam_cm`` under ``guidance_pallas_fold2`` (BENCH_GPALLAS=3)
-   on the card against the plain version, then 8 closed-loop steps, which
-   must launch the guidance kernel 99 x 8 times.
+   16 synthetic scenes: ``guidance_adam_cm`` on the card against the plain
+   version, then 64 replanning steps; every step must launch the guidance
+   kernel once per denoise step (99 x 64 in all) and every metric must be
+   finite.
+7. fold2: the same under ``guidance_pallas_fold2`` (BENCH_GPALLAS=3), 8
+   closed-loop steps, which must launch the guidance kernel 99 x 8 times.
 8. superstep closed loop: the heavy contract under
    ``guidance_pallas_superstep`` (BENCH_GPALLAS=4), 16 scenes x 64 steps:
    99 x 64 superstep launches, all guided, none of the guidance kernel.
 9. superstep, mixed schedule: the ``parity`` contract (guidance on the last
    10 denoise steps, one Adam iteration) under superstep, 8 steps: 99 x 8
    superstep launches, of which 10 x 8 guided.
+10. frozen kernel: the frozen-payload guidance kernel against its plain
+   version at the main shapes, on the same ``freeze_cm`` payloads (frozen
+   once on the card), for coarse pair on/off, bf16 cumsum on/off, the
+   quirk on/off at t=60 and t=5, and bf16 geometry payloads.
+11. frozen reference: the reverse pass card vs CPU on the frozen-payload
+   route (``BENCH_GPALLAS=1``), without and with the selection carry
+   (``guidance_sel_every=2``).
+12. frozen-payload and folded closed loops: ``"1"`` 64 steps (99 x 64
+   frozen-kernel launches), ``"1f"`` and ``"2f"`` (each route's call on the
+   card against the plain version first) and ``"1"`` with
+   ``guidance_sel_every=2``, 8 steps each, and ``"0"`` (the XLA guidance
+   loop), 8 steps with no kernel launch.
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's launches, error and times; the last line is
@@ -51,7 +63,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 64
 FOLD2_STEPS = 8
 MIXED_STEPS = 8
+ROUTE_STEPS = 8
 SCENES = 16
+LIBS = ("guidance_fused", "guidance_frozen", "superstep")
 
 # kernel vs plain tolerance (see kernel_phase): controls are normalized
 # (|mu| ~ 1); rtol/atol of the JAX package's own kernel-vs-XLA tests
@@ -325,18 +339,21 @@ def superstep_phase(dev, net):
     return worst, times[True][0], times[True][1]
 
 
-def reference_phase(dev, net_cpu, net_dev):
+def reference_phase(dev, net_cpu, net_dev, routes=(("2", 1), ("4", 1))):
     """One small reverse pass on the card (kernels) against the CPU (plain
-    versions) on pinned noise, on the default path and under superstep."""
+    versions) on pinned noise, for each (BENCH_GPALLAS, sel_every) route:
+    by default the default path and superstep."""
     from pstl_tpu_torch.config import bench_config
 
-    for gpallas in ("2", "4"):
-        cfg = bench_config("heavy", gpallas=gpallas).with_(
+    for gpallas, sel_every in routes:
+        cfg = bench_config("heavy", gpallas=gpallas,
+                           sel_every=sel_every).with_(
             n_randoms=4, diffusion_steps=12, compute_dtype="float32")
-        reference_pass(dev, net_cpu, net_dev, cfg)
+        reference_pass(dev, net_cpu, net_dev, cfg,
+                       f"BENCH_GPALLAS={gpallas} sel_every={sel_every}")
 
 
-def reference_pass(dev, net_cpu, net_dev, cfg):
+def reference_pass(dev, net_cpu, net_dev, cfg, what):
     import torch
     from pstl_tpu_torch import diffusion
     from pstl_tpu_torch.models import net as models
@@ -360,8 +377,7 @@ def reference_pass(dev, net_cpu, net_dev, cfg):
         out[str(d)] = ctrl.cpu()
     err = float((out[str(dev)] - out["cpu"]).abs().max())
     tol = 1e-3
-    log(f"reference: reverse pass card vs cpu "
-        f"(superstep={int(cfg.guidance_pallas_superstep)}), "
+    log(f"reference: reverse pass card vs cpu ({what}), "
         f"max_abs_err={err:.3e} (tolerance {tol})")
     if not err <= tol:
         raise RuntimeError(f"card and cpu reverse passes disagree: {err}")
@@ -381,7 +397,7 @@ def run_loop(dev, net, cfg, steps):
     init_carry, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs)
     c = init_carry(0)
     torch.cuda.synchronize()
-    gk.launches = sk.launches = sk.guided_launches = 0
+    gk.launches = gk.frozen_launches = sk.launches = sk.guided_launches = 0
     step_s = []
     t_all = time.time()
     for _ in range(steps):
@@ -390,7 +406,9 @@ def run_loop(dev, net, cfg, steps):
         torch.cuda.synchronize()
         step_s.append(time.time() - t0)
     wall = time.time() - t_all
-    counts = {"guidance_fused": gk.launches, "superstep": sk.launches,
+    counts = {"guidance_fused": gk.launches,
+              "guidance_frozen": gk.frozen_launches,
+              "superstep": sk.launches,
               "superstep_guided": sk.guided_launches}
     m = {k: v.cpu() for k, v in sim._carry_metrics(c).items()}
     for k, v in m.items():
@@ -400,6 +418,9 @@ def run_loop(dev, net, cfg, steps):
 
 
 def check_counts(counts, want, what):
+    """``want`` names the kernels the run must launch; every other count
+    must be 0."""
+    want = {k: want.get(k, 0) for k in counts}
     if counts != want:
         raise RuntimeError(f"{what}: kernel launches {counts}, expected "
                            f"{want}")
@@ -417,51 +438,144 @@ def report_loop(what, steps, counts, m, step_s, wall):
         f"wall {wall:.2f} s)")
 
 
-def closed_loop_phase(dev, net):
+def route_call(dev, cfg, what):
+    """``guidance_adam_cm`` of ``cfg``'s route on the card against the plain
+    version of its kernel on the same inputs (the same ``freeze_cm``
+    payloads on the frozen route); returns (max error, ms, plain ms), the
+    times of the whole call (operand packing included) and of the plain
+    version."""
+    import torch
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    coeffs = diffusion.get_coeffs(cfg, device=dev)
+    _, fused, mu = plan_inputs(cfg, scene_batch(cfg, dev))
+    beta = coeffs.beta[60]
+    ff = cfg.guidance_pallas_fuse_freeze
+    with torch.no_grad():
+        frozen = None if ff else fused.freeze_cm(mu)
+
+        def call():
+            return gk.guidance_adam_cm(fused, frozen, mu, beta, 100.0, cfg,
+                                       fuse_freeze=ff)
+
+        got = call()
+    ops = gk.kernel_operands(fused, cfg)
+    gvec = torch.stack([beta, torch.tensor(100.0, device=dev), ops.gscale])
+    w, a = mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous()
+    if ff:
+        plain = gk.guidance_fused_plain
+        args = (w, a, *ops[:-1], gvec, gk.kernel_params(cfg, fused))
+    else:
+        plain = gk.guidance_frozen_plain
+        args = (w, a, *gk.frozen_operands(frozen), *gk.frozen_scene(ops),
+                gvec, gk.kernel_params(cfg, fused))
+    ref = torch.stack(plain(*args), dim=2)
+    torch.cuda.synchronize()
+    err = check_guided(got, ref, mu, float(beta), f"{what} guidance_adam_cm")
+    ms = time_cuda(call)
+    plain_ms = time_cuda(lambda: plain(*args))
+    log(f"{what} times: guidance_adam_cm {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms (median of 20)")
+    return err, ms, plain_ms
+
+
+#: the kernel each BENCH_GPALLAS route launches once per guided denoise step
+ROUTE_KERNEL = {"0": None, "1": "guidance_frozen", "1f": "guidance_frozen",
+                "2f": "guidance_fused", "2": "guidance_fused",
+                "3": "guidance_fused"}
+
+
+def route_phase(dev, net, gpallas, steps, sel_every=1):
+    """The configuration ``bench_config("heavy", gpallas, sel_every)``: its
+    guidance call against the plain version (not for the XLA loop, which
+    runs no kernel), then ``steps`` closed-loop steps, which must launch
+    the route's kernel once per guided denoise step and nothing else.
+    Returns (launches, max error, ms, plain ms, median step s)."""
     from pstl_tpu_torch import diffusion
     from pstl_tpu_torch.config import bench_config
 
-    cfg = bench_config("heavy")
-    counts, m, step_s, wall = run_loop(dev, net, cfg, STEPS)
+    t0 = time.time()
+    cfg = bench_config("heavy", gpallas=gpallas, sel_every=sel_every)
+    what = f"BENCH_GPALLAS={gpallas} sel_every={sel_every}"
+    kernel = ROUTE_KERNEL[gpallas]
+    err = ms = plain_ms = None
+    if kernel is not None:
+        err, ms, plain_ms = route_call(dev, cfg, what)
+    counts, m, step_s, wall = run_loop(dev, net, cfg, steps)
     guided = int(diffusion._trigger_schedule(cfg).sum())
-    check_counts(counts, {"guidance_fused": guided * STEPS, "superstep": 0,
-                          "superstep_guided": 0}, "closed loop")
-    report_loop("closed loop", STEPS, counts, m, step_s, wall)
-    return counts["guidance_fused"], median(step_s)
+    check_counts(counts, {kernel: guided * steps} if kernel else {},
+                 f"{what} closed loop")
+    report_loop(f"{what} closed loop", steps, counts, m, step_s, wall)
+    log(f"{what}: phase wall {time.time() - t0:.1f} s")
+    return (counts.get(kernel, 0), err, ms, plain_ms, median(step_s))
 
 
-def fold2_phase(dev, net):
-    """The fold2 configuration: its guidance call on the card against the
-    plain version, then FOLD2_STEPS closed-loop steps."""
+def frozen_phase(dev):
+    """The frozen-payload kernel against its plain version at the main
+    shapes on the same payloads (``freeze_cm`` once on the card per
+    configuration), for every flag the kernel branches on at t=60 and t=5,
+    and bf16 geometry payloads; returns the JSON record's numbers."""
     import torch
     from pstl_tpu_torch import diffusion
     from pstl_tpu_torch.config import bench_config
     from pstl_tpu_torch.ops import guidance_kernel as gk
 
-    cfg = bench_config("heavy", gpallas="3")
-    coeffs = diffusion.get_coeffs(cfg, device=dev)
-    _, fused, mu = plan_inputs(cfg, scene_batch(cfg, dev))
-    beta = coeffs.beta[60]
-    with torch.no_grad():
-        got = gk.guidance_adam_cm(fused, mu, beta, 100.0, cfg)
-    ops = gk.kernel_operands(fused, cfg)
-    gvec = torch.stack([beta, torch.tensor(100.0, device=dev), ops.gscale])
-    args = (mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous(), *ops[:-1],
-            gvec, gk.kernel_params(cfg, fused))
-    ref = torch.stack(gk.guidance_fused_plain(*args), dim=2)
-    torch.cuda.synchronize()
-    err = check_guided(got, ref, mu, float(beta), "fold2 guidance_adam_cm")
-    ms = time_cuda(lambda: gk.guidance_adam_cm(fused, mu, beta, 100.0, cfg))
-    plain_ms = time_cuda(lambda: gk.guidance_fused_plain(*args))
-    log(f"fold2 times: guidance_adam_cm {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(median of 20)")
-    counts, m, step_s, wall = run_loop(dev, net, cfg, FOLD2_STEPS)
-    guided = int(diffusion._trigger_schedule(cfg).sum())
-    check_counts(counts, {"guidance_fused": guided * FOLD2_STEPS,
-                          "superstep": 0, "superstep_guided": 0},
-                 "fold2 closed loop")
-    report_loop("fold2 closed loop", FOLD2_STEPS, counts, m, step_s, wall)
-    return counts["guidance_fused"], err, ms, plain_ms
+    t_start = time.time()
+    base = bench_config("heavy", gpallas="1")
+    scenes = scene_batch(base, dev)
+    coeffs = diffusion.get_coeffs(base, device=dev)
+    cases = [(c, b, q, "float32") for c in (True, False)
+             for b in (True, False) for q in (False, True)]
+    cases.append((True, True, False, "bfloat16"))
+    worst = 0.0
+    outs = {}
+    times = None
+    for coarse, bf16, quirk, geom in cases:
+        cfg = base.with_(clearance_coarse_pair=coarse,
+                         guidance_pallas_bf16_cumsum=bf16,
+                         guidance_positive_offset_quirk=quirk,
+                         geometry_dtype=geom)
+        _, fused, mu = plan_inputs(cfg, scenes)
+        with torch.no_grad():
+            pay = gk.frozen_operands(fused.freeze_cm(mu))
+        ops = gk.kernel_operands(fused, cfg)
+        p = gk.kernel_params(cfg, fused)
+        w, a = mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous()
+        for t in (60, 5):
+            beta = coeffs.beta[t]
+            gvec = torch.stack([beta, torch.tensor(100.0, device=dev),
+                                ops.gscale])
+            args = (w, a, *pay, *gk.frozen_scene(ops), gvec, p)
+            got = torch.stack(gk.guidance_frozen(*args))
+            ref = torch.stack(gk.guidance_frozen_plain(*args))
+            torch.cuda.synchronize()
+            err = check_guided(
+                got, ref, torch.stack([w, a]), float(beta),
+                f"frozen coarse={int(coarse)} bf16={int(bf16)} "
+                f"quirk={int(quirk)} geometry={geom} t={t}")
+            if not float((got - torch.stack([w, a])).abs().max()) > 0:
+                raise RuntimeError("the frozen kernel did not move mu")
+            worst = max(worst, err)
+            outs[(coarse, bf16, quirk, geom, t)] = got
+            if (coarse, bf16, quirk, geom, t) == (True, True, False,
+                                                  "float32", 60):
+                times = (time_cuda(lambda: gk.guidance_frozen(*args)),
+                         time_cuda(lambda: gk.guidance_frozen_plain(*args)))
+    on = (True, True, False, "float32", 60)
+    for i, flag in enumerate(("coarse", "bf16", "quirk", "geometry")):
+        off = list(on)
+        off[i] = "bfloat16" if flag == "geometry" else not on[i]
+        d = float((outs[on] - outs[tuple(off)]).abs().max())
+        log(f"frozen flag {flag}: on vs off max diff {d:.3e}")
+        if not d > 0:
+            raise RuntimeError(f"flag {flag} does not change the frozen "
+                               "kernel")
+    log(f"frozen kernel times (coarse+bf16, bs={SCENES}, "
+        f"R={3 * base.n_randoms}, niters={base.guidance_niters}): kernel "
+        f"{times[0]:.4f} ms, plain {times[1]:.4f} ms (median of 20); "
+        f"phase wall {time.time() - t_start:.1f} s")
+    return worst, times[0], times[1]
 
 
 def superstep_loop_phase(dev, net):
@@ -517,15 +631,14 @@ def main():
     from pstl_tpu_torch.ops import _build
 
     t0 = time.time()
-    libs = ("guidance_fused", "superstep")
-    _build.load_all(libs)
-    for name in libs:
+    _build.load_all(LIBS)
+    for name in LIBS:
         info = _build.BUILD_INFO[name]
         ptx = [ln.strip() for ln in info["report"].splitlines()
                if "registers" in ln or "spill" in ln]
         log(f"build: {name} (nvcc {info['build_s']:.2f} s); "
             + " | ".join(ptx))
-    log(f"build: both libraries in {time.time() - t0:.2f} s")
+    log(f"build: {len(LIBS)} libraries in {time.time() - t0:.2f} s")
 
     max_err, ms, plain_ms = kernel_phase(dev)
 
@@ -533,33 +646,55 @@ def main():
     convert.load_weights(net, "e7_round5")
     net = net.to(dev).eval()
     ss_err, ss_ms, ss_plain_ms = superstep_phase(dev, net)
+    fz_err, fz_ms, fz_plain_ms = frozen_phase(dev)
 
     net_cpu = Net(bench_config("heavy").with_(compute_dtype="float32"))
     convert.load_weights(net_cpu, "e7_round5")
     net_dev = Net(bench_config("heavy").with_(compute_dtype="float32"))
     convert.load_weights(net_dev, "e7_round5")
     reference_phase(dev, net_cpu.eval(), net_dev.to(dev).eval())
+    t1 = time.time()
+    reference_phase(dev, net_cpu.eval(), net_dev.to(dev).eval(),
+                    routes=(("1", 1), ("1", 2)))
+    log(f"frozen reference: phase wall {time.time() - t1:.1f} s")
 
-    launches, step_med = closed_loop_phase(dev, net)
-    f2_launches, f2_err, f2_ms, f2_plain_ms = fold2_phase(dev, net)
+    launches, _, _, _, step_med = route_phase(dev, net, "2", STEPS)
+    f2_launches, f2_err, f2_ms, f2_plain_ms, _ = route_phase(
+        dev, net, "3", FOLD2_STEPS)
     ss_launches, ss_step_med = superstep_loop_phase(dev, net)
+    fz_launches, _, _, _, fz_step_med = route_phase(dev, net, "1", STEPS)
+    f1_launches, f1_err, f1_ms, f1_plain_ms, _ = route_phase(
+        dev, net, "1f", ROUTE_STEPS)
+    ff_launches, ff_err, ff_ms, ff_plain_ms, _ = route_phase(
+        dev, net, "2f", ROUTE_STEPS)
+    route_phase(dev, net, "1", ROUTE_STEPS, sel_every=2)
+    _, _, _, _, xla_step_med = route_phase(dev, net, "0", ROUTE_STEPS)
     log(f"median closed-loop step, heavy contract: default path "
-        f"{step_med * 1e3:.1f} ms, superstep {ss_step_med * 1e3:.1f} ms")
+        f"{step_med * 1e3:.1f} ms, superstep {ss_step_med * 1e3:.1f} ms, "
+        f"frozen payloads {fz_step_med * 1e3:.1f} ms, XLA guidance loop "
+        f"{xla_step_med * 1e3:.1f} ms")
 
-    guidance = {"name": "guidance_fused", "route": "cuda",
-                "source": "pstl_tpu_torch/csrc/guidance_fused.cu"}
+    fused = {"name": "guidance_fused", "route": "cuda",
+             "source": "pstl_tpu_torch/csrc/guidance_fused.cu"}
+    frozen = {"name": "guidance_frozen", "route": "cuda",
+              "source": "pstl_tpu_torch/csrc/guidance_frozen.cu"}
+    at = "pstl_tpu/ops/pallas_guidance.py:"
     print(json.dumps({"kernels": [
-        dict(guidance, replaces="pstl_tpu/ops/pallas_guidance.py:396",
-             launches=launches, max_abs_err=max_err, ms=ms,
-             plain_ms=plain_ms),
-        dict(guidance, replaces="pstl_tpu/ops/pallas_guidance.py:495",
-             launches=f2_launches, max_abs_err=f2_err, ms=f2_ms,
-             plain_ms=f2_plain_ms),
+        dict(fused, replaces=at + "396", launches=launches,
+             max_abs_err=max_err, ms=ms, plain_ms=plain_ms),
+        dict(fused, replaces=at + "495", launches=f2_launches,
+             max_abs_err=f2_err, ms=f2_ms, plain_ms=f2_plain_ms),
         {"name": "superstep", "route": "cuda",
          "source": "pstl_tpu_torch/csrc/superstep.cu",
-         "replaces": "pstl_tpu/ops/pallas_guidance.py:589",
-         "launches": ss_launches, "max_abs_err": ss_err, "ms": ss_ms,
-         "plain_ms": ss_plain_ms}]}), flush=True)
+         "replaces": at + "589", "launches": ss_launches,
+         "max_abs_err": ss_err, "ms": ss_ms, "plain_ms": ss_plain_ms},
+        dict(frozen, replaces=at + "367", launches=fz_launches,
+             max_abs_err=fz_err, ms=fz_ms, plain_ms=fz_plain_ms),
+        dict(frozen, replaces=at + "435", launches=f1_launches,
+             max_abs_err=f1_err, ms=f1_ms, plain_ms=f1_plain_ms),
+        dict(fused, replaces=at + "466", launches=ff_launches,
+             max_abs_err=ff_err, ms=ff_ms, plain_ms=ff_plain_ms)]}),
+        flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

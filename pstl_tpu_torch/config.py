@@ -8,10 +8,13 @@ two tables equal.  Field documentation lives with the reference
 differently.
 
 Flags the port accepts and ignores, because they only steer TPU layout or
-compilation: ``geometry_dtype`` for the kernel (the CUDA kernel freezes in
-fp32, like the Pallas one), ``cm_broadcast_dots``, ``diffusion_scan_unroll``,
+compilation: ``cm_broadcast_dots``, ``diffusion_scan_unroll``,
 ``guidance_pallas_cols``, ``guidance_pallas_pack``, ``pallas_interpret``,
 ``guidance_remat``, ``guidance_blend_scores`` and the mesh fields.
+``geometry_dtype`` rounds the selection fields and the frozen payloads of
+``CandMinorGuidanceLoss.freeze_cm`` (the frozen-payload kernel and the XLA
+guidance loop read them); it is ignored on the fuse-freeze and superstep
+paths, whose kernels freeze in fp32, like the Pallas ones.
 """
 
 from __future__ import annotations
@@ -182,8 +185,9 @@ class Config:
     guidance_sel_every: int = 1
     use_pallas_clearance: bool = False
     guidance_blend_scores: bool = False
-    # the guidance_pallas* family names the fused guidance kernel; on the
-    # port it selects ops/guidance_kernel.py (csrc/guidance_fused.cu)
+    # the guidance_pallas* family names the guidance kernels; on the port
+    # it selects ops/guidance_kernel.py (csrc/guidance_fused.cu with
+    # fuse_freeze, csrc/guidance_frozen.cu without)
     guidance_pallas: bool = False
     guidance_pallas_fuse_freeze: bool = False
     guidance_pallas_fold: bool = False
@@ -279,43 +283,42 @@ class Config:
         return dataclasses.asdict(self)
 
 
-#: BENCH_GPALLAS values whose guidance kernel is not ported yet, with the
-#: TPU kernel each needs (PERF.md's kernel table)
-_GPALLAS_UNPORTED = {
-    "0": "the XLA guidance loop",
-    "1": "the frozen-payload kernel _kernel (row 2)",
-    "1f": "the scene-folded frozen-payload kernel _kernel_f (row 3)",
-    "2f": "the scene-folded fused kernel _kernel_fused_f (row 3)",
-}
+#: BENCH_GPALLAS values of bench.py
+GPALLAS = ("0", "1", "1f", "2f", "2", "3", "4")
 
 
-def bench_config(mode: str = "heavy", gpallas: str = "2") -> Config:
+def bench_config(mode: str = "heavy", gpallas: str = "2", sel_every: int = 1,
+                 geometry_dtype: str = "float32") -> Config:
     """The closed-loop contract rows of ``bench.py``'s ``build_cfg`` with
-    ``BENCH_GPALLAS=gpallas`` and every other environment knob at its
-    default: the heavy all-step guidance row (coarse-pair freeze, bf16
+    ``BENCH_GPALLAS=gpallas``, ``BENCH_SEL_EVERY=sel_every``,
+    ``BENCH_GEOM_DTYPE=geometry_dtype`` and every other environment knob at
+    its default: the heavy all-step guidance row (coarse-pair freeze, bf16
     cumsum), the reference-parity guidance schedule, and the no-guidance
-    row.  ``gpallas`` picks the guidance kernel as ``bench.py`` does: "2"
-    the fused kernel with G=2 packing (the default), "3" the column-grid
-    fold2 kernel, "4" the whole-denoise-step superstep kernel."""
-    if gpallas in _GPALLAS_UNPORTED:
-        raise NotImplementedError(
-            f"BENCH_GPALLAS={gpallas}: {_GPALLAS_UNPORTED[gpallas]} is not "
-            "ported yet")
-    if gpallas not in ("2", "3", "4"):
+    row.  ``gpallas`` picks the guidance route as ``bench.py`` does: "0" the
+    XLA guidance loop on frozen selections, "1" the frozen-payload kernel,
+    "1f" / "2f" the scene-folded frozen-payload / fused kernels, "2" the
+    fused kernel with G=2 packing (the default), "3" the column-grid fold2
+    kernel, "4" the whole-denoise-step superstep kernel.  Like
+    ``build_cfg``, it does not finalize again after the last three knobs,
+    so ``gpallas="2"`` with ``sel_every=2`` raises only in ``finalize``."""
+    if gpallas not in GPALLAS:
         raise ValueError(f"unknown BENCH_GPALLAS value {gpallas!r}")
     cfg = Config(diffusion=True, rect_head=True, diverse_loss=True,
                  multi_cands=10, guidance=True, guidance_niters=3,
                  n_rolls=3, n_randoms=64, n_neighbors=8,
                  flex=True).finalize().with_(epochs=1, test=True)
-    cfg = cfg.with_(guidance_pallas=True,
-                    guidance_pallas_fuse_freeze=gpallas == "2",
-                    guidance_pallas_fold=False,
-                    guidance_pallas_fold2=gpallas == "3",
-                    guidance_pallas_superstep=gpallas == "4",
-                    guidance_pallas_cols=0,
-                    guidance_pallas_pack=2 if gpallas == "2" else 1
-                    ).finalize()
+    if gpallas != "0":
+        cfg = cfg.with_(guidance_pallas=True,
+                        guidance_pallas_fuse_freeze=gpallas.startswith("2"),
+                        guidance_pallas_fold=gpallas.endswith("f"),
+                        guidance_pallas_fold2=gpallas == "3",
+                        guidance_pallas_superstep=gpallas == "4",
+                        guidance_pallas_cols=0,
+                        guidance_pallas_pack=2 if gpallas == "2" else 1
+                        ).finalize()
     cfg = cfg.with_(guidance_reuse_selection=True,
+                    guidance_sel_every=int(sel_every),
+                    geometry_dtype=geometry_dtype,
                     clearance_coarse_pair=True,
                     guidance_pallas_bf16_cumsum=True)
     if mode == "parity":

@@ -1,19 +1,24 @@
-// Device code of the fused STL-guidance step, shared by the kernels that
-// run it: csrc/guidance_fused.cu (the guidance step alone, one launch per
-// guided denoise step) and csrc/superstep.cu (a whole denoise step).  One
-// copy of the hand-written forward and backward serves both.
+// Device code of the STL-guidance step, shared by the kernels that run it:
+// csrc/guidance_fused.cu (the guidance step alone, freezing in-kernel, one
+// launch per guided denoise step), csrc/guidance_frozen.cu (the same on
+// selections frozen outside the kernel) and csrc/superstep.cu (a whole
+// denoise step).  One copy of the hand-written forward and backward serves
+// all three.
 //
 // Per candidate column: freeze the discrete selections at the posterior
 // mean, then `niters` Adam steps on the hinge loss
 // sum_r relu(thres - score_r) * valid_r * gscale, each followed by the
-// beta_t trust-region clip (guided_update below).  It is the port of the
-// Pallas helpers `_freeze_k`, `_adam_loop`, `_scene_scores`, `_rollout_k`
-// and `_ev_alw` in pstl_tpu/ops/pallas_guidance.py.  The Pallas kernels get
-// the gradient from `jax.grad` traced inside the kernel; here the backward
-// pass is written by hand (reverse through the softmins, the clearance
-// clip/min chain, the lane distance and the prefix-sum rollout).  Its torch
-// transcription is tested against autograd on the CPU
-// (tests/test_torch_guidance.py).
+// beta_t trust-region clip (guided_update below; adam_clip is the loop
+// alone).  A selection is read through a policy: IdxSel holds the in-kernel
+// freeze as small indices into the scene's shared memory, PaySel reads the
+// frozen payload values of its column from device memory.  It is the port
+// of the Pallas helpers `_freeze_k`, `_adam_loop`, `_scene_scores`,
+// `_rollout_k` and `_ev_alw` in pstl_tpu/ops/pallas_guidance.py.  The Pallas
+// kernels get the gradient from `jax.grad` traced inside the kernel; here
+// the backward pass is written by hand (reverse through the softmins, the
+// clearance clip/min chain, the lane distance and the prefix-sum rollout).
+// Its torch transcription is tested against autograd on the CPU
+// (tests/test_torch_guidance.py, tests/test_torch_frozen_kernel.py).
 //
 // Semantics shared with the Pallas kernels: argmins take the earliest index
 // (strict <); lanes in s order; exact pairs e outer, nn inner; coarse pairs
@@ -174,18 +179,71 @@ __device__ void freeze(const float* w, const float* a, const Column& col,
   }
 }
 
+// The frozen lane segment of one step: its end points, the heading of its
+// first point, and whether it is the lane's first / last segment.
+struct LaneSel {
+  float x2, y2, th2, x3, y3;
+  bool first, last;
+};
+
+// Selections as indices: the in-kernel freeze's segment per t and disc pair
+// per (k, t), into the scene's lanes and disc centres in shared memory.
+struct IdxSel {
+  const float* L;  // the column's lane, [S][3]
+  const float* ndx;  // [K][nLn][T]
+  const float* ndy;
+  const unsigned char* seg;  // [MAXT]
+  const unsigned char* pe;   // [MAXK * MAXT] ego disc
+  const unsigned char* pn;   // [MAXK * MAXT] neighbor disc
+  __device__ __forceinline__ LaneSel lane(int t, const Params& p) const {
+    const int sg = seg[t];
+    return LaneSel{L[sg * 3], L[sg * 3 + 1], L[sg * 3 + 2], L[(sg + 1) * 3],
+                   L[(sg + 1) * 3 + 1], sg == 0, sg == p.S - 2};
+  }
+  __device__ __forceinline__ void disc(int k, int t, const Params& p,
+                                       float& ax, float& nx,
+                                       float& ny) const {
+    ax = p.axe[pe[k * MAXT + t]];
+    const int ni = (k * p.nLn + pn[k * MAXT + t]) * p.T + t;
+    nx = ndx[ni];
+    ny = ndy[ni];
+  }
+};
+
+// Selections as frozen payload values of one column (b, r), in device
+// memory with r minor, so a warp's loads of one (t) or (k, t) coalesce.
+struct PaySel {
+  const float* lane_pay[7];  // x2 y2 th2 x3 y3 first last at (b, t=0, r)
+  const float* disc_pay[3];  // axe nx ny at (b, k=0, t=0, r)
+  int R;
+  __device__ __forceinline__ LaneSel lane(int t, const Params&) const {
+    const size_t o = (size_t)t * R;
+    const float* const* q = lane_pay;
+    return LaneSel{q[0][o], q[1][o], q[2][o], q[3][o], q[4][o],
+                   q[5][o] > 0.f, q[6][o] > 0.f};
+  }
+  __device__ __forceinline__ void disc(int k, int t, const Params& p,
+                                       float& ax, float& nx,
+                                       float& ny) const {
+    const size_t o = ((size_t)k * p.T + t) * R;
+    ax = disc_pay[0][o];
+    nx = disc_pay[1][o];
+    ny = disc_pay[2][o];
+  }
+};
+
 // Lane-distance pieces at step t against the frozen segment.
 struct LaneT {
   float x2, y2, th2, x3, y3, area, bc, normal, l2d, l2d1, d0, sgn;
   float nc, ba, aa, dpre, d;
 };
 
-__device__ __forceinline__ LaneT lane_terms(float x, float y, int sg,
-                                            const float* L,
+__device__ __forceinline__ LaneT lane_terms(float x, float y,
+                                            const LaneSel& ls,
                                             const Params& p) {
   LaneT o;
-  o.x2 = L[sg * 3]; o.y2 = L[sg * 3 + 1]; o.th2 = L[sg * 3 + 2];
-  o.x3 = L[(sg + 1) * 3]; o.y3 = L[(sg + 1) * 3 + 1];
+  o.x2 = ls.x2; o.y2 = ls.y2; o.th2 = ls.th2;
+  o.x3 = ls.x3; o.y3 = ls.y3;
   o.area = x * (o.y2 - o.y3) + o.x2 * (o.y3 - y) + o.x3 * (y - o.y2);
   float bottom = sqrtf(sq(o.x2 - o.x3) + sq(o.y2 - o.y3));
   o.bc = fmaxf(bottom, 1e-7f);
@@ -200,8 +258,8 @@ __device__ __forceinline__ LaneT lane_terms(float x, float y, int sg,
                    + (y - o.y2) * (o.y3 - o.y2)) <= 0.f;
     bool ahead = ((x - o.x3) * (o.x2 - o.x3)
                   + (y - o.y3) * (o.y2 - o.y3)) <= 0.f;
-    bool ba = (sg == 0) && behind;
-    bool aa = (sg == p.S - 2) && ahead;
+    bool ba = ls.first && behind;
+    bool aa = ls.last && ahead;
     o.ba = ba ? 1.f : 0.f;
     o.aa = aa ? 1.f : 0.f;
     o.nc = (ba || aa) ? 0.f : 1.f;
@@ -239,32 +297,31 @@ __device__ void ev_alw_bwd(const float* z, const float* suf, int T, int nt2,
 }
 
 // Robustness of one column at (w, a) and, when `gw`/`ga` are given, the
-// gradient of dL/dscore * score with respect to (w, a).
+// gradient of dL/dscore * score with respect to (w, a).  `sel` is IdxSel or
+// PaySel; `sc` supplies the disc radii and validity.
+template <class Sel>
 __device__ float score_grad(const float* w, const float* a,
                             const Column& col, const Scene& sc,
-                            const Params& p, const unsigned char* seg,
-                            const unsigned char* pe,
-                            const unsigned char* pn, float thres,
+                            const Sel& sel, const Params& p, float thres,
                             float gscale, float* gw, float* ga) {
   const int T = p.T;
   const float tau = p.tau;
   float x[MAXT], y[MAXT], th[MAXT], v[MAXT], c[MAXT], s[MAXT];
   rollout(w, a, col, p, x, y, th, v, c, s);
-  const float* L = sc.lanes + col.j * p.S * 3;
 
   float d[MAXT], tha[MAXT], mnd[MAXT];
   unsigned char kmin[MAXT];
   for (int t = 0; t < T; ++t) {
-    LaneT lt = lane_terms(x[t], y[t], seg[t], L, p);
+    LaneT lt = lane_terms(x[t], y[t], sel.lane(t, p), p);
     d[t] = lt.d;
     tha[t] = 1.f - cosf(lt.th2 - th[t]);
     float best = 0.f;
     int kb = 0;
     for (int k = 0; k < p.K; ++k) {
-      float ax = p.axe[pe[k * MAXT + t]];
-      int ni = (k * p.nLn + pn[k * MAXT + t]) * T + t;
+      float ax, nx, ny;
+      sel.disc(k, t, p, ax, nx, ny);
       float exd = x[t] + ax * c[t], eyd = y[t] + ax * s[t];
-      float d2 = sq(exd - sc.ndx[ni]) + sq(eyd - sc.ndy[ni]);
+      float d2 = sq(exd - nx) + sq(eyd - ny);
       float per = sqrtf(d2 + 1e-12f) - sc.crad[k * T + t];
       float vk = sc.cval[k * T + t];
       float masked = fminf(fmaxf(per, -5.f), 20.f) * vk + (1.f - vk) * 100.f;
@@ -370,7 +427,7 @@ __device__ float score_grad(const float* w, const float* a,
   float gx[MAXT], gy[MAXT], gth[MAXT], gc[MAXT], gsn[MAXT];
   for (int t = 0; t < T; ++t) {
     gx[t] = 0.f; gy[t] = 0.f; gc[t] = 0.f; gsn[t] = 0.f;
-    LaneT lt = lane_terms(x[t], y[t], seg[t], L, p);
+    LaneT lt = lane_terms(x[t], y[t], sel.lane(t, p), p);
     // heading deviation 1 - cos(th2 - th)
     gth[t] = -gtha[t] * sinf(lt.th2 - th[t]);
     // lane distance
@@ -398,10 +455,10 @@ __device__ float score_grad(const float* w, const float* a,
     {
       int k = kmin[t];
       float vk = sc.cval[k * T + t];
-      float ax = p.axe[pe[k * MAXT + t]];
-      int ni = (k * p.nLn + pn[k * MAXT + t]) * T + t;
-      float dxk = x[t] + ax * c[t] - sc.ndx[ni];
-      float dyk = y[t] + ax * s[t] - sc.ndy[ni];
+      float ax, nx, ny;
+      sel.disc(k, t, p, ax, nx, ny);
+      float dxk = x[t] + ax * c[t] - nx;
+      float dyk = y[t] + ax * s[t] - ny;
       float dist = sqrtf(sq(dxk) + sq(dyk) + 1e-12f);
       float per = dist - sc.crad[k * T + t];
       float gper = gmnd[t] * vk * clip_grad(per, -5.f, 20.f);
@@ -465,32 +522,45 @@ __host__ __device__ inline size_t scene_floats(const Params& p) {
   return (size_t)(3 * p.S * 3 + 2 * p.K * p.nLn * p.T + 2 * p.K * p.T);
 }
 
-// Copy scene b's constants into shared memory (all threads of the block
-// take part; the caller synchronises before reading them).
+// Copy scene b's disc radii and validity (2 K T floats) into shared memory
+// (all threads of the block take part; the caller synchronises before
+// reading them).  The lanes and disc centres stay unset: enough for PaySel.
+__device__ Scene load_clear(float* smem, const float* __restrict__ crad,
+                            const float* __restrict__ cvalid, int b,
+                            const Params& p) {
+  const int nk = p.K * p.T;
+  float* s_crad = smem;
+  float* s_cval = s_crad + nk;
+  for (int i = threadIdx.x; i < nk; i += blockDim.x) {
+    s_crad[i] = crad[(size_t)b * nk + i];
+    s_cval[i] = cvalid[(size_t)b * nk + i];
+  }
+  return Scene{nullptr, nullptr, nullptr, s_crad, s_cval};
+}
+
+// Copy all of scene b's constants into shared memory (scene_floats(p)
+// floats), as load_clear does.
 __device__ Scene load_scene(float* smem, const float* __restrict__ lanes,
                             const float* __restrict__ ndx,
                             const float* __restrict__ ndy,
                             const float* __restrict__ crad,
                             const float* __restrict__ cvalid, int b,
                             const Params& p) {
-  const int T = p.T;
-  const int nl = 3 * p.S * 3, nd = p.K * p.nLn * T, nk = p.K * T;
+  const int nl = 3 * p.S * 3, nd = p.K * p.nLn * p.T;
   float* s_lanes = smem;
   float* s_ndx = s_lanes + nl;
   float* s_ndy = s_ndx + nd;
-  float* s_crad = s_ndy + nd;
-  float* s_cval = s_crad + nk;
   for (int i = threadIdx.x; i < nl; i += blockDim.x)
     s_lanes[i] = lanes[(size_t)b * nl + i];
   for (int i = threadIdx.x; i < nd; i += blockDim.x) {
     s_ndx[i] = ndx[(size_t)b * nd + i];
     s_ndy[i] = ndy[(size_t)b * nd + i];
   }
-  for (int i = threadIdx.x; i < nk; i += blockDim.x) {
-    s_crad[i] = crad[(size_t)b * nk + i];
-    s_cval[i] = cvalid[(size_t)b * nk + i];
-  }
-  return Scene{s_lanes, s_ndx, s_ndy, s_crad, s_cval};
+  Scene sc = load_clear(s_ndy + nd, crad, cvalid, b, p);
+  sc.lanes = s_lanes;
+  sc.ndx = s_ndx;
+  sc.ndy = s_ndy;
+  return sc;
 }
 
 // Column (b, r)'s per-row constants.
@@ -513,11 +583,13 @@ __device__ Column load_column(const float* __restrict__ stlp,
   return col;
 }
 
-// The guided update of one column: w, a (T values each) hold the posterior
-// mean on entry and the guided mean on return.
-__device__ void guided_update(float* w, float* a, const Column& col,
-                              const Scene& sc, const Params& p, float beta,
-                              float thres, float gscale) {
+// `niters` Adam steps, each followed by the beta trust-region clip around
+// the start, for one column on the selections `sel`: w, a (T values each)
+// hold the posterior mean on entry and the guided mean on return.
+template <class Sel>
+__device__ void adam_clip(float* w, float* a, const Column& col,
+                          const Scene& sc, const Sel& sel, const Params& p,
+                          float beta, float thres, float gscale) {
   const int T = p.T;
   float w0[MAXT], a0[MAXT];
   float mw[MAXT], vw[MAXT], ma[MAXT], va[MAXT], gw[MAXT], ga[MAXT];
@@ -525,15 +597,12 @@ __device__ void guided_update(float* w, float* a, const Column& col,
     w0[t] = w[t]; a0[t] = a[t];
     mw[t] = 0.f; vw[t] = 0.f; ma[t] = 0.f; va[t] = 0.f;
   }
-  unsigned char seg[MAXT], pe[MAXK * MAXT], pn[MAXK * MAXT];
-  freeze(w0, a0, col, sc, p, seg, pe, pn);
-
   const float b1 = 0.9f, b2 = 0.999f, omb1 = (float)(1.0 - 0.9),
               omb2 = (float)(1.0 - 0.999), eps = 1e-8f;
   const bool quirk = p.flags & F_QUIRK;
   double b1p = 1.0, b2p = 1.0;
   for (int it = 0; it < p.niters; ++it) {
-    score_grad(w, a, col, sc, p, seg, pe, pn, thres, gscale, gw, ga);
+    score_grad(w, a, col, sc, sel, p, thres, gscale, gw, ga);
     b1p *= 0.9;
     b2p *= 0.999;
     const float c1 = (float)(1.0 - b1p), c2 = (float)(1.0 - b2p);
@@ -556,4 +625,16 @@ __device__ void guided_update(float* w, float* a, const Column& col,
       a[t] = a0[t] + da;
     }
   }
+}
+
+// The guided update of one column: freeze at (w, a), then adam_clip on the
+// frozen indices.  w, a (T values each) hold the posterior mean on entry
+// and the guided mean on return.
+__device__ void guided_update(float* w, float* a, const Column& col,
+                              const Scene& sc, const Params& p, float beta,
+                              float thres, float gscale) {
+  unsigned char seg[MAXT], pe[MAXK * MAXT], pn[MAXK * MAXT];
+  freeze(w, a, col, sc, p, seg, pe, pn);
+  const IdxSel sel{sc.lanes + col.j * p.S * 3, sc.ndx, sc.ndy, seg, pe, pn};
+  adam_clip(w, a, col, sc, sel, p, beta, thres, gscale);
 }

@@ -1,21 +1,29 @@
-"""DDPM reverse sampler with fused STL guidance (port of the
-candidate-minor path of ``pstl_tpu/diffusion.py``).
+"""DDPM reverse sampler with STL guidance (port of the DDPM path of
+``pstl_tpu/diffusion.py``).
 
-The reverse loop is a Python loop over the T-1 denoise steps; it makes no
-host synchronisation (coefficients are device tensors, the trigger schedule
-is static), so the whole loop can later be captured in a CUDA graph.  Each
-guided step is one launch of the fused guidance kernel
-(``ops/guidance_kernel.py``).  Noise is injectable for parity tests: a
-(T, bs, nt, 2, R) tensor holds x0 and then one draw per step.
+When any denoise step is guided, the reverse loop runs in candidate-minor
+(bs, nt, 2, R) layout and each guided step is :func:`_guidance_step`: under
+``guidance_pallas`` one launch of a guidance kernel
+(``ops/guidance_kernel.py``: ``guidance_fused`` freezes the selections
+in-kernel, ``guidance_frozen`` reads those ``freeze_cm`` froze), otherwise
+the XLA guidance loop (Adam on autograd gradients of the guidance loss, in
+plain torch ops, as the JAX package computes it outside any kernel).
+``guidance_sel_every > 1`` carries the frozen selections across denoise
+steps.  When no step is guided, the loop runs row-major on (n, nt*2) with
+eps from the network's diffusion forward, as the JAX package does.
+
+The loop is a Python loop over the T-1 denoise steps; the trigger and
+refresh schedules are static, so it makes no host synchronisation of its
+own.  Noise is injectable for parity tests: a (T, *shape) tensor holds x0
+and then one draw per step, with shape (bs, nt, 2, R) on the
+candidate-minor path and (n, nt*2) on the row-major one.
 
 Under ``guidance_pallas_superstep`` the loop is :func:`_reverse_superstep`
 instead: one launch of the superstep kernel (``ops/superstep_kernel.py``:
 eps MLP, posterior, guidance, noise) per denoise step.
 
-Not ported yet: the DDIM and DPM++ samplers, the row-major (non-cm) path,
-the frozen-payload kernel path (``guidance_pallas_fuse_freeze=False``), the
-scene-folded kernels (``guidance_pallas_fold``) and the
-``guidance_sel_every`` carry.
+Not ported yet: the DDIM and DPM++ samplers, and guidance on the row-major
+path (``cm_sampler=False`` or the row-major guidance loss).
 """
 
 from __future__ import annotations
@@ -87,75 +95,152 @@ def check_supported(cfg: Config) -> None:
     if cfg.sampler != "ddpm":
         raise NotImplementedError(f"sampler={cfg.sampler!r}: only the DDPM "
                                   "sampler is ported")
-    if not cfg.cm_sampler:
-        raise NotImplementedError("cm_sampler=False (the row-major sampler) "
-                                  "is not ported")
     if cfg.guidance:
-        if not (cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze):
+        if not cfg.cm_sampler:
+            raise NotImplementedError("guidance with cm_sampler=False (the "
+                                      "row-major guided sampler) is not "
+                                      "ported")
+        if not (cfg.guidance_fused_loss and cfg.tiled_scorer):
             raise NotImplementedError(
-                "guidance runs through the fused guidance kernel only: set "
-                "guidance_pallas_fuse_freeze=True (the frozen-payload and "
-                "XLA-loop guidance paths are not ported)")
-        if cfg.guidance_pallas_fold:
+                "the row-major guidance loss (guidance_fused_loss=False) is "
+                "not ported; guidance runs on the candidate-minor loss only")
+        if cfg.robustness_dtype != "float32":
             raise NotImplementedError(
-                "guidance_pallas_fold (the scene-folded kernels) is not "
-                "ported")
+                "robustness_dtype=bfloat16 (bf16 robustness in the XLA "
+                "guidance loop) is not ported")
+
+
+def _refresh_schedule(trig: np.ndarray, k: int) -> np.ndarray:
+    """Static refresh mask for ``guidance_sel_every=k``: True on the 1st,
+    (k+1)-th, ... GUIDED step (counting only steps where ``trig`` is True),
+    where the frozen selections are recomputed; reused in between."""
+    refresh = np.zeros_like(trig)
+    cnt = 0
+    for j in range(len(trig)):
+        if trig[j]:
+            refresh[j] = (cnt % k) == 0
+            cnt += 1
+    return refresh
 
 
 def _guidance_step(mu_cm: Tensor, beta_t: Tensor, fused_loss, cfg: Config,
-                   maximize: bool) -> Tensor:
-    """One guided update of the candidate-minor posterior mean: the fused
-    freeze + Adam + trust-region-clip kernel (no gradient flows out)."""
+                   maximize: bool, frozen=None) -> Tensor:
+    """One guided update of the candidate-minor (bs, T, 2, R) posterior
+    mean (``pstl_tpu/diffusion.py:_guidance_step`` with ``cm_io``): Adam on
+    the guidance loss, each step followed by the beta_t trust-region clip.
+    ``frozen``: the selections (``fused_loss.freeze_cm``) the caller
+    carries; with ``guidance_reuse_selection`` they are frozen at ``mu_cm``
+    when not given.  No gradient flows out."""
     thres = 100.0 if maximize else cfg.stl_nn_thres
+    fuse = cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze
     with torch.no_grad():
-        return guidance_kernel.guidance_adam_cm(fused_loss, mu_cm, beta_t,
-                                                thres, cfg)
+        # the fused kernel freezes in-kernel: pstl_tpu computes freeze_cm
+        # here too, but nothing reads it
+        if frozen is None and cfg.guidance_reuse_selection and not fuse:
+            frozen = fused_loss.freeze_cm(mu_cm)
+        if cfg.guidance_pallas:
+            return guidance_kernel.guidance_adam_cm(
+                fused_loss, frozen, mu_cm, beta_t, thres, cfg,
+                fuse_freeze=cfg.guidance_pallas_fuse_freeze)
+
+    # the XLA guidance loop: frozen=None re-selects in every iteration
+    lr, b1, b2, eps = cfg.guidance_lr, 0.9, 0.999, 1e-8
+    mu_opt = mu_cm
+    m = torch.zeros_like(mu_cm)
+    v = torch.zeros_like(mu_cm)
+    for it in range(cfg.guidance_niters):
+        with torch.enable_grad():
+            x = mu_opt.detach().requires_grad_(True)
+            g, = torch.autograd.grad(
+                fused_loss.loss_cm(x, thres, frozen=frozen), x)
+        with torch.no_grad():
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mh = m / (1 - b1 ** (it + 1))
+            vh = v / (1 - b2 ** (it + 1))
+            mu_opt = mu_opt - lr * mh / (torch.sqrt(vh) + eps)
+            if cfg.guidance_positive_offset_quirk:
+                delta = torch.minimum(torch.abs(mu_opt - mu_cm), beta_t)
+            else:
+                delta = torch.maximum(torch.minimum(mu_opt - mu_cm, beta_t),
+                                      -beta_t)
+            mu_opt = mu_cm + delta
+    return mu_opt
 
 
-def reverse_sample(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
-                   maximize: bool = False, noise: Optional[Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
-    """Full reverse DDPM in candidate-minor (bs, nt, 2, R) layout.
+def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
+                   coeffs: Coeffs, maximize: bool = False,
+                   noise: Optional[Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   eps_fn: Optional[Callable] = None,
+                   n: Optional[int] = None):
+    """Full reverse DDPM (``pstl_tpu/diffusion.py:reverse_sample``).
 
-    cm_fn(x_cm, t) -> epsilon; ``fused_loss`` is the scene batch's
-    ``CandMinorGuidanceLoss`` (layout and guidance operands).  ``noise``
-    (T, bs, nt, 2, R) pins x0 and the per-step draws; otherwise they come
-    from ``generator`` on the device.  Returns (controls (n, nt, 2),
-    all_steps (T, n, nt, 2)) with all_steps the denormalized decodings
-    [x0, x_1, ..., x_{T-1}] (``diff_full``; only the last step otherwise).
+    When ``fused_loss`` (the scene batch's ``CandMinorGuidanceLoss``) is
+    given and any denoise step is guided: candidate-minor (bs, nt, 2, R)
+    layout with cm_fn(x_cm, t) -> epsilon.  Otherwise row-major (n, nt*2)
+    with eps_fn(x, t) -> epsilon (n, nt*2), the network's diffusion forward.
+    ``noise`` (T, *layout) pins x0 and the per-step draws; otherwise they
+    come from ``generator`` on the coefficients' device.  Returns (controls
+    (n, nt, 2), all_steps (T, n, nt, 2)) with all_steps the denormalized
+    decodings [x0, x_1, ..., x_{T-1}] (``diff_full``; only the last step
+    otherwise).
     """
     check_supported(cfg)
     T = cfg.diffusion_steps
     trig = _trigger_schedule(cfg)
-    bs, R = fused_loss.bs, fused_loss.R
-    shape = (bs, cfg.nt, 2, R)
-    dev = fused_loss.valid_r.device
+    use_guidance = fused_loss is not None and bool(trig.any())
+    if use_guidance:
+        if cm_fn is None:
+            raise ValueError("guided sampling runs candidate-minor: pass "
+                             "cm_fn")
+        shape = (fused_loss.bs, cfg.nt, 2, fused_loss.R)
+    else:
+        if eps_fn is None or n is None:
+            raise ValueError("the unguided (row-major) pass needs eps_fn "
+                             "and n")
+        shape = (n, cfg.nt * 2)
+    dev = coeffs.beta.device
     if noise is not None and tuple(noise.shape) != (T,) + shape:
         raise ValueError(f"noise must be {(T,) + shape}, got "
                          f"{tuple(noise.shape)}")
     draw = (lambda j: noise[j]) if noise is not None else (
         lambda j: torch.randn(shape, generator=generator, device=dev))
-    if (cfg.guidance_pallas_superstep and trig.any()
+    if (use_guidance and cfg.guidance_pallas_superstep
             and hasattr(cm_fn, "operands")):
         return _reverse_superstep(cm_fn, fused_loss, cfg, coeffs, trig,
                                   maximize, draw)
+    # guidance_sel_every > 1: the frozen selections ride across denoise
+    # steps, refreshed on every k-th guided step (the first guided step
+    # always refreshes, so nothing stale is read)
+    carry_sel = (use_guidance and cfg.guidance_reuse_selection
+                 and cfg.guidance_sel_every > 1)
+    refresh = _refresh_schedule(trig, cfg.guidance_sel_every) \
+        if carry_sel else None
+    frozen = None
+    eps_of = cm_fn if use_guidance else eps_fn
     x = draw(0)
     hist = [x]
     for j, t in enumerate(range(T - 1, 0, -1)):
-        eps = cm_fn(x, t)
+        eps = eps_of(x, t)
         alpha, alpha_hat, beta = (coeffs.alpha[t], coeffs.alpha_hat[t],
                                   coeffs.beta[t])
         mu = (x - ((1 - alpha) / torch.sqrt(1 - alpha_hat)) * eps) \
             / torch.sqrt(alpha)
-        if trig[j]:
-            mu = _guidance_step(mu, beta, fused_loss, cfg, maximize)
+        if use_guidance and trig[j]:
+            if carry_sel and refresh[j]:
+                with torch.no_grad():
+                    frozen = fused_loss.freeze_cm(mu)
+            mu = _guidance_step(mu, beta, fused_loss, cfg, maximize,
+                                frozen=frozen)
         z = draw(j + 1)
         if t <= 1:
             z = torch.zeros_like(z)
         x = mu + cfg.sample_noise_scale * torch.sqrt(beta) * z
         if cfg.diff_full:
             hist.append(x)
-    return _decodings(x, hist, fused_loss, cfg)
+    conv = fused_loss._from_cand_minor if use_guidance else (lambda v: v)
+    return _decodings(x, hist, conv, cfg)
 
 
 def _reverse_superstep(cm_fn: Callable, fused_loss, cfg: Config,
@@ -182,17 +267,17 @@ def _reverse_superstep(cm_fn: Callable, fused_loss, cfg: Config,
                                        mlp, gops, p, bool(trig[j]))
         if cfg.diff_full:
             hist.append(x)
-    return _decodings(x, hist, fused_loss, cfg)
+    return _decodings(x, hist, fused_loss._from_cand_minor, cfg)
 
 
-def _decodings(x: Tensor, hist, fused_loss, cfg: Config):
+def _decodings(x: Tensor, hist, conv: Callable, cfg: Config):
     """(controls (n, nt, 2), all_steps) from the last sample and the
-    history (see ``reverse_sample``)."""
-    conv = fused_loss._from_cand_minor
+    history (see ``reverse_sample``); ``conv`` maps the loop's layout to
+    (n, nt*2)."""
     if not cfg.diff_full:
         final = denormalize_controls(conv(x), cfg)
         return final, final[None]
-    full = torch.stack(hist)                               # (T, bs,nt,2,R)
+    full = torch.stack(hist)
     all_steps = torch.stack([denormalize_controls(conv(v), cfg)
                              for v in full])
     return all_steps[-1], all_steps

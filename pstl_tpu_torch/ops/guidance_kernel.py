@@ -1,24 +1,36 @@
-"""Fused guidance step: freeze the discrete selections at the posterior
-mean, then run the whole ``guidance_niters``-step Adam ascent on the STL
-hinge loss and apply the beta_t trust-region clip — one launch per denoise
-step.
+"""The guidance step of a denoise step: ``guidance_niters`` Adam steps on
+the STL hinge loss of the candidate columns, each followed by the beta_t
+trust-region clip, on selections (lane segment, disc pair) frozen at the
+posterior mean — one launch per guided denoise step.  Two kernels:
 
-This is the port of the Pallas kernel ``_kernel_fused``
-(``pstl_tpu/ops/pallas_guidance.py``, reached through
-``guidance_adam_cm(fuse_freeze=True)``).  On a CUDA tensor
-:func:`guidance_fused` launches the hand-written kernel in
-``csrc/guidance_fused.cu``; on a CPU tensor it runs
-:func:`guidance_fused_plain`, the same computation in PyTorch ops with the
+- ``guidance_fused`` (``csrc/guidance_fused.cu``) freezes the selections
+  itself: the port of the Pallas kernel ``_kernel_fused``
+  (``pstl_tpu/ops/pallas_guidance.py``,
+  ``guidance_adam_cm(fuse_freeze=True)``).
+- ``guidance_frozen`` (``csrc/guidance_frozen.cu``) reads them as frozen
+  payloads made by ``CandMinorGuidanceLoss.freeze_cm``: the port of
+  ``_kernel`` (``guidance_adam_cm(fuse_freeze=False)``).
+
+On a CUDA tensor each wrapper launches its hand-written kernel; on a CPU
+tensor it runs its plain version (:func:`guidance_fused_plain`,
+:func:`guidance_frozen_plain`), the same computation in PyTorch ops with the
 gradient from ``torch.autograd.grad``.  There is no fallback from one to the
-other.  ``launches`` counts kernel launches (not plain-version calls).
+other.  ``launches`` and ``frozen_launches`` count kernel launches (not
+plain-version calls).
 
-The same launch also ports ``_kernel_fused_f2`` (``guidance_pallas_fold2``,
-the TPU's column-chunk grid over scenes folded into (T, bs*R) lanes, with
-the compact scene constants broadcast inside the kernel): on the H100 that
-layout is the launch configuration ``guidance_fused`` already has, one block
-per (scene, 32 columns) with the scene's constants in shared memory, so
-``guidance_adam_cm`` runs the fold2 configuration through it unchanged.
-``guidance_pallas_cols`` (the TPU chunk width) is accepted and ignored.
+The TPU's other layouts of the same computation are launch configurations
+here, not kernels of their own.  ``_kernel_fused_f2``
+(``guidance_pallas_fold2``: scenes folded into (T, bs*R) lanes on a
+column-chunk grid, the compact scene constants broadcast inside the kernel)
+and the scene-folded ``_kernel_fused_f`` / ``_kernel_f``
+(``guidance_pallas_fold``: the same folded tiles in one program) compute each
+column's loss independently of the others
+(tests/test_pallas_guidance.py::test_fold_variants_match), and the launches
+already cover every column with one block per (scene, 32 columns) and the
+scene's constants in shared memory.  So ``guidance_adam_cm`` runs fold2 and
+the fused fold through ``guidance_fused``, and the frozen fold through
+``guidance_frozen``, unchanged.  ``guidance_pallas_cols`` (the TPU chunk
+width) is accepted and ignored.
 
 Operand layout (all float32, contiguous), for bs scenes, T steps, R = 3*M
 candidate columns r = j*M + m (j = maneuver, whose lane the column reads):
@@ -32,6 +44,15 @@ candidate columns r = j*M + m (j = maneuver, whose lane the column reads):
   valid           (bs, R)           column validity
   scal            (bs, 2)           ego start heading and speed (th0, v0)
   gvec            (3,)              beta_t, thres, gscale (device scalars)
+
+``guidance_frozen`` reads crad, cvalid, stlp, nf, valid, scal, gvec as
+above (not the lanes and disc centres) and the frozen payloads, all float32
+(``frozen_operands``; first / last are 1.0 or 0.0):
+
+  x2, y2, th2, x3, y3, first, last   (bs, T, R)     the frozen lane segment
+  axe, nx, ny                        (bs, K, T, R)  ego-disc offset and
+                                                    neighbor-disc centre of
+                                                    the frozen pair
 
 Returns the guided (muw, mua), each (bs, T, R).  Semantics follow the
 Pallas kernel: argmins take the earliest index (lanes s ascending; exact
@@ -55,8 +76,13 @@ from pstl_tpu_torch.config import Config
 
 Tensor = torch.Tensor
 
-#: kernel launches since the last reset (the plain version does not count)
-launches = 0
+#: kernel launches since the last reset (the plain versions do not count)
+launches = 0            # guidance_fused
+frozen_launches = 0     # guidance_frozen
+
+#: the frozen payloads, in the order the frozen kernel takes them
+FROZEN_KEYS = ("x2", "y2", "th2", "x3", "y3", "first", "last", "axe", "nx",
+               "ny")
 
 _MAXT, _MAXK, _MAXNL, _MAXS = 32, 16, 8, 64
 _FLAG_INLINE, _FLAG_CLIP, _FLAG_QUIRK, _FLAG_COARSE, _FLAG_BF16 = (
@@ -146,16 +172,32 @@ def kernel_operands(fused_loss, cfg: Config) -> Operands:
     return ops
 
 
-def guidance_adam_cm(fused_loss, mu_cm: Tensor, beta_t: Tensor,
-                     thres: float, cfg: Config) -> Tensor:
+def frozen_operands(frozen) -> tuple:
+    """``freeze_cm``'s dict -> the ten payloads of :data:`FROZEN_KEYS` as
+    contiguous float32 tensors: (bs, T, R) for the lane segment, (bs, K, T,
+    R) for the disc pair."""
+    flat = {**frozen["lane"], **frozen["clear"]}
+    return tuple(flat[k].to(torch.float32).contiguous() for k in FROZEN_KEYS)
+
+
+def frozen_scene(ops: Operands) -> tuple:
+    """The scene operands the frozen kernel reads: :class:`Operands` minus
+    the lanes and disc centres (and gscale, which rides in gvec)."""
+    return (ops.crad, ops.cvalid, ops.stlp, ops.nf, ops.valid, ops.scal)
+
+
+def guidance_adam_cm(fused_loss, frozen, mu_cm: Tensor, beta_t: Tensor,
+                     thres: float, cfg: Config,
+                     fuse_freeze: bool = False) -> Tensor:
     """Guided posterior mean, candidate-minor (bs, T, 2, R) in and out —
-    the port of ``pallas_guidance.guidance_adam_cm(fuse_freeze=True)``,
-    with and without ``guidance_pallas_fold2`` (one launch of the same
-    kernel serves both, see the module docstring)."""
-    if cfg.guidance_pallas_fold:
-        raise NotImplementedError(
-            "the scene-folded guidance kernels (guidance_pallas_fold) are "
-            "not ported yet")
+    the port of ``pallas_guidance.guidance_adam_cm``.  ``fuse_freeze``
+    launches :func:`guidance_fused`, which freezes in-kernel (``frozen`` is
+    ignored); otherwise :func:`guidance_frozen` runs on ``frozen``
+    (``fused_loss.freeze_cm(mu_cm)``).  ``guidance_pallas_fold`` and
+    ``guidance_pallas_fold2`` take the same launches (module docstring)."""
+    if not fuse_freeze and frozen is None:
+        raise ValueError("guidance_adam_cm(fuse_freeze=False) needs the "
+                         "frozen selections (fused_loss.freeze_cm)")
     ops = kernel_operands(fused_loss, cfg)
     p = kernel_params(cfg, fused_loss)
     dev = mu_cm.device
@@ -166,7 +208,11 @@ def guidance_adam_cm(fused_loss, mu_cm: Tensor, beta_t: Tensor,
                         ops.gscale.reshape(())])
     muw = mu_cm[:, :, 0, :].float().contiguous()
     mua = mu_cm[:, :, 1, :].float().contiguous()
-    outw, outa = guidance_fused(muw, mua, *ops[:-1], gvec, p)
+    if fuse_freeze:
+        outw, outa = guidance_fused(muw, mua, *ops[:-1], gvec, p)
+    else:
+        outw, outa = guidance_frozen(muw, mua, *frozen_operands(frozen),
+                                     *frozen_scene(ops), gvec, p)
     return torch.stack([outw, outa], dim=2)
 
 
@@ -276,7 +322,8 @@ def freeze(muw0: Tensor, mua0: Tensor, lanes: Tensor, ndx: Tensor,
 
 def payloads(sel: Dict[str, Tensor], lanes: Tensor, ndx: Tensor,
              ndy: Tensor, p: KernelParams) -> Dict[str, Tensor]:
-    """Frozen per-(t, column) values the Adam loop reads."""
+    """Frozen per-(t, column) values the Adam loop reads, under
+    :data:`FROZEN_KEYS` (``freeze_cm``'s payloads at these selections)."""
     lane_r = column_lanes(lanes, p.M)                         # (bs,S,3,R)
     T = sel["seg"].shape[1]
     lr_t = lane_r[:, None].expand(-1, T, -1, -1, -1)          # (bs,T,S,3,R)
@@ -293,7 +340,7 @@ def payloads(sel: Dict[str, Tensor], lanes: Tensor, ndx: Tensor,
                 x3=p3[:, :, 0], y3=p3[:, :, 1],
                 first=(sel["seg"] == 0).float(),
                 last=(sel["seg"] == p.S - 2).float(),
-                caxe=axe_t[sel["ie"]], cnx=nsel(ndx), cny=nsel(ndy))
+                axe=axe_t[sel["ie"]], nx=nsel(ndx), ny=nsel(ndy))
 
 
 def scores_frozen(muw: Tensor, mua: Tensor, pay: Dict[str, Tensor],
@@ -326,9 +373,9 @@ def scores_frozen(muw: Tensor, mua: Tensor, pay: Dict[str, Tensor],
 
     mnd = None
     for k in range(p.K):
-        exd = x + pay["caxe"][:, k] * c
-        eyd = y + pay["caxe"][:, k] * s
-        d2 = (exd - pay["cnx"][:, k]) ** 2 + (eyd - pay["cny"][:, k]) ** 2
+        exd = x + pay["axe"][:, k] * c
+        eyd = y + pay["axe"][:, k] * s
+        d2 = (exd - pay["nx"][:, k]) ** 2 + (eyd - pay["ny"][:, k]) ** 2
         per = torch.sqrt(d2 + 1e-12) - crad[:, k, :, None]
         vk = cvalid[:, k, :, None]
         masked = torch.clamp(per, -5.0, 20.0) * vk + (1.0 - vk) * 100.0
@@ -393,10 +440,22 @@ def adam_clip(muw0, mua0, grad_fn, beta, p: KernelParams):
 
 def guidance_fused_plain(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf,
                          valid, scal, gvec, p: KernelParams):
-    """The fused guidance step in PyTorch ops (autograd gradient)."""
-    beta, thres, gscale = gvec[0], gvec[1], gvec[2]
+    """The fused guidance step in PyTorch ops: the freeze, then
+    :func:`guidance_frozen_plain` on its payloads."""
     pay = payloads(freeze(muw, mua, lanes, ndx, ndy, scal, p), lanes, ndx,
                    ndy, p)
+    return guidance_frozen_plain(muw, mua, *(pay[k] for k in FROZEN_KEYS),
+                                 crad, cvalid, stlp, nf, valid, scal, gvec, p)
+
+
+def guidance_frozen_plain(muw, mua, x2, y2, th2, x3, y3, first, last, axe,
+                          nx, ny, crad, cvalid, stlp, nf, valid, scal, gvec,
+                          p: KernelParams):
+    """The Adam loop + clip on frozen payloads in PyTorch ops (autograd
+    gradient of :func:`scores_frozen`'s hinge loss)."""
+    beta, thres, gscale = gvec[0], gvec[1], gvec[2]
+    pay = dict(zip(FROZEN_KEYS, (x2, y2, th2, x3, y3, first, last, axe, nx,
+                                 ny)))
 
     def grad_fn(w, a):
         with torch.enable_grad():
@@ -419,12 +478,15 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 
 
-def _lib():
+#: pointer arguments of each C entry (tensors, then outw, outa)
+_NPTR = {"guidance_fused": 14, "guidance_frozen": 21}
+
+
+def _lib(name: str):
     from pstl_tpu_torch.ops import _build
-    lib = _build.load("guidance_fused")
-    fn = lib.pstl_guidance_fused
+    fn = getattr(_build.load(name), f"pstl_{name}")
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 14 + [_I] * 10 + [_F] * 5 + [_D] * 2
+        fn.argtypes = ([_P] * _NPTR[name] + [_I] * 10 + [_F] * 5 + [_D] * 2
                        + [_I, _P])
         fn.restype = _I
     return fn
@@ -442,11 +504,22 @@ def _check(name, x, shape, dev, dtype=torch.float32, who="guidance_fused"):
         raise ValueError(f"{who}: {name} must be contiguous")
 
 
+def operand_shapes(p: KernelParams, bs: int, T: int, R: int) -> dict:
+    """Every operand of the guidance kernels, by name, with its shape."""
+    return dict(muw=(bs, T, R), mua=(bs, T, R), lanes=(bs, 3, p.S, 3),
+                ndx=(bs, p.K, p.nLn, T), ndy=(bs, p.K, p.nLn, T),
+                crad=(bs, p.K, T), cvalid=(bs, p.K, T), stlp=(bs, 6, R),
+                nf=(bs, 3, R), valid=(bs, R), scal=(bs, 2), gvec=(3,),
+                **{k: (bs, T, R) for k in FROZEN_KEYS[:7]},
+                **{k: (bs, p.K, T, R) for k in FROZEN_KEYS[7:]})
+
+
 def check_operands(ops, p: KernelParams, bs: int, T: int, R: int, dev,
-                   who: str) -> None:
+                   who: str, names=Operands._fields) -> None:
     """The checks a launch of the guidance device code needs: sizes within
-    the kernels' fixed arrays and the scene operands' device, dtype, shape
-    and contiguity (``ops``: the first nine fields of :class:`Operands`)."""
+    the kernels' fixed arrays and each operand's device, dtype, shape and
+    contiguity (``ops`` named by ``names``; by default the first nine
+    fields of :class:`Operands`)."""
     if R != 3 * p.M or T != p.T:
         raise ValueError(f"{who}: T={T}, R={R} do not match T={p.T}, "
                          f"R=3*M={3 * p.M}")
@@ -456,11 +529,9 @@ def check_operands(ops, p: KernelParams, bs: int, T: int, R: int, dev,
         raise ValueError(f"{who}: sizes beyond the kernel's limits "
                          f"(T<={_MAXT}, K<={_MAXK}, nL<={_MAXNL}, "
                          f"2<=S<={_MAXS}): {p}")
-    shapes = ((bs, 3, p.S, 3), (bs, p.K, p.nLn, T), (bs, p.K, p.nLn, T),
-              (bs, p.K, T), (bs, p.K, T), (bs, 6, R), (bs, 3, R), (bs, R),
-              (bs, 2))
-    for name, x, shape in zip(Operands._fields, ops, shapes):
-        _check(name, x, shape, dev, who=who)
+    shapes = operand_shapes(p, bs, T, R)
+    for name, x in zip(names, ops):
+        _check(name, x, shapes[name], dev, who=who)
 
 
 def flags(p: KernelParams) -> int:
@@ -472,28 +543,27 @@ def flags(p: KernelParams) -> int:
             | (_FLAG_BF16 if p.bf16_cumsum else 0))
 
 
-def _launch(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal,
-            gvec, p: KernelParams):
-    global launches
+_FUSED_NAMES = ("muw", "mua") + Operands._fields[:9] + ("gvec",)
+_FROZEN_NAMES = (("muw", "mua") + FROZEN_KEYS
+                 + ("crad", "cvalid", "stlp", "nf", "valid", "scal", "gvec"))
+
+
+def _launch(name: str, names, args, p: KernelParams):
+    """Check ``args`` (named ``names``) and launch kernel ``name`` on the
+    current stream; returns (outw, outa)."""
+    muw = args[0]
     bs, T, R = muw.shape
     dev = muw.device
-    ops = (lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal)
-    check_operands(ops, p, bs, T, R, dev, "guidance_fused")
-    for name, x, shape in (("muw", muw, (bs, T, R)), ("mua", mua, (bs, T, R)),
-                           ("gvec", gvec, (3,))):
-        _check(name, x, shape, dev)
+    check_operands(args, p, bs, T, R, dev, name, names)
     outw = torch.empty_like(muw)
-    outa = torch.empty_like(mua)
+    outa = torch.empty_like(muw)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(muw.data_ptr(), mua.data_ptr(),
-                 *(t.data_ptr() for t in ops), gvec.data_ptr(),
-                 outw.data_ptr(), outa.data_ptr(), bs, T, R, p.M, p.S, p.K,
-                 p.nLe, p.nLn, p.nt2, p.niters, p.tau, p.dt, p.mul_w,
-                 p.mul_a, p.lr, p.ego_L, p.re, flags(p), stream)
+    err = _lib(name)(*(t.data_ptr() for t in args), outw.data_ptr(),
+                     outa.data_ptr(), bs, T, R, p.M, p.S, p.K, p.nLe, p.nLn,
+                     p.nt2, p.niters, p.tau, p.dt, p.mul_w, p.mul_a, p.lr,
+                     p.ego_L, p.re, flags(p), stream)
     if err != 0:
-        raise RuntimeError(f"guidance_fused kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return outw, outa
 
 
@@ -501,11 +571,32 @@ def guidance_fused(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf, valid,
                    scal, gvec, p: KernelParams):
     """The fused guidance step: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    global launches
+    args = (muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal,
+            gvec)
     if muw.device.type == "cuda":
-        return _launch(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf,
-                       valid, scal, gvec, p)
+        out = _launch("guidance_fused", _FUSED_NAMES, args, p)
+        launches += 1
+        return out
     if muw.device.type == "cpu":
-        return guidance_fused_plain(muw, mua, lanes, ndx, ndy, crad, cvalid,
-                                    stlp, nf, valid, scal, gvec, p)
+        return guidance_fused_plain(*args, p)
     raise ValueError(f"guidance_fused: no implementation for device "
+                     f"{muw.device}")
+
+
+def guidance_frozen(muw, mua, x2, y2, th2, x3, y3, first, last, axe, nx, ny,
+                    crad, cvalid, stlp, nf, valid, scal, gvec,
+                    p: KernelParams):
+    """The guidance step on frozen payloads: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    global frozen_launches
+    args = (muw, mua, x2, y2, th2, x3, y3, first, last, axe, nx, ny, crad,
+            cvalid, stlp, nf, valid, scal, gvec)
+    if muw.device.type == "cuda":
+        out = _launch("guidance_frozen", _FROZEN_NAMES, args, p)
+        frozen_launches += 1
+        return out
+    if muw.device.type == "cpu":
+        return guidance_frozen_plain(*args, p)
+    raise ValueError(f"guidance_frozen: no implementation for device "
                      f"{muw.device}")

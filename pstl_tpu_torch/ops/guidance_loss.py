@@ -7,10 +7,13 @@ with the large candidate axis R = 3*M minor and j-major candidates
 Torch autograd through :meth:`CandMinorGuidanceLoss.loss_cm` with frozen
 selections is the gradient oracle of the fused guidance kernel
 (``ops/guidance_kernel.py``), and its constructor holds the per-plan
-invariants the kernel reads (recentred lanes, neighbor discs, stlp rows).
-Everything is fp32: the kernel requires fp32 robustness
-(``Config.finalize``), and ``geometry_dtype`` (a TPU bandwidth lever for
-stored payloads) is ignored.
+invariants the kernels read (recentred lanes, neighbor discs, stlp rows).
+:meth:`CandMinorGuidanceLoss.freeze_cm` makes the frozen payloads that the
+frozen-payload kernel and the XLA guidance loop read.  As in the JAX
+package, ``geometry_dtype`` is the dtype of the selection fields (the
+distances the argmins search) and of the stored payloads; every score and
+gradient is fp32 (the kernels require fp32 robustness,
+``Config.finalize``).
 """
 
 from __future__ import annotations
@@ -100,6 +103,10 @@ class CandMinorGuidanceLoss:
         self.valid_r = valid.reshape(bs, M, 3).transpose(1, 2).reshape(bs, R)
         self.th0 = states[:, 2][:, None, None]
         self.v0 = states[:, 3][:, None, None]
+        # the selection fields and frozen payloads (freeze_cm) are in the
+        # geometry dtype, rounded where pstl_tpu rounds them
+        self.gdtype = torch.bfloat16 if cfg.geometry_dtype == "bfloat16" \
+            else torch.float32
         self._kernel_operands = None
 
     # ------------------------------------------------------------------
@@ -128,16 +135,19 @@ class CandMinorGuidanceLoss:
         return x_s, y_s, th_s, v_s, cth, sth
 
     def _lane_select(self, x_s: Tensor, y_s: Tensor) -> Dict[str, Tensor]:
-        """Nearest segment per (t, row) and its endpoint payloads."""
+        """Nearest segment per (t, row) and its endpoint payloads (in the
+        geometry dtype; ``first`` / ``last`` bool)."""
         S = self.lxr.shape[1]
+        gd = self.gdtype
         with torch.no_grad():
-            pdx = x_s[:, :, None, :] - self.lxr[:, None]      # (bs,T,S,R)
-            pdy = y_s[:, :, None, :] - self.lyr[:, None]
+            lxg, lyg = self.lxr.to(gd), self.lyr.to(gd)
+            pdx = x_s.to(gd)[:, :, None, :] - lxg[:, None]    # (bs,T,S,R)
+            pdy = y_s.to(gd)[:, :, None, :] - lyg[:, None]
             pd = torch.sqrt(pdx * pdx + pdy * pdy)
             mi = torch.argmin(pd[:, :, :-1] + pd[:, :, 1:], dim=2)  # (bs,T,R)
             T = x_s.shape[1]
             take = lambda f, off: torch.gather(
-                f[:, None].expand(-1, T, -1, -1), 2,
+                f.to(gd)[:, None].expand(-1, T, -1, -1), 2,
                 (mi + off)[:, :, None]).squeeze(2)
             return dict(x2=take(self.lxr, 0), y2=take(self.lyr, 0),
                         th2=take(self.lthr, 0), x3=take(self.lxr, 1),
@@ -147,7 +157,7 @@ class CandMinorGuidanceLoss:
     def _lane_terms(self, x_s, y_s, th_s, lsel):
         """Signed lane distance + heading deviation, (bs,T,R)."""
         cfg = self.cfg
-        x2, y2, x3, y3 = lsel["x2"], lsel["y2"], lsel["x3"], lsel["y3"]
+        x2, y2, x3, y3 = (lsel[k].float() for k in ("x2", "y2", "x3", "y3"))
         area = x_s * (y2 - y3) + x2 * (y3 - y_s) + x3 * (y_s - y2)
         bottom = torch.sqrt((x2 - x3) ** 2 + (y2 - y3) ** 2)
         l2d = torch.sqrt(torch.clamp((x_s - x2) ** 2 + (y_s - y2) ** 2,
@@ -168,7 +178,7 @@ class CandMinorGuidanceLoss:
                      + ahead_all * l2d1 * sign)
         if cfg.clip_dist:
             d_all = torch.clamp(d_all, -5.0, 5.0)
-        th_all = 1.0 - torch.cos(lsel["th2"] - th_s)
+        th_all = 1.0 - torch.cos(lsel["th2"].float() - th_s)
         return d_all, th_all
 
     def _clear_select(self, x_s, y_s, cth, sth) -> Dict[str, Tensor]:
@@ -176,13 +186,14 @@ class CandMinorGuidanceLoss:
         (flat index e*nLn + nn) or, with ``clearance_coarse_pair``, the
         nearest ego disc to the neighbor's disc centroid first, then the
         nearest neighbor disc to it.  Earliest index wins ties."""
+        gd = self.gdtype
         with torch.no_grad():
-            axg = self.axe
-            nxg, nyg = self.nx, self.ny                       # (bs,K,T,nLn)
-            exd = x_s[:, :, None, :] + axg[None, None, :, None] \
-                * cth[:, :, None]
-            eyd = y_s[:, :, None, :] + axg[None, None, :, None] \
-                * sth[:, :, None]
+            axg = self.axe.to(gd)
+            nxg, nyg = self.nx.to(gd), self.ny.to(gd)         # (bs,K,T,nLn)
+            exd = x_s.to(gd)[:, :, None, :] + axg[None, None, :, None] \
+                * cth.to(gd)[:, :, None]
+            eyd = y_s.to(gd)[:, :, None, :] + axg[None, None, :, None] \
+                * sth.to(gd)[:, :, None]
             nLn = nxg.shape[-1]
             bs, T, R = x_s.shape
             K = nxg.shape[1]
@@ -225,9 +236,11 @@ class CandMinorGuidanceLoss:
             dyp = eyd[:, None, :, :, None, :] - self.ny[:, :, :, None, :, None]
             d2 = torch.amin(dxp * dxp + dyp * dyp, dim=(3, 4))  # (bs,K,T,R)
         else:
-            exd = x_s[:, None] + csel["axe"] * cth[:, None]
-            eyd = y_s[:, None] + csel["axe"] * sth[:, None]
-            d2 = (exd - csel["nx"]) ** 2 + (eyd - csel["ny"]) ** 2
+            axe = csel["axe"].float()
+            exd = x_s[:, None] + axe * cth[:, None]
+            eyd = y_s[:, None] + axe * sth[:, None]
+            d2 = ((exd - csel["nx"].float()) ** 2
+                  + (eyd - csel["ny"].float()) ** 2)
         per = torch.sqrt(d2 + 1e-12) - self.re - self.rn[..., None]
         vk = self.nvalid[..., None]
         masked = torch.clamp(per, -5.0, 20.0) * vk + (1.0 - vk) * 100.0
@@ -293,7 +306,10 @@ class CandMinorGuidanceLoss:
                                                 self.cfg.nt * 2)
 
     def freeze_cm(self, muT: Tensor) -> Dict[str, Dict[str, Tensor]]:
-        """The discrete argmin selections at ``muT`` (bs,T,2,R)."""
+        """The discrete argmin selections at ``muT`` (bs,T,2,R) and their
+        payloads: ``lane`` x2, y2, th2, x3, y3 (bs,T,R) in the geometry
+        dtype, first / last (bs,T,R) bool; ``clear`` axe, nx, ny
+        (bs,K,T,R) in the geometry dtype."""
         x_s, y_s, th_s, v_s, cth, sth = self._rollout(muT)
         return dict(lane=self._lane_select(x_s, y_s),
                     clear=self._clear_select(x_s, y_s, cth, sth))

@@ -220,9 +220,11 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("refinement (refine.py) is not ported")
     if cfg.vae or cfg.bc or not cfg.diffusion:
         raise NotImplementedError("only the diffusion planner is ported")
-    if cfg.use_pallas_clearance:
-        raise NotImplementedError("use_pallas_clearance (the fused "
-                                  "min-clearance kernel) is not ported")
+    # use_pallas_clearance (BENCH_PALLAS=1) is accepted and changes nothing:
+    # pstl_tpu reaches its min-clearance kernels only from
+    # specs.prep_signals on signals without hoisted neighbor discs
+    # (pstl_tpu/specs.py:76-88), and the planner's signals always carry
+    # them (dense_signal_input(dense, cfg=cfg), specs.py:687-691)
     if cfg.use_init_hint:
         raise NotImplementedError("use_init_hint needs the hint draws, "
                                   "which are not ported")
@@ -232,7 +234,8 @@ def check_supported(cfg: Config) -> None:
 def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
     """Returns ``plan(obs, noise=None, generator=None) -> (u0 (bs, 2),
     info)``: dense batching with the aggressive stlp override, the DDPM
-    reverse pass with guidance (maximize), multi-cands + RefineNet +
+    reverse pass with guidance (maximize; ``noise`` in the sampler's
+    layout, see ``diffusion.reverse_sample``), multi-cands + RefineNet +
     n_rolls re-rectification, lane-keep restriction with the forward
     shield, argmax robustness.  (The per-scene ``stlp_override`` presets of
     the JAX planner are not ported.)"""
@@ -262,11 +265,22 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
         # the scene feature, tiled to the n candidate rows (the JAX planner
         # reads it from Net.__call__(get_feature=True))
         feature = torch.repeat_interleave(net.encode(dense), M * 3, 0)
-        fused = specs.make_guidance_loss(obs, dense, cfg, states, valid)
-        cm_fn = models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
+        fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
+                 if cfg.guidance else None)
+        cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
+                 if cfg.cm_sampler and fused is not None else None)
+
+        def eps_fn(x, t):
+            """The unguided pass's eps: the diffusion forward (the JAX
+            planner's apply_fn)."""
+            ext = {"timestep": torch.full((n, 1), float(t), device=dev),
+                   "highlevel": highlevel, "noise": x}
+            return net(dense, ext, prev_feature=feature).reshape(
+                n, cfg.nt * 2)
+
         nn_controls, all_steps = diffusion.reverse_sample(
             cm_fn, fused, cfg, coeffs, maximize=True, noise=noise,
-            generator=generator)
+            generator=generator, eps_fn=eps_fn, n=n)
 
         if cfg.rect_head and not cfg.not_use_rect:
             if cfg.multi_cands is not None:

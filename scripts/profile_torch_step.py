@@ -1,17 +1,18 @@
 """Profile closed-loop replanning steps of the torch port on one GPU.
 
 Runs the heavy ``bench.py`` contract (e7_round5 weights, synthetic scenes
-from seed 0) with the guidance kernel that ``--gpallas`` picks, as
+from seed 0) with the guidance route that ``--gpallas`` picks, as
 ``BENCH_GPALLAS`` does (2: the fused guidance kernel, the default; 3: the
-fold2 configuration; 4: the superstep kernel), for ``--warmup`` untimed
-steps, then ``--steps`` steps untraced and as many again under
-``torch.profiler``, and writes to ``--out``:
-the untraced step times, the traced window's device busy time by kernel
-name, and the device busy share of the window (sum of kernel times over
-the window's wall time; one stream, so kernels do not overlap).
+fold2 configuration; 4: the superstep kernel; 1 / 1f: the frozen-payload
+kernel; 2f: the folded fused kernel; 0: the XLA guidance loop), for
+``--warmup`` untimed steps, then ``--steps`` steps untraced and as many
+again under ``torch.profiler``, and writes to ``--out``: the untraced step
+times, the traced window's device busy time by kernel name, and the device
+busy share of the window (sum of kernel times over the window's wall time;
+one stream, so kernels do not overlap).
 
-    python scripts/profile_torch_step.py [--gpallas 2|3|4] [--scenes 16]
-        [--steps 3] [--out build/profile_step.json]
+    python scripts/profile_torch_step.py [--gpallas 0|1|1f|2f|2|3|4]
+        [--scenes 16] [--steps 3] [--out build/profile_step.json]
 """
 
 import argparse
@@ -23,10 +24,12 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+from pstl_tpu_torch.config import GPALLAS  # noqa: E402
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--gpallas", choices=("2", "3", "4"), default="2")
+    ap.add_argument("--gpallas", choices=GPALLAS, default="2")
     ap.add_argument("--scenes", type=int, default=16)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)

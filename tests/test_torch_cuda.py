@@ -1,8 +1,8 @@
-"""The port's CUDA kernels on the card (the fused guidance kernel and the
-superstep kernel), against their plain PyTorch versions on identical
-inputs.  Marked ``cuda``: skipped where ``torch.cuda.is_available()`` is
-false (a CUDA kernel has no CPU mode).  This file imports no jax, so it
-also runs on a host without it:
+"""The port's CUDA kernels on the card (the fused and frozen-payload
+guidance kernels and the superstep kernel), against their plain PyTorch
+versions on identical inputs.  Marked ``cuda``: skipped where
+``torch.cuda.is_available()`` is false (a CUDA kernel has no CPU mode).
+This file imports no jax, so it also runs on a host without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -21,6 +21,7 @@ import chip_smoke
 from pstl_tpu_torch import diffusion
 from pstl_tpu_torch.config import bench_config
 from pstl_tpu_torch.models.net import Net
+from pstl_tpu_torch.ops import _build
 from pstl_tpu_torch.ops import guidance_kernel as gk
 from pstl_tpu_torch.ops import superstep_kernel as sk
 
@@ -73,6 +74,63 @@ def test_kernel_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         gk.guidance_fused(args[0][:, :, :-1].contiguous(),
                           args[1][:, :, :-1].contiguous(), *args[2:])
+
+
+def test_build_three_libraries(dev):
+    """chip_smoke's libraries build together (one nvcc each) and load, each
+    exporting its C entry."""
+    libs = _build.load_all(chip_smoke.LIBS)
+    assert sorted(libs) == sorted(chip_smoke.LIBS)
+    for name, lib in libs.items():
+        assert hasattr(lib, f"pstl_{name}")
+        assert "registers" in _build.BUILD_INFO[name]["report"]
+
+
+def _frozen_problem(dev, n_scenes, **kw):
+    """The frozen kernel's arguments at the main path's widths: payloads
+    frozen once by freeze_cm on the card."""
+    cfg = bench_config("heavy", gpallas="1").with_(**kw)
+    scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=n_scenes)
+    _, fused, mu = chip_smoke.plan_inputs(cfg, scenes)
+    with torch.no_grad():
+        pay = gk.frozen_operands(fused.freeze_cm(mu))
+    ops = gk.kernel_operands(fused, cfg)
+    beta = diffusion.get_coeffs(cfg, device=dev).beta[40]
+    gvec = torch.stack([beta, torch.tensor(100.0, device=dev), ops.gscale])
+    args = (mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous(), *pay,
+            *gk.frozen_scene(ops), gvec, gk.kernel_params(cfg, fused))
+    return args, float(beta)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(clearance_coarse_pair=False, guidance_pallas_bf16_cumsum=False),
+    dict(guidance_positive_offset_quirk=True, inline=True, clip_dist=True,
+         norm_stl=True, geometry_dtype="bfloat16")],
+    ids=["heavy", "exact_fp32", "quirk_inline_norm_geom_bf16"])
+def test_frozen_kernel_matches_plain(dev, kw):
+    args, beta = _frozen_problem(dev, 4, **kw)
+    before = gk.frozen_launches
+    got = torch.stack(gk.guidance_frozen(*args))
+    assert gk.frozen_launches == before + 1
+    ref = torch.stack(gk.guidance_frozen_plain(*args))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    off = err > chip_smoke.ATOL + chip_smoke.RTOL * ref.abs()
+    assert float(off.float().mean()) <= chip_smoke.MAX_OFF_SHARE
+    assert float(err.max()) <= 2 * beta + 1e-6
+
+
+def test_frozen_kernel_rejects_bad_operands(dev):
+    args, _ = _frozen_problem(dev, 2)
+    i = gk._FROZEN_NAMES.index("nx")
+    before = gk.frozen_launches
+    for bad in (args[i].cpu(), args[i][:, :-1].contiguous(),
+                args[i].double()):
+        with pytest.raises((ValueError, TypeError)):
+            gk.guidance_frozen(*args[:i], bad, *args[i + 1:])
+    assert gk.frozen_launches == before
 
 
 def _superstep_problem(dev, hiddens, n_scenes=4):

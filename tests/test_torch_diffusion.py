@@ -53,16 +53,21 @@ def test_schedule_and_coeffs_match_jax(kw):
                0, 0)
 
 
-def _setup(bs=2, M=4, steps=10, seed=0):
+def _setup(bs=2, M=4, steps=10, seed=0, cfg_t_kw=None, **kw):
+    """Both packages' configs, dense batches and nets; ``kw`` overrides
+    the shared flags, ``cfg_t_kw`` (default: the fused kernel) the port's
+    guidance route."""
     flags = dict(diffusion=True, rect_head=True, diverse_loss=True,
                  n_randoms=M, n_neighbors=3, hiddens=(32, 32),
                  rect_hiddens=(32, 32), compute_dtype="float32",
                  diffusion_steps=steps, guidance=True, guidance_niters=3,
                  clearance_coarse_pair=True, guidance_reuse_selection=True,
                  flex=True)
+    flags.update(kw)
     cfg_j = JConfig(**flags).finalize()
-    cfg_t = TConfig(**flags).with_(guidance_pallas_fuse_freeze=True
-                                   ).finalize()
+    if cfg_t_kw is None:
+        cfg_t_kw = dict(guidance_pallas_fuse_freeze=True)
+    cfg_t = TConfig(**flags).with_(**cfg_t_kw).finalize()
     batch, gt, stlp, states, _ = guidance_case(seed, bs, M, 20, 3, 15)
     batch["ego_traj"] = np.concatenate(
         [np.repeat(states[:, None], 20, 1), np.full((bs, 20, 2), 2.0, F32)],
@@ -139,11 +144,23 @@ def test_select_multi_cands_matches_jax():
 
 
 def test_unported_sampler_options_raise():
+    """Every guidance route of the candidate-minor loss is accepted (the
+    fused and frozen-payload kernels, folded or not, and the XLA loop), and
+    so is the unguided row-major pass; the other samplers and guidance on
+    the row-major path raise."""
     cfg = TConfig(diffusion=True, guidance=True,
                   guidance_pallas_fuse_freeze=True).finalize()
     tdiff.check_supported(cfg)
-    for kw in (dict(sampler="ddim"), dict(cm_sampler=False),
-               dict(guidance_pallas_fuse_freeze=False),
-               dict(guidance_pallas_fold=True)):
+    for kw in (dict(guidance_pallas_fuse_freeze=False),
+               dict(guidance_pallas_fold=True),
+               dict(guidance_pallas_fuse_freeze=False,
+                    guidance_pallas_fold=True),
+               dict(guidance_pallas=False, guidance_pallas_fuse_freeze=False),
+               dict(guidance=False, cm_sampler=False)):
+        tdiff.check_supported(cfg.with_(**kw))
+    for kw in (dict(sampler="ddim"), dict(sampler="dpmpp"),
+               dict(cm_sampler=False), dict(guidance_fused_loss=False),
+               dict(guidance_pallas=False, guidance_pallas_fuse_freeze=False,
+                    robustness_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             tdiff.check_supported(cfg.with_(**kw))

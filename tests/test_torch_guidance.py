@@ -106,8 +106,9 @@ def test_plain_matches_xla_frozen_path(case):
     ctx = jdiff.make_guidance_ctx(None, fj.valid_r, None, fj)
     xla = jdiff._guidance_step(jnp.asarray(mu), jnp.float32(beta), ctx,
                                cfg_j, maximize=True, frozen=frozen)
-    out = gk.guidance_adam_cm(ft, ft._to_cand_minor(torch.as_tensor(mu)),
-                              torch.tensor(beta), 100.0, cfg_t)
+    out = gk.guidance_adam_cm(ft, None, ft._to_cand_minor(torch.as_tensor(mu)),
+                              torch.tensor(beta), 100.0, cfg_t,
+                              fuse_freeze=True)
     got = ft._from_cand_minor(out)
     _close(got, xla)
     assert np.abs(np_(got) - mu).max() > 1e-4     # guidance moved mu
@@ -126,12 +127,13 @@ def test_plain_matches_pallas_interpret_bf16_coarse():
         fj, None, mu_cm_j, jnp.float32(beta), 100.0, cfg_j, interpret=True,
         fuse_freeze=True)
     mu_t = ft._to_cand_minor(torch.as_tensor(mu))
-    out = gk.guidance_adam_cm(ft, mu_t, torch.tensor(beta), 100.0, cfg_t)
+    out = gk.guidance_adam_cm(ft, None, mu_t, torch.tensor(beta), 100.0,
+                              cfg_t, fuse_freeze=True)
     _close(out, pal)
     # and bf16 really engages: the fp32 plain path differs
     out32 = gk.guidance_adam_cm(
-        ft, mu_t, torch.tensor(beta), 100.0,
-        cfg_t.with_(guidance_pallas_bf16_cumsum=False))
+        ft, None, mu_t, torch.tensor(beta), 100.0,
+        cfg_t.with_(guidance_pallas_bf16_cumsum=False), fuse_freeze=True)
     assert np.abs(np_(out32) - np_(out)).max() > 0
 
 

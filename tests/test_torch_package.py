@@ -88,28 +88,65 @@ def test_bench_configs_finalize_equal(mode, monkeypatch):
             == TConfig(**flags).finalize().to_dict())
 
 
-@pytest.mark.parametrize("mode", ["heavy", "parity", "parity_nog"])
-@pytest.mark.parametrize("gpallas", ["3", "4"], ids=["fold2", "superstep"])
-def test_bench_gpallas_configs_equal(mode, gpallas, monkeypatch):
-    """bench.build_cfg(mode) with BENCH_GPALLAS=3 (fold2) or 4 (superstep)
-    equals bench_config(mode, gpallas=...)."""
+def _bench_env(monkeypatch, **env):
     for k in list(os.environ):
         if k.startswith("BENCH_"):
             monkeypatch.delenv(k)
-    monkeypatch.setenv("BENCH_GPALLAS", gpallas)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+@pytest.mark.parametrize("mode", ["heavy", "parity", "parity_nog"])
+@pytest.mark.parametrize("gpallas", ["0", "1", "1f", "2f", "2", "3", "4"],
+                         ids=["0", "1", "1f", "2f", "2", "fold2",
+                              "superstep"])
+def test_bench_gpallas_configs_equal(mode, gpallas, monkeypatch):
+    """bench.build_cfg(mode) with BENCH_GPALLAS=gpallas equals
+    bench_config(mode, gpallas=...), field for field."""
+    _bench_env(monkeypatch, BENCH_GPALLAS=gpallas)
     want = bench.build_cfg(mode).to_dict()
     got = bench_config(mode, gpallas=gpallas)
     assert got.to_dict() == want
-    assert got.guidance_pallas_fold2 and got.guidance_pallas_fuse_freeze
-    assert got.guidance_pallas_superstep == (gpallas == "4")
+    assert got.guidance_pallas == (gpallas != "0")
+    assert got.guidance_pallas_fuse_freeze == (gpallas in ("2", "2f", "3",
+                                                            "4"))
+    assert got.guidance_pallas_fold == gpallas.endswith("f")
+    if gpallas in ("3", "4"):
+        assert got.guidance_pallas_fold2
+        assert got.guidance_pallas_superstep == (gpallas == "4")
 
 
-def test_bench_gpallas_unported_raise():
-    for gp in ("0", "1", "1f", "2f"):
-        with pytest.raises(NotImplementedError):
-            bench_config("heavy", gpallas=gp)
+@pytest.mark.parametrize("gpallas,knobs", [
+    ("1", dict(sel_every=2)), ("0", dict(sel_every=3)),
+    ("1f", dict(geometry_dtype="bfloat16")),
+    ("0", dict(geometry_dtype="bfloat16"))],
+    ids=["sel2", "xla_sel3", "geom_bf16", "xla_geom_bf16"])
+def test_bench_sel_every_geometry_configs_equal(gpallas, knobs, monkeypatch):
+    """BENCH_SEL_EVERY and BENCH_GEOM_DTYPE mirror bench_config's
+    sel_every and geometry_dtype."""
+    env = {"BENCH_GPALLAS": gpallas}
+    if "sel_every" in knobs:
+        env["BENCH_SEL_EVERY"] = str(knobs["sel_every"])
+    if "geometry_dtype" in knobs:
+        env["BENCH_GEOM_DTYPE"] = knobs["geometry_dtype"]
+    _bench_env(monkeypatch, **env)
+    got = bench_config("heavy", gpallas=gpallas, **knobs)
+    assert got.to_dict() == bench.build_cfg("heavy").to_dict()
+    assert got.guidance_sel_every == knobs.get("sel_every", 1)
+    assert got.geometry_dtype == knobs.get("geometry_dtype", "float32")
+
+
+def test_bench_gpallas_unported_raise(monkeypatch):
+    """An unknown BENCH_GPALLAS value raises; the fused kernel with a
+    selection carry is refused by both packages' finalize, as bench.py's
+    row with BENCH_SEL_EVERY=2 is."""
     with pytest.raises(ValueError):
         bench_config("heavy", gpallas="5")
+    _bench_env(monkeypatch, BENCH_GPALLAS="2", BENCH_SEL_EVERY="2")
+    with pytest.raises(ValueError):
+        bench.build_cfg("heavy").finalize()
+    with pytest.raises(ValueError):
+        bench_config("heavy", gpallas="2", sel_every=2).finalize()
 
 
 def test_build_hash_covers_headers(tmp_path):

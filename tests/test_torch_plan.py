@@ -99,7 +99,8 @@ def test_plan_step_matches_jax():
 def test_unported_planner_options_raise():
     cfg = TConfig(**FLAGS).with_(guidance_pallas_fuse_freeze=True).finalize()
     tsim.check_supported(cfg)
+    tsim.check_supported(cfg.with_(use_pallas_clearance=True))
     for kw in (dict(backup=True), dict(refinement=True),
-               dict(use_pallas_clearance=True), dict(sampler="dpmpp")):
+               dict(sampler="dpmpp")):
         with pytest.raises(NotImplementedError):
             tsim.check_supported(cfg.with_(**kw))

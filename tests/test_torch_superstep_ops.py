@@ -114,8 +114,10 @@ def test_fold2_matches_pallas_interpret(cols):
                               jnp.float32(beta), 100.0, cfg_j, interpret=True,
                               fuse_freeze=True)
     before = gk.launches
-    out = gk.guidance_adam_cm(ft, ft._to_cand_minor(torch.as_tensor(mu)),
-                              torch.tensor(beta), 100.0, cfg_t)
+    out = gk.guidance_adam_cm(ft, None,
+                              ft._to_cand_minor(torch.as_tensor(mu)),
+                              torch.tensor(beta), 100.0, cfg_t,
+                              fuse_freeze=cfg_t.guidance_pallas_fuse_freeze)
     assert gk.launches == before           # CPU tensors: the plain version
     np.testing.assert_allclose(np_(out), np_(pal), rtol=2e-4, atol=2e-5)
     assert np.abs(np_(ft._from_cand_minor(out)) - mu).max() > 1e-4

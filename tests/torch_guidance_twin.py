@@ -1,11 +1,15 @@
-"""Torch transcription of the fused guidance kernel's hand-written backward
-pass (``pstl_tpu_torch/csrc/guidance_fused.cu``, ``score_grad``),
-vectorized over the candidate columns with the kernel's serial loops over
-t kept as loops.  It exists for the tests: the CUDA kernel cannot run on a
-CPU, so its VJP algebra is checked here against ``torch.autograd`` of the
-plain version (``tests/test_torch_guidance.py``), and the kernel is
-compared with the plain version on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+"""Torch transcription of the guidance kernels' hand-written backward pass
+(``score_grad`` in ``pstl_tpu_torch/csrc/guidance_device.cuh``), vectorized
+over the candidate columns with the kernel's serial loops over t kept as
+loops.  It reads the selections as frozen values (``pay``, keyed by
+``guidance_kernel.FROZEN_KEYS``), which covers both of the kernels' ways to
+read them: the in-kernel freeze's indices (IdxSel, whose values are
+``guidance_kernel.payloads``) and the payloads of ``freeze_cm`` (PaySel).
+It exists for the tests: a CUDA kernel cannot run on a CPU, so its VJP
+algebra is checked here against ``torch.autograd`` of the plain version
+(``tests/test_torch_guidance.py``, ``tests/test_torch_frozen_kernel.py``),
+and the kernels are compared with the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import torch
@@ -91,9 +95,9 @@ def score_grad(w, a, pay, ops, p, thres, gscale):
     best, kmin = None, None
     pieces = []
     for k in range(p.K):
-        ax = pay["caxe"][:, k]
-        dxk = x + ax * c - pay["cnx"][:, k]
-        dyk = y + ax * s - pay["cny"][:, k]
+        ax = pay["axe"][:, k]
+        dxk = x + ax * c - pay["nx"][:, k]
+        dyk = y + ax * s - pay["ny"][:, k]
         dist = torch.sqrt(dxk ** 2 + dyk ** 2 + 1e-12)
         per = dist - ops.crad[:, k, :, None]
         vk = ops.cvalid[:, k, :, None].expand_as(per)
@@ -205,11 +209,22 @@ def score_grad(w, a, pay, ops, p, thres, gscale):
 
 def guidance_fused_twin(muw, mua, lanes, ndx, ndy, crad, cvalid, stlp, nf,
                         valid, scal, gvec, p):
-    """The whole fused step with the hand-written gradient."""
-    ops = gk.Operands(lanes, ndx, ndy, crad, cvalid, stlp, nf, valid, scal,
-                      gvec[2])
+    """The whole fused step (freeze, then the frozen step) with the
+    hand-written gradient."""
     pay = gk.payloads(gk.freeze(muw, mua, lanes, ndx, ndy, scal, p), lanes,
                       ndx, ndy, p)
+    return guidance_frozen_twin(muw, mua, *(pay[k] for k in gk.FROZEN_KEYS),
+                                crad, cvalid, stlp, nf, valid, scal, gvec, p)
+
+
+def guidance_frozen_twin(muw, mua, x2, y2, th2, x3, y3, first, last, axe, nx,
+                         ny, crad, cvalid, stlp, nf, valid, scal, gvec, p):
+    """The step on frozen payloads (``guidance_frozen``'s arguments) with
+    the hand-written gradient."""
+    pay = dict(zip(gk.FROZEN_KEYS, (x2, y2, th2, x3, y3, first, last, axe,
+                                    nx, ny)))
+    ops = gk.Operands(None, None, None, crad, cvalid, stlp, nf, valid, scal,
+                      gvec[2])
     grad_fn = lambda w, a: score_grad(w, a, pay, ops, p, gvec[1],
                                       gvec[2])[1:]
     return gk.adam_clip(muw, mua, grad_fn, gvec[0], p)
