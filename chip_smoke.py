@@ -47,9 +47,30 @@ and no result line is printed:
    card against the plain version first) and ``"1"`` with
    ``guidance_sel_every=2``, 8 steps each, and ``"0"`` (the XLA guidance
    loop), 8 steps with no kernel launch.
+13. clearance kernels: the forward and backward min-clearance kernels
+   against their plain versions at n = 8192 rows (128 scenes x 64), K = 8,
+   T = 20, nL = 4, on the ``e2_vae_mono`` step's own inputs and on random
+   ones (about 30 % invalid neighbors, clearances on both sides of the clip
+   bound), with a N(0, 1) cotangent; errors, the share beyond tolerance and
+   median times.
+14. card vs CPU for one mono train step: ``e2_vae_mono`` in fp32 with
+   stl_weight 1 (the backward kernel carries a nonzero cotangent), 16
+   scenes x 64, the same draws: loss, metrics, every gradient and the
+   backward kernel's own output; then the gradients' error with that
+   output zeroed, printed.
+15. mono training at full width: one epoch of ``train.train`` on
+   ``e2_vae_mono`` (1,500 synthetic scenes: 8 train and 3 val batches of
+   128 scenes x 64), which must launch the forward kernel once per batch
+   and the backward once per train batch; 8 train steps with stl_weight 1;
+   4 train steps of ``e4_ddpm_mono`` (the 99-step sampler), forward only.
+   Every loss and metric must be finite.
 
 The line before the last is the card's ``name, power.limit``; before it a
-JSON line with each kernel's launches, error and times; the last line is
+JSON line with each kernel's launches, error and times, and its bound: the
+larger of its bytes (each input read once, each output written once) over
+the card's 3.35 TB/s and its arithmetic over the peak of its operands'
+type, 989 TFLOP/s for bf16 and 67 TFLOP/s for float32 (counted from the
+shapes; see ``*_ops``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -65,7 +86,18 @@ FOLD2_STEPS = 8
 MIXED_STEPS = 8
 ROUTE_STEPS = 8
 SCENES = 16
-LIBS = ("guidance_fused", "guidance_frozen", "superstep")
+LIBS = ("guidance_fused", "guidance_frozen", "superstep", "min_clearance")
+#: e2_vae_mono's ego box
+EGO_L, EGO_W = 4.084, 1.730
+#: scenes of the full-width mono phases, and their training set
+TRAIN_SCENES = 1500
+E2_EXTRA_STEPS = 8
+E4_STEPS = 4
+#: the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM,
+#: and operations per second by operand type (bf16 / fp16 on the tensor
+#: cores, float32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
 # kernel vs plain tolerance (see kernel_phase): controls are normalized
 # (|mu| ~ 1); rtol/atol of the JAX package's own kernel-vs-XLA tests
@@ -75,6 +107,29 @@ RTOL, ATOL = 2e-4, 2e-5
 # (FMA contraction on the card), which moves that column's Adam path; the
 # move stays inside the trust region |delta| <= beta on either side
 MAX_OFF_SHARE = 1e-3
+# clearance kernels vs plain: the JAX package's kernel-vs-XLA tolerances
+# (tests/test_pallas_kernels.py), for every forward element (the minimum
+# is continuous: a near-tie flip moves it by an ulp).  A backward element
+# may lie beyond them only where the plain version decides the routing by
+# less than CLEAR_TIE_M metres (two neighbors' clearances, the minimal
+# neighbor's two closest disc pairs, or its clearance and a clip bound):
+# there a 1-ulp difference of cos / sin / sqrt sends that element's
+# cotangent elsewhere; at most CLEAR_MAX_OFF_SHARE of the elements
+CLEAR_FWD_RTOL, CLEAR_BWD_RTOL, CLEAR_ATOL = 1e-4, 1e-3, 1e-4
+CLEAR_TIE_M = 3e-5        # a few ulp of an 80 m coordinate
+CLEAR_MAX_OFF_SHARE = 1e-3
+# card vs CPU for one fp32 mono train step (phase 14): the card's matmuls
+# and reductions sum in another order; metrics rtol, and each gradient
+# tensor (the backward kernel's own output too) to this share of its
+# largest entry.  The backward kernel's inputs differ between card and CPU
+# by the rollouts' rounding, which must stay below a tenth of MONO_TIE_M,
+# the near-tie margin of its elements there.  The phase's scenes put one
+# neighbor on the ego's own track, so about a tenth of the elements sit at
+# a near-tie, and inputs that differ by that rounding flip more of them
+# than identical inputs do: up to MONO_MAX_OFF_SHARE of the elements, all
+# at near-ties, may route their cotangent elsewhere
+MONO_RTOL, MONO_GRAD_TOL = 1e-4, 1e-3
+MONO_TIE_M, MONO_MAX_OFF_SHARE = 1e-3, 1e-2
 # unguided superstep vs plain, elementwise on x_next: the MLP sums in fp32
 # in another order than the library matmul, so a bf16 activation can round
 # one step (2^-8 relative) the other way; that moves eps by about that step
@@ -115,6 +170,78 @@ def time_cuda(fn, n=20, warm=3):
         e.synchronize()
         ts.append(s.elapsed_time(e))
     return median(ts)
+
+
+def nbytes(*xs):
+    """Bytes of every tensor in ``xs`` (nested tuples / lists walked)."""
+    import torch
+    out = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            out += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            out += nbytes(*x)
+    return out
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the least time for these bytes and operations
+    at the card's peaks.  ``ops`` maps an operand type to the operations on
+    it (a number is float32); the pipes of two types can run at once, so
+    the operations take the longest of their types' times."""
+    if not isinstance(ops, dict):
+        ops = {"float32": ops}
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n / OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def guidance_ops(p, bs, R, freeze):
+    """The arithmetic of one guidance update, counted from the shapes, each
+    fp32 add, multiply, compare or transcendental one operation: per
+    candidate column and Adam iteration a forward pass (the rollout ~12 per
+    t, the frozen lane segment's distance and heading ~30 per t, ~20 for
+    the clause terms and their exps per t, the frozen disc pair's clearance
+    ~15 per (k, t)), a backward of about twice that, and Adam ~12 per
+    control; the in-kernel freeze adds the segment search over the S
+    waypoints of 3 lanes (~10 per point) per t and the disc-pair search per
+    (k, t) (nLe*nLn pairs, or nLe+nLn with the coarse pair, ~6 each)."""
+    T, K = p.T, p.K
+    fwd = T * (12 + 30 + 20) + K * T * 15
+    ops = p.niters * (3 * fwd + 2 * T * 12)
+    if freeze:
+        pairs = (p.nLe + p.nLn) if p.coarse else p.nLe * p.nLn
+        ops += T * 3 * p.S * 10 + K * T * pairs * 6
+    return bs * R * ops
+
+
+def superstep_ops(mlp, p, bs, R, guided):
+    """By operand type: the split eps MLP's multiply-adds (2 operations
+    each) over bs*R columns in the MLP's dtype, and in float32 the
+    posterior and noise (~6 per control) and the guided update when
+    ``guided``."""
+    dims = [mlp.base.shape[1]] + [W.shape[0] for W, _ in mlp.mid]
+    T = mlp.WnwT.shape[1]
+    macs = dims[0] * 2 * T + sum(a * b for a, b in zip(dims, dims[1:])) \
+        + dims[-1] * 2 * T
+    fp32 = bs * R * 12 * T + (guidance_ops(p, bs, R, True) if guided else 0)
+    mlp_ops = bs * R * 2 * macs
+    dt = str(mlp.base.dtype).replace("torch.", "")
+    if dt == "float32":
+        return {"float32": fp32 + mlp_ops}
+    return {dt: mlp_ops, "float32": fp32}
+
+
+def clearance_ops(n, K, T, nL, backward):
+    """Per (row, t): the ego discs (~4 per disc, cos, sin); per neighbor
+    its discs (~8 per disc, cos, sin), the nL*nL squared distances (~6
+    each, with the min), sqrt, radii, clip and mask (~10).  The backward
+    recomputes that, counts the pair ties of the minimal neighbor and routes
+    the cotangent (~8 per pair) and adds the heading term (~8 per disc)."""
+    fwd = 4 * nL + 2 + K * (8 * nL + 2 + 6 * nL * nL + 10)
+    ops = fwd + (fwd + 8 * nL * nL + 8 * nL if backward else 0)
+    return n * T * ops
 
 
 def scene_batch(cfg, dev, n_scenes=SCENES, scene_len=38):
@@ -183,14 +310,14 @@ def check_guided(got, ref, start, beta, what):
     err = (got - ref).abs()
     share = float((err > ATOL + RTOL * ref.abs()).float().mean())
     max_err = float(err.max())
-    bound = 2 * beta + 1e-6
+    limit = 2 * beta + 1e-6
     log(f"{what}: max_abs_err={max_err:.3e} off_share={share:.2e} "
         f"moved={float((got - start).abs().max()):.3e}")
-    if share > MAX_OFF_SHARE or max_err > bound:
+    if share > MAX_OFF_SHARE or max_err > limit:
         raise RuntimeError(
             f"{what} disagrees with the plain version: {share:.2e} of "
             f"elements beyond rtol {RTOL} / atol {ATOL} (allowed "
-            f"{MAX_OFF_SHARE}), max error {max_err:.3e} (bound {bound:.3e})")
+            f"{MAX_OFF_SHARE}), max error {max_err:.3e} (bound {limit:.3e})")
     return max_err
 
 
@@ -206,7 +333,7 @@ def kernel_phase(dev):
     scenes = scene_batch(base, dev)
     coeffs = diffusion.get_coeffs(base, device=dev)
     worst = 0.0
-    heavy_ms = heavy_plain_ms = None
+    heavy_ms = heavy_plain_ms = heavy_bound = None
     outs = {}
     for coarse in (True, False):
         for bf16 in (True, False):
@@ -237,18 +364,18 @@ def kernel_phase(dev):
                     off = err > ATOL + RTOL * ref.abs()
                     share = float(off.float().mean())
                     max_err = float(err.max())
-                    bound = 2 * float(coeffs.beta[t]) + 1e-6
+                    limit = 2 * float(coeffs.beta[t]) + 1e-6
                     moved = float((got - torch.stack([w, a])).abs().max())
                     log(f"kernel coarse={int(coarse)} bf16={int(bf16)} "
                         f"quirk={int(quirk)} t={t}: max_abs_err="
                         f"{max_err:.3e} off_share={share:.2e} "
                         f"moved={moved:.3e}")
-                    if share > MAX_OFF_SHARE or max_err > bound:
+                    if share > MAX_OFF_SHARE or max_err > limit:
                         raise RuntimeError(
                             f"kernel disagrees with the plain version: "
                             f"{share:.2e} of elements beyond rtol {RTOL} / "
                             f"atol {ATOL} (allowed {MAX_OFF_SHARE}), max "
-                            f"error {max_err:.3e} (bound {bound:.3e})")
+                            f"error {max_err:.3e} (bound {limit:.3e})")
                     if moved <= 0:
                         raise RuntimeError("the kernel did not move mu")
                     worst = max(worst, max_err)
@@ -257,6 +384,9 @@ def kernel_phase(dev):
                         heavy_ms = time_cuda(lambda: gk.guidance_fused(*args))
                         heavy_plain_ms = time_cuda(
                             lambda: gk.guidance_fused_plain(*args))
+                        heavy_bound = bound(
+                            nbytes(args[:-1], ow, oa),
+                            guidance_ops(p, SCENES, fused.R, True))
     # every flag must change the kernel's result on this problem
     for i, flag in enumerate(("coarse", "bf16", "quirk")):
         on = (True, True, False, 60)
@@ -267,8 +397,9 @@ def kernel_phase(dev):
             raise RuntimeError(f"flag {flag} does not change the kernel")
     log(f"kernel times (coarse+bf16, bs={SCENES}, R={3 * base.n_randoms}, "
         f"niters={base.guidance_niters}): kernel {heavy_ms:.4f} ms, plain "
-        f"{heavy_plain_ms:.4f} ms (median of 20)")
-    return worst, heavy_ms, heavy_plain_ms
+        f"{heavy_plain_ms:.4f} ms (median of 20); bound "
+        f"{heavy_bound[0]:.5f} ms ({heavy_bound[1]})")
+    return worst, heavy_ms, heavy_plain_ms, heavy_bound
 
 
 def superstep_phase(dev, net):
@@ -327,16 +458,19 @@ def superstep_phase(dev, net):
                         if coarse and bf16 and not quirk and t == 60:
                             times[guided] = (
                                 time_cuda(lambda: sk.superstep(*args)),
-                                time_cuda(lambda: sk.superstep_plain(*args)))
+                                time_cuda(lambda: sk.superstep_plain(*args)),
+                                bound(nbytes(args[:6], got),
+                                      superstep_ops(mlp, p, SCENES,
+                                                    x.shape[-1], guided)))
                     if not float((outs[True] - outs[False]).abs().max()) > 0:
                         raise RuntimeError("the guided superstep did not "
                                            "change the step")
-    for guided, (ms, plain_ms) in times.items():
+    for guided, (ms, plain_ms, bnd) in times.items():
         log(f"superstep times ({'guided' if guided else 'unguided'}, "
             f"coarse+bf16, bs={SCENES}, R={3 * base.n_randoms}, hidden "
             f"{base.hiddens}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(median of 20)")
-    return worst, times[True][0], times[True][1]
+            f"(median of 20); bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return worst, times[True][0], times[True][1], times[True][2]
 
 
 def reference_phase(dev, net_cpu, net_dev, routes=(("2", 1), ("4", 1))):
@@ -383,21 +517,40 @@ def reference_pass(dev, net_cpu, net_dev, cfg, what):
         raise RuntimeError(f"card and cpu reverse passes disagree: {err}")
 
 
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+    from pstl_tpu_torch.ops import superstep_kernel as sk
+    gk.launches = gk.frozen_launches = sk.launches = sk.guided_launches = 0
+    ck.fwd_launches = ck.bwd_launches = 0
+
+
+def read_counts():
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+    from pstl_tpu_torch.ops import superstep_kernel as sk
+    return {"guidance_fused": gk.launches,
+            "guidance_frozen": gk.frozen_launches,
+            "superstep": sk.launches,
+            "superstep_guided": sk.guided_launches,
+            "min_clearance_fwd": ck.fwd_launches,
+            "min_clearance_bwd": ck.bwd_launches}
+
+
 def run_loop(dev, net, cfg, steps):
     """``steps`` closed-loop steps of the scenes under ``cfg``, with every
     kernel's launch count set to 0 just before and read just after; every
     metric must be finite.  Returns (counts, metrics, step seconds, wall)."""
     import torch
     from pstl_tpu_torch import diffusion, sim
-    from pstl_tpu_torch.ops import guidance_kernel as gk
-    from pstl_tpu_torch.ops import superstep_kernel as sk
 
     scenes = scene_batch(cfg, dev)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
     init_carry, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs)
     c = init_carry(0)
     torch.cuda.synchronize()
-    gk.launches = gk.frozen_launches = sk.launches = sk.guided_launches = 0
+    reset_counts()
     step_s = []
     t_all = time.time()
     for _ in range(steps):
@@ -406,10 +559,7 @@ def run_loop(dev, net, cfg, steps):
         torch.cuda.synchronize()
         step_s.append(time.time() - t0)
     wall = time.time() - t_all
-    counts = {"guidance_fused": gk.launches,
-              "guidance_frozen": gk.frozen_launches,
-              "superstep": sk.launches,
-              "superstep_guided": sk.guided_launches}
+    counts = read_counts()
     m = {k: v.cpu() for k, v in sim._carry_metrics(c).items()}
     for k, v in m.items():
         if not torch.isfinite(v.float()).all():
@@ -475,9 +625,11 @@ def route_call(dev, cfg, what):
     err = check_guided(got, ref, mu, float(beta), f"{what} guidance_adam_cm")
     ms = time_cuda(call)
     plain_ms = time_cuda(lambda: plain(*args))
+    bnd = bound(nbytes(args[:-1], ref),
+                guidance_ops(args[-1], fused.bs, fused.R, ff))
     log(f"{what} times: guidance_adam_cm {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms (median of 20)")
-    return err, ms, plain_ms
+        f"ms (median of 20); kernel bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return err, ms, plain_ms, bnd
 
 
 #: the kernel each BENCH_GPALLAS route launches once per guided denoise step
@@ -491,7 +643,7 @@ def route_phase(dev, net, gpallas, steps, sel_every=1):
     guidance call against the plain version (not for the XLA loop, which
     runs no kernel), then ``steps`` closed-loop steps, which must launch
     the route's kernel once per guided denoise step and nothing else.
-    Returns (launches, max error, ms, plain ms, median step s)."""
+    Returns (launches, max error, ms, plain ms, bound, median step s)."""
     from pstl_tpu_torch import diffusion
     from pstl_tpu_torch.config import bench_config
 
@@ -499,16 +651,16 @@ def route_phase(dev, net, gpallas, steps, sel_every=1):
     cfg = bench_config("heavy", gpallas=gpallas, sel_every=sel_every)
     what = f"BENCH_GPALLAS={gpallas} sel_every={sel_every}"
     kernel = ROUTE_KERNEL[gpallas]
-    err = ms = plain_ms = None
+    err = ms = plain_ms = bnd = None
     if kernel is not None:
-        err, ms, plain_ms = route_call(dev, cfg, what)
+        err, ms, plain_ms, bnd = route_call(dev, cfg, what)
     counts, m, step_s, wall = run_loop(dev, net, cfg, steps)
     guided = int(diffusion._trigger_schedule(cfg).sum())
     check_counts(counts, {kernel: guided * steps} if kernel else {},
                  f"{what} closed loop")
     report_loop(f"{what} closed loop", steps, counts, m, step_s, wall)
     log(f"{what}: phase wall {time.time() - t0:.1f} s")
-    return (counts.get(kernel, 0), err, ms, plain_ms, median(step_s))
+    return (counts.get(kernel, 0), err, ms, plain_ms, bnd, median(step_s))
 
 
 def frozen_phase(dev):
@@ -561,7 +713,9 @@ def frozen_phase(dev):
             if (coarse, bf16, quirk, geom, t) == (True, True, False,
                                                   "float32", 60):
                 times = (time_cuda(lambda: gk.guidance_frozen(*args)),
-                         time_cuda(lambda: gk.guidance_frozen_plain(*args)))
+                         time_cuda(lambda: gk.guidance_frozen_plain(*args)),
+                         bound(nbytes(args[:-1], got),
+                               guidance_ops(p, SCENES, fused.R, False)))
     on = (True, True, False, "float32", 60)
     for i, flag in enumerate(("coarse", "bf16", "quirk", "geometry")):
         off = list(on)
@@ -573,9 +727,10 @@ def frozen_phase(dev):
                                "kernel")
     log(f"frozen kernel times (coarse+bf16, bs={SCENES}, "
         f"R={3 * base.n_randoms}, niters={base.guidance_niters}): kernel "
-        f"{times[0]:.4f} ms, plain {times[1]:.4f} ms (median of 20); "
-        f"phase wall {time.time() - t_start:.1f} s")
-    return worst, times[0], times[1]
+        f"{times[0]:.4f} ms, plain {times[1]:.4f} ms (median of 20); bound "
+        f"{times[2][0]:.5f} ms ({times[2][1]}); phase wall "
+        f"{time.time() - t_start:.1f} s")
+    return worst, times[0], times[1], times[2]
 
 
 def superstep_loop_phase(dev, net):
@@ -604,6 +759,404 @@ def superstep_loop_phase(dev, net):
                 f"{cfg.diffusion_steps - 1} denoise steps)", MIXED_STEPS,
                 counts, m, step_s, wall)
     return launches, step_med
+
+
+# --------------------------------------------------------------------------
+# the mono training step (phases 13-15)
+# --------------------------------------------------------------------------
+
+def straight_scenes(batch, cfg):
+    """A numpy batch made into scenes where the safety clause binds for
+    near-straight rollouts: the GT a constant-speed straight line from each
+    scene's start, the lanes straight along it (3.5 m apart), neighbor 0
+    driving on the GT path (the calibrated d_safe is 0 and the clearance
+    about -1.7 m), every scene a lane keep."""
+    import numpy as np
+    b = {k: v.copy() for k, v in batch.items()}
+    ego = b["ego_traj"]
+    bs, T = ego.shape[:2]
+    x0, y0, th0, v0 = (ego[:, 0, i][:, None] for i in range(4))
+    s = v0 * cfg.dt * np.arange(T)
+    c, sn = np.cos(th0), np.sin(th0)
+    ego[..., 0], ego[..., 1], ego[..., 2], ego[..., 3] = (
+        x0 + s * c, y0 + s * sn, th0, v0)
+    sl = np.linspace(-10.0, 1.0, cfg.n_segs) * (v0 * cfg.dt * T + 10.0)
+    sl = -sl[:, ::-1]
+    for key, off in (("curr", 0.0), ("left", 3.5), ("right", -3.5)):
+        b[f"{key}lane_wpts"] = np.stack(
+            [x0 + sl * c - off * sn, y0 + sl * sn + off * c,
+             np.broadcast_to(th0, sl.shape)], -1).astype(np.float32)
+        b[f"{key}_id"] = np.ones((bs, 1), np.float32)
+    nei = b["neighbors_traj"]
+    nei[:, 0, :, 0] = 1.0
+    nei[:, 0, :, 1:5] = ego[..., 0:4]
+    nei[:, 0, :, 5], nei[:, 0, :, 6] = 4.0, 1.8
+    b["neighbors"] = nei[:, :, 0].copy()
+    b["gt_high_level"] = np.zeros((bs, 1), np.float32)
+    return b
+
+
+def clearance_random_inputs(n, K, T, seed=0, clip_region=True):
+    """tests/test_pallas_kernels.py-style clearance inputs as CPU tensors:
+    about 30 % invalid neighbors; with ``clip_region`` the neighbors of
+    three rows in four sit within 8 m of the ego (negative clearances) and
+    the rest within 80 m (clearances clipped at 20)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    ego = np.stack([rng.uniform(-20, 20, (n, T)),
+                    rng.uniform(-20, 20, (n, T)),
+                    rng.uniform(-np.pi, np.pi, (n, T))], -1)
+    nei = np.zeros((n, K, T, 7))
+    nei[..., 0] = rng.rand(n, K, 1) > 0.3
+    spread = (np.where(rng.rand(n, 1, 1) < 0.25, 80.0, 8.0) if clip_region
+              else 25.0)
+    for c in (0, 1):
+        base = ego[:, None, :, c] if clip_region else 0.0
+        nei[..., 1 + c] = base + spread * rng.uniform(-1, 1, (n, K, T))
+    nei[..., 3] = rng.uniform(-np.pi, np.pi, (n, K, T))
+    nei[..., 5] = rng.uniform(3.5, 5.5, (n, K, T))
+    nei[..., 6] = rng.uniform(1.5, 2.2, (n, K, T))
+    return (torch.as_tensor(ego, dtype=torch.float32),
+            torch.as_tensor(nei, dtype=torch.float32))
+
+
+def mono_net(cfg, dev, seed=0):
+    """A flax-like initialised net of ``cfg`` on ``dev``."""
+    import torch
+    from pstl_tpu_torch.models.net import Net, init_flax_like
+    net = Net(cfg)
+    init_flax_like(net, torch.Generator().manual_seed(seed))
+    return net.to(dev)
+
+
+def e2_clearance_inputs(dev, cfg, batch):
+    """The clearance kernels' operands in one ``e2_vae_mono`` step on
+    ``batch``: one eval forward on the card, its forward-kernel call
+    recorded (the rollouts of the batch's VAE controls and its neighbors,
+    repeated n_randoms times)."""
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+    net = mono_net(cfg, dev)
+    eval_step = train.make_eval_step(cfg, net, specs.build_scorer(cfg),
+                                     diffusion.get_coeffs(cfg, device=dev))
+    seen = []
+    real = ck.min_clearance_fwd
+
+    def record(ego, nei, *a):
+        seen.append((ego, nei))
+        return real(ego, nei, *a)
+
+    ck.min_clearance_fwd = record
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    try:
+        eval_step(train.to_device(batch, dev), generator=gen)
+    finally:
+        ck.min_clearance_fwd = real
+    return seen[0]
+
+
+def clearance_near_ties(ego, nei, L, W, nL, margin):
+    """(n, T) mask of the elements whose backward routing the plain version
+    decides by at most ``margin`` metres: at a minimum inside the clip gate,
+    the two smallest masked clearances over K, or, at a neighbor within
+    ``margin`` of the minimum, its two closest disc pairs (in distance) or
+    its clearance and a clip bound.  (Ties at the clip bound 20 or at the
+    invalid value 100 route nothing.)"""
+    import torch
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+    masked, geo = ck._disc_geometry(ego, nei, L, W, nL)
+    d2, per, valid = geo[4], geo[7], geo[8]
+    srt = torch.sort(masked, dim=-1).values
+    near = torch.zeros_like(srt[..., 0], dtype=torch.bool)
+    if srt.shape[-1] > 1:
+        near = ((srt[..., 1] - srt[..., 0] <= margin)
+                & (srt[..., 0] < 20.0))
+    dist = torch.sqrt(torch.sort(torch.stack(d2, -1).flatten(-2),
+                                 dim=-1).values[..., :2] + 1e-12)
+    pair = dist[..., 1] - dist[..., 0] <= margin
+    clip = ((per + 5.0).abs() <= margin) | ((per - 20.0).abs() <= margin)
+    at_min = (masked <= srt[..., :1] + margin) & (valid > 0)
+    return near | ((pair | clip) & at_min).any(-1)
+
+
+def clearance_check(what, got, ref, rtol, near=None, atol=CLEAR_ATOL,
+                    max_share=CLEAR_MAX_OFF_SHARE):
+    """Max error of ``got`` against ``ref`` (..., T[, 3]); every element
+    within atol + rtol*|ref| except, where ``near`` (n, T) is given, at most
+    ``max_share`` of them, all at near-ties; raises otherwise."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{what}: output is not finite")
+    err = (got - ref).abs()
+    off = err > atol + rtol * ref.abs()
+    if near is None:
+        near = torch.zeros(off.shape[:2], dtype=torch.bool, device=off.device)
+    at_tie = near.reshape(near.shape + (1,) * (off.ndim - near.ndim))
+    bad = off & ~at_tie
+    share = float(off.float().mean())
+    max_err = float(err.max())
+    far_err = float(torch.where(at_tie, 0.0, err).max())
+    log(f"{what}: max_abs_err={max_err:.3e} ({far_err:.3e} away from "
+        f"near-ties); beyond rtol {rtol} / atol {atol:.3e}: "
+        f"{int(off.sum())} of {off.numel()} (share {share:.2e}, allowed "
+        f"{max_share}), "
+        f"{int(bad.sum())} of them away from the {int(near.sum())} "
+        f"near-tie elements")
+    if bad.any() or share > max_share:
+        raise RuntimeError(f"{what} disagrees with the plain version beyond "
+                           f"its tolerance (near-tie share allowed "
+                           f"{max_share})")
+    return max_err
+
+
+def clearance_phase(dev):
+    """Phase 13: both clearance kernels vs their plain versions at the main
+    shapes on the e2 step's inputs and on random ones; returns per kernel
+    (max error, ms, plain ms, bound) with the times on the e2 inputs."""
+    import numpy as np
+    import torch
+    from pstl_tpu_torch.config import mono_config
+    from pstl_tpu_torch.data.dataset import SceneDataset
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+
+    t0 = time.time()
+    cfg = mono_config("e2_vae_mono")
+    ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=cfg.batch_size)
+    batch = ds.gather(np.arange(cfg.batch_size))
+    L, W, nL = cfg.ego_L, cfg.ego_W, cfg.refined_nL
+    n = cfg.batch_size * cfg.n_randoms
+    sets = {"e2 step": e2_clearance_inputs(dev, cfg, batch),
+            "random": tuple(x.to(dev) for x in clearance_random_inputs(
+                n, cfg.n_neighbors, cfg.nt, seed=1))}
+    g = torch.randn((n, cfg.nt),
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    res = {}
+    for name, (ego, nei) in sets.items():
+        if tuple(ego.shape) != (n, cfg.nt, 3) or nei.shape[1] != 8:
+            raise RuntimeError(f"clearance inputs {name}: shapes "
+                               f"{tuple(ego.shape)}, {tuple(nei.shape)}")
+        fwd = lambda: ck.min_clearance_fwd(ego, nei, L, W, nL)
+        fwd_p = lambda: ck.min_clearance_fwd_plain(ego, nei, L, W, nL)
+        bwd = lambda: ck.min_clearance_bwd(ego, nei, g, L, W, nL)
+        bwd_p = lambda: ck.min_clearance_bwd_plain(ego, nei, g, L, W, nL)
+        out, d = fwd(), bwd()
+        ref, dref = fwd_p(), bwd_p()
+        torch.cuda.synchronize()
+        per = ref[ref < 100]
+        log(f"clearance inputs {name}: n={n} K={nei.shape[1]} T={cfg.nt} "
+            f"nL={nL}; clearances in [{float(per.min()):.3f}, "
+            f"{float(per.max()):.3f}], {float((ref == 20).float().mean()):.3f}"
+            f" clipped at 20, {float((ref == 100).float().mean()):.4f} "
+            f"without a valid neighbor")
+        worst["fwd"] = max(worst["fwd"], clearance_check(
+            f"clearance forward ({name})", out, ref, CLEAR_FWD_RTOL))
+        worst["bwd"] = max(worst["bwd"], clearance_check(
+            f"clearance backward ({name})", d, dref, CLEAR_BWD_RTOL,
+            clearance_near_ties(ego, nei, L, W, nL, CLEAR_TIE_M)))
+        if float(d.abs().max()) <= 0:
+            raise RuntimeError(f"clearance backward ({name}) is all zero")
+        if name == "e2 step":
+            res["fwd"] = (time_cuda(fwd), time_cuda(fwd_p),
+                          bound(nbytes(ego, nei, out),
+                                clearance_ops(n, nei.shape[1], cfg.nt, nL,
+                                              False)))
+            res["bwd"] = (time_cuda(bwd), time_cuda(bwd_p),
+                          bound(nbytes(ego, nei, g, d),
+                                clearance_ops(n, nei.shape[1], cfg.nt, nL,
+                                              True)))
+    for k, (ms, plain_ms, bnd) in res.items():
+        log(f"clearance {k} times (e2 step inputs, n={n}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]})")
+    log(f"clearance: phase wall {time.time() - t0:.1f} s")
+    return {k: (worst[k],) + v for k, v in res.items()}
+
+
+def mono_reference_phase(dev):
+    """Phase 14: one fp32 e2 train step with stl_weight 1 on the card
+    (kernels) against the CPU (plain versions), same parameters, batch and
+    draws, on scenes where the safety clause binds: the metrics, every
+    parameter's gradient and the backward kernel's own output, d ego.  A
+    third step, on the card with that output zeroed, shows how far the
+    parameter gradients alone can see the backward kernel."""
+    import copy
+    import numpy as np
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    from pstl_tpu_torch.config import mono_config
+    from pstl_tpu_torch.data.dataset import SceneDataset
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+
+    cfg = mono_config("e2_vae_mono", stl_weight=1.0, compute_dtype="float32",
+                      batch_size=16)
+    ds = SceneDataset.from_synthetic(cfg, seed=3, n_scenes=cfg.batch_size)
+    batch = straight_scenes(ds.gather(np.arange(cfg.batch_size)), cfg)
+    net_cpu = mono_net(cfg, "cpu")
+    with torch.no_grad():   # a near-zero control head: near-straight rollouts
+        net_cpu.policy_net.layers[-1].weight.mul_(0.01)
+    n = cfg.batch_size * cfg.n_randoms
+    noise = torch.randn((n, cfg.vae_dim),
+                        generator=torch.Generator().manual_seed(4))
+    real_bwd = ck.min_clearance_bwd
+
+    def run(d, zero_vjp=False):
+        seen = []
+
+        def record(ego, nei, g, *a):
+            d_ego = real_bwd(ego, nei, g, *a)
+            if zero_vjp:
+                d_ego = torch.zeros_like(d_ego)
+            seen.append(tuple(x.detach().cpu() for x in (ego, nei, g, d_ego)))
+            return d_ego
+
+        net = copy.deepcopy(net_cpu).to(d)
+        opt = train.make_optimizer(cfg, net)
+        step = train.make_train_step(cfg, net, specs.build_scorer(cfg),
+                                     diffusion.get_coeffs(cfg, device=d), opt)
+        reset_counts()
+        ck.min_clearance_bwd = record
+        try:
+            rd = step(train.to_device(batch, d),
+                      draws={"vae_noise": noise.to(d)})
+        finally:
+            ck.min_clearance_bwd = real_bwd
+        if d != "cpu":
+            torch.cuda.synchronize()
+            if not zero_vjp:
+                check_counts(read_counts(), {"min_clearance_fwd": 1,
+                                             "min_clearance_bwd": 1},
+                             "mono reference step")
+        if len(seen) != 1:
+            raise RuntimeError(f"mono reference step: {len(seen)} clearance "
+                               f"VJP calls, expected 1")
+        return ({k: float(v) for k, v in rd.items()},
+                {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+                seen[0])
+
+    def grad_err(ga, gb):
+        return max(float((ga[k] - gb[k]).abs().max())
+                   / max(float(gb[k].abs().max()), 1e-30) for k in gb)
+
+    m_cpu, g_cpu, (ego, nei, cot, d_cpu) = run("cpu")
+    m_dev, g_dev, (ego_dev, _, cot_dev, d_dev) = run(dev)
+    _, g_zero, _ = run(dev, zero_vjp=True)
+    if not float(cot.abs().max()) > 0 or not float(d_cpu.abs().max()) > 0:
+        raise RuntimeError("the clearance VJP got or gave a zero cotangent")
+    m_err = max(abs(m_dev[k] - m_cpu[k]) / (abs(m_cpu[k]) + 1e-6)
+                for k in m_cpu)
+    g_err = grad_err(g_dev, g_cpu)
+    zero_err = grad_err(g_zero, g_cpu)
+    ego_diff = float((ego_dev - ego).abs().max())
+    d_scale = float(d_cpu.abs().max())
+    log(f"mono reference step (e2, fp32, stl_weight 1, {cfg.batch_size} "
+        f"scenes x {cfg.n_randoms}): card loss {m_dev['loss']:.6f} vs cpu "
+        f"{m_cpu['loss']:.6f}; worst metric rel err {m_err:.3e} (tolerance "
+        f"{MONO_RTOL}); worst gradient err {g_err:.3e} of its tensor's "
+        f"largest entry (tolerance {MONO_GRAD_TOL}; {zero_err:.3e} with the "
+        f"backward kernel's output zeroed); clearance cotangent "
+        f"max |g| card {float(cot_dev.abs().max()):.3e}, cpu "
+        f"{float(cot.abs().max()):.3e}; its inputs differ by {ego_diff:.3e} m")
+    if not (m_err <= MONO_RTOL and g_err <= MONO_GRAD_TOL):
+        raise RuntimeError("card and cpu mono train steps disagree")
+    if not ego_diff <= MONO_TIE_M / 10:
+        raise RuntimeError("the backward kernel's inputs differ between card "
+                           "and cpu beyond its near-tie margin")
+    clearance_check(
+        "mono reference backward kernel output (card vs cpu)", d_dev, d_cpu,
+        MONO_GRAD_TOL, clearance_near_ties(ego, nei, cfg.ego_L, cfg.ego_W,
+                                           cfg.refined_nL, MONO_TIE_M),
+        atol=MONO_GRAD_TOL * d_scale, max_share=MONO_MAX_OFF_SHARE)
+
+
+def check_finite(vals, what):
+    import math
+    for k, v in vals.items():
+        if not math.isfinite(v):
+            raise RuntimeError(f"{what}: {k} = {v} is not finite")
+
+
+def step_loop(dev, cfg, ds, steps, what):
+    """``steps`` train steps of a fresh net on ``ds``'s first train
+    batches, counted and timed; returns (counts, median step s)."""
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    from pstl_tpu_torch.data.dataset import batch_iterator
+
+    net = mono_net(cfg, dev, seed=1)
+    opt = train.make_optimizer(cfg, net)
+    step = train.make_train_step(cfg, net, specs.build_scorer(cfg),
+                                 diffusion.get_coeffs(cfg, device=dev), opt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    batches = batch_iterator(ds, "train", cfg.batch_size, shuffle=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    step_s = []
+    for _ in range(steps):
+        batch = train.to_device(next(batches), dev)
+        t0 = time.time()
+        rd = step(batch, generator=gen)
+        vals = {k: float(v) for k, v in rd.items()}
+        step_s.append(time.time() - t0)
+        check_finite(vals, what)
+    counts = read_counts()
+    log(f"{what}: {steps} steps, launches={counts}, last "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(vals.items()))
+        + f" (median step {median(step_s) * 1e3:.1f} ms, first "
+        f"{step_s[0] * 1e3:.1f} ms)")
+    return counts, median(step_s)
+
+
+def mono_train_phase(dev):
+    """Phase 15: one e2 epoch through ``train.train``, then train steps of
+    the stl_weight 1 variant and of e4; returns the e2 epoch's clearance
+    launches (the main path's)."""
+    import torch
+    from pstl_tpu_torch import train
+    from pstl_tpu_torch.config import mono_config
+    from pstl_tpu_torch.data.dataset import SceneDataset
+
+    t0 = time.time()
+    cfg = mono_config("e2_vae_mono")
+    ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=TRAIN_SCENES)
+    n_train = ds.split_len("train") // cfg.batch_size
+    n_val = ds.split_len("val") // cfg.batch_size
+    log(f"mono data: {TRAIN_SCENES} synthetic scenes in "
+        f"{time.time() - t0:.1f} s; {n_train} train and {n_val} val batches "
+        f"of {cfg.batch_size} scenes x {cfg.n_randoms}")
+    hist = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.time()
+    train.train(cfg, ds, epochs=1, device=dev, log=log, history=hist)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    counts = read_counts()
+    check_counts(counts, {"min_clearance_fwd": n_train + n_val,
+                          "min_clearance_bwd": n_train}, "e2 epoch")
+    if [m for _, m, _ in hist] != ["train"] * n_train + ["val"] * n_val:
+        raise RuntimeError("e2 epoch: wrong batches")
+    for epi, mode, vals in hist:
+        check_finite(vals, f"e2 epoch {mode}")
+    nb = n_train + n_val
+    log(f"e2 epoch (train.train, bf16): launches={counts}, wall {wall:.2f} "
+        f"s for {nb} batches ({wall / nb * 1e3:.1f} ms a batch)")
+    main_counts = dict(counts)
+    c1, e2_step = step_loop(dev, cfg.with_(stl_weight=1.0), ds,
+                            E2_EXTRA_STEPS, "e2 stl_weight 1 train steps")
+    check_counts(c1, {"min_clearance_fwd": E2_EXTRA_STEPS,
+                      "min_clearance_bwd": E2_EXTRA_STEPS},
+                 "e2 stl_weight 1 train steps")
+    c4, e4_step = step_loop(dev, mono_config("e4_ddpm_mono"), ds, E4_STEPS,
+                            "e4 train steps")
+    check_counts(c4, {"min_clearance_fwd": E4_STEPS}, "e4 train steps")
+    log(f"mono training: median train step e2 {e2_step * 1e3:.1f} ms, e4 "
+        f"{e4_step * 1e3:.1f} ms; phase wall {time.time() - t0:.1f} s")
+    return main_counts
 
 
 def main():
@@ -640,13 +1193,13 @@ def main():
             + " | ".join(ptx))
     log(f"build: {len(LIBS)} libraries in {time.time() - t0:.2f} s")
 
-    max_err, ms, plain_ms = kernel_phase(dev)
+    max_err, ms, plain_ms, k_bound = kernel_phase(dev)
 
     net = Net(bench_config("heavy"))
     convert.load_weights(net, "e7_round5")
     net = net.to(dev).eval()
-    ss_err, ss_ms, ss_plain_ms = superstep_phase(dev, net)
-    fz_err, fz_ms, fz_plain_ms = frozen_phase(dev)
+    ss_err, ss_ms, ss_plain_ms, ss_bound = superstep_phase(dev, net)
+    fz_err, fz_ms, fz_plain_ms, fz_bound = frozen_phase(dev)
 
     net_cpu = Net(bench_config("heavy").with_(compute_dtype="float32"))
     convert.load_weights(net_cpu, "e7_round5")
@@ -658,42 +1211,55 @@ def main():
                     routes=(("1", 1), ("1", 2)))
     log(f"frozen reference: phase wall {time.time() - t1:.1f} s")
 
-    launches, _, _, _, step_med = route_phase(dev, net, "2", STEPS)
-    f2_launches, f2_err, f2_ms, f2_plain_ms, _ = route_phase(
+    launches, _, _, _, _, step_med = route_phase(dev, net, "2", STEPS)
+    f2_launches, f2_err, f2_ms, f2_plain_ms, f2_bound, _ = route_phase(
         dev, net, "3", FOLD2_STEPS)
     ss_launches, ss_step_med = superstep_loop_phase(dev, net)
-    fz_launches, _, _, _, fz_step_med = route_phase(dev, net, "1", STEPS)
-    f1_launches, f1_err, f1_ms, f1_plain_ms, _ = route_phase(
+    fz_launches, _, _, _, _, fz_step_med = route_phase(dev, net, "1", STEPS)
+    f1_launches, f1_err, f1_ms, f1_plain_ms, f1_bound, _ = route_phase(
         dev, net, "1f", ROUTE_STEPS)
-    ff_launches, ff_err, ff_ms, ff_plain_ms, _ = route_phase(
+    ff_launches, ff_err, ff_ms, ff_plain_ms, ff_bound, _ = route_phase(
         dev, net, "2f", ROUTE_STEPS)
     route_phase(dev, net, "1", ROUTE_STEPS, sel_every=2)
-    _, _, _, _, xla_step_med = route_phase(dev, net, "0", ROUTE_STEPS)
+    _, _, _, _, _, xla_step_med = route_phase(dev, net, "0", ROUTE_STEPS)
     log(f"median closed-loop step, heavy contract: default path "
         f"{step_med * 1e3:.1f} ms, superstep {ss_step_med * 1e3:.1f} ms, "
         f"frozen payloads {fz_step_med * 1e3:.1f} ms, XLA guidance loop "
         f"{xla_step_med * 1e3:.1f} ms")
 
-    fused = {"name": "guidance_fused", "route": "cuda",
-             "source": "pstl_tpu_torch/csrc/guidance_fused.cu"}
-    frozen = {"name": "guidance_frozen", "route": "cuda",
-              "source": "pstl_tpu_torch/csrc/guidance_frozen.cu"}
+    clear = clearance_phase(dev)
+    mono_reference_phase(dev)
+    mono_counts = mono_train_phase(dev)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+        # no single PyTorch call computes any of these functions, so there
+        # is no library time to set beside them
+        return {"name": name, "route": "cuda",
+                "source": "pstl_tpu_torch/csrc/" + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     at = "pstl_tpu/ops/pallas_guidance.py:"
+    pk = "pstl_tpu/ops/pallas_kernels.py:"
+    fused, frozen = "guidance_fused", "guidance_frozen"
     print(json.dumps({"kernels": [
-        dict(fused, replaces=at + "396", launches=launches,
-             max_abs_err=max_err, ms=ms, plain_ms=plain_ms),
-        dict(fused, replaces=at + "495", launches=f2_launches,
-             max_abs_err=f2_err, ms=f2_ms, plain_ms=f2_plain_ms),
-        {"name": "superstep", "route": "cuda",
-         "source": "pstl_tpu_torch/csrc/superstep.cu",
-         "replaces": at + "589", "launches": ss_launches,
-         "max_abs_err": ss_err, "ms": ss_ms, "plain_ms": ss_plain_ms},
-        dict(frozen, replaces=at + "367", launches=fz_launches,
-             max_abs_err=fz_err, ms=fz_ms, plain_ms=fz_plain_ms),
-        dict(frozen, replaces=at + "435", launches=f1_launches,
-             max_abs_err=f1_err, ms=f1_ms, plain_ms=f1_plain_ms),
-        dict(fused, replaces=at + "466", launches=ff_launches,
-             max_abs_err=ff_err, ms=ff_ms, plain_ms=ff_plain_ms)]}),
+        entry(fused, "guidance_fused.cu", at + "396", launches, max_err, ms,
+              plain_ms, k_bound),
+        entry(fused, "guidance_fused.cu", at + "495", f2_launches, f2_err,
+              f2_ms, f2_plain_ms, f2_bound),
+        entry("superstep", "superstep.cu", at + "589", ss_launches, ss_err,
+              ss_ms, ss_plain_ms, ss_bound),
+        entry(frozen, "guidance_frozen.cu", at + "367", fz_launches, fz_err,
+              fz_ms, fz_plain_ms, fz_bound),
+        entry(frozen, "guidance_frozen.cu", at + "435", f1_launches, f1_err,
+              f1_ms, f1_plain_ms, f1_bound),
+        entry(fused, "guidance_fused.cu", at + "466", ff_launches, ff_err,
+              ff_ms, ff_plain_ms, ff_bound),
+        entry("min_clearance_fwd", "min_clearance.cu", pk + "167",
+              mono_counts["min_clearance_fwd"], *clear["fwd"]),
+        entry("min_clearance_bwd", "min_clearance.cu", pk + "193",
+              mono_counts["min_clearance_bwd"], *clear["bwd"])]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

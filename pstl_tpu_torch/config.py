@@ -283,6 +283,64 @@ class Config:
         return dataclasses.asdict(self)
 
 
+def _p(**kw) -> Config:
+    return Config(**kw).finalize()
+
+
+#: Named presets of the reference README's e0..e8 experiment commands, as
+#: ``pstl_tpu.config.PRESETS`` has them (mirrored field for field).  The
+#: port trains the mono ones (``e2_vae_mono``, ``e4_ddpm_mono``,
+#: ``train.py``); the others name configurations it does not run yet.
+PRESETS = {
+    "e0_cache": _p(exp_name="e0_cache", collect_data=True),
+    "e1_trajopt": _p(exp_name="e1_trajopt", trajopt_only=True),
+    "e2_vae_mono": _p(exp_name="e2_vae_mono", vae=True,
+                      gt_data_training=True, bc_weight=1.0, stl_weight=0.0,
+                      load_stlp=True, flex=True),
+    "e3_vae": _p(exp_name="e3_vae", vae=True, bc_weight=1.0, stl_weight=0.0,
+                 use_init_hint=True, load_tj=True, load_stlp=True,
+                 flex=True),
+    "e4_ddpm_mono": _p(exp_name="e4_ddpm_mono", diffusion=True,
+                       stl_weight=0.0, load_stlp=True,
+                       gt_data_training=True),
+    "e5_ddpm": _p(exp_name="e5_ddpm", diffusion=True, stl_weight=0.0,
+                  load_tj=True, load_stlp=True, flex=True),
+    "e6_trafficsim": _p(exp_name="e6_trafficsim", vae=True, bc_weight=1.0,
+                        stl_weight=1.0, collision_loss=1.0, load_tj=True,
+                        load_stlp=True, flex=True),
+    "e7_ours": _p(exp_name="e7_ours", diffusion=True, stl_weight=0.0,
+                  rect_head=True, diverse_loss=True, multi_cands=5,
+                  load_tj=True, load_stlp=True, flex=True),
+    "e8_stl": _p(exp_name="e8_stl", diffusion=True, stl_weight=1.0,
+                 rect_head=True, diverse_loss=True, diversity_weight=0.0,
+                 multi_cands=5, n_shards=4, load_tj=True, load_stlp=True,
+                 flex=True),
+    "ours_guidance": _p(exp_name="ours_guidance", diffusion=True,
+                        stl_weight=0.0, rect_head=True, diverse_loss=True,
+                        multi_cands=10, guidance=True, guidance_before=10,
+                        guidance_niters=1, guidance_lr=0.01, n_rolls=3,
+                        load_tj=True, load_stlp=True, flex=True),
+    "ours_guidance_sim": _p(exp_name="ours_guidance_sim", diffusion=True,
+                            stl_weight=0.0, rect_head=True,
+                            diverse_loss=True, multi_cands=5, guidance=True,
+                            guidance_before=10, guidance_niters=1,
+                            guidance_lr=0.04, load_tj=True, load_stlp=True,
+                            flex=True, test_scenes=True),
+    "ctg": _p(exp_name="ctg", diffusion=True, stl_weight=0.0, guidance=True,
+              load_tj=True, load_stlp=True, flex=True),
+}
+
+
+def mono_config(preset: str = "e2_vae_mono", **kw) -> Config:
+    """A mono training preset as the port runs it: the clearance kernels on
+    (``use_pallas_clearance``) and no experiment directory (checkpoints and
+    viz are not ported), plus any overrides."""
+    if preset not in ("e2_vae_mono", "e4_ddpm_mono"):
+        raise ValueError(f"{preset!r} is not a mono training preset")
+    return PRESETS[preset].with_(use_pallas_clearance=True, exp_name=None,
+                                 **kw)
+
+
 #: BENCH_GPALLAS values of bench.py
 GPALLAS = ("0", "1", "1f", "2f", "2", "3", "4")
 

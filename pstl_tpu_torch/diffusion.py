@@ -22,6 +22,9 @@ Under ``guidance_pallas_superstep`` the loop is :func:`_reverse_superstep`
 instead: one launch of the superstep kernel (``ops/superstep_kernel.py``:
 eps MLP, posterior, guidance, noise) per denoise step.
 
+For training, :func:`prep` noises controls and :func:`sample` runs the
+unguided row-major pass on the per-scene (mono) rows.
+
 Not ported yet: the DDIM and DPM++ samplers, and guidance on the row-major
 path (``cm_sampler=False`` or the row-major guidance loss).
 """
@@ -72,6 +75,44 @@ def denormalize_controls(x: Tensor, cfg: Config,
         w = torch.clamp(w, -cfg.mul_w_max, cfg.mul_w_max)
         a = torch.clamp(a, -cfg.mul_a_max, cfg.mul_a_max)
     return torch.stack([w, a], dim=-1)
+
+
+def normalize_controls(controls: Tensor, cfg: Config) -> Tensor:
+    """Physical controls -> normalized diffusion space."""
+    return torch.stack([controls[..., 0] / cfg.mul_w_max,
+                        controls[..., 1] / cfg.mul_a_max], dim=-1)
+
+
+def prep(dense_controls: Tensor, cfg: Config, coeffs: Coeffs,
+         n_randoms: Optional[int] = None, mono: bool = False,
+         noise: Optional[Tensor] = None, t: Optional[Tensor] = None,
+         generator: Optional[torch.Generator] = None):
+    """Forward noising for training (``pstl_tpu/diffusion.py:prep``).
+
+    dense_controls: (bs, M, 3, nt, 2) physical controls, or (bs, nt, 2) GT
+    controls when ``mono`` (each repeated n_randoms times).  ``noise``
+    (n, nt*2) and ``t`` (n,) integer steps in [1, diffusion_steps) are the
+    draws; those not given come from ``generator`` on the controls' device.
+    Returns (noise (n, nt*2), t (n, 1), x_t (n, nt*2))."""
+    if n_randoms is None:
+        n_randoms = cfg.n_randoms
+    if mono:
+        n = dense_controls.shape[0] * n_randoms
+        cmd = torch.repeat_interleave(dense_controls, n_randoms, 0)
+    else:
+        n = dense_controls.shape[0] * n_randoms * 3
+        cmd = dense_controls
+    cmd = normalize_controls(cmd.reshape(n, cfg.nt, 2),
+                             cfg).reshape(n, cfg.nt * 2)
+    dev = dense_controls.device
+    if noise is None:
+        noise = torch.randn((n, cfg.nt * 2), generator=generator, device=dev)
+    if t is None:
+        t = torch.randint(1, cfg.diffusion_steps, (n,), generator=generator,
+                          device=dev)
+    sa = torch.sqrt(coeffs.alpha_hat[t])[:, None]
+    sb = torch.sqrt(1 - coeffs.alpha_hat[t])[:, None]
+    return noise, t[:, None], sa * cmd + sb * noise
 
 
 def _trigger_schedule(cfg: Config) -> np.ndarray:
@@ -241,6 +282,33 @@ def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
             hist.append(x)
     conv = fused_loss._from_cand_minor if use_guidance else (lambda v: v)
     return _decodings(x, hist, conv, cfg)
+
+
+def sample(apply_fn: Callable, highlevel: Tensor, cfg: Config,
+           coeffs: Coeffs, n: int, mono: bool = False,
+           tmp_stlp: Optional[Tensor] = None,
+           noise: Optional[Tensor] = None,
+           generator: Optional[torch.Generator] = None):
+    """The unguided row-major DDPM pass with eps from the network
+    (``pstl_tpu/diffusion.py:sample`` without guidance): ``apply_fn(ext)``
+    is the network's diffusion forward on ext = {timestep (n, 1),
+    highlevel, noise (n, nt*2), stlp [, gt_stlp]}; with ``mono`` the ext
+    carries ``tmp_stlp`` as both ``stlp`` and ``gt_stlp`` (the per-scene
+    pSTL parameters).  ``noise`` / ``generator`` as in
+    :func:`reverse_sample`.  Returns (controls (n, nt, 2), all_steps)."""
+    if not mono:
+        raise NotImplementedError("the port samples the multi-candidate "
+                                  "rows through sim.make_planner")
+    extra = {"stlp": tmp_stlp, "gt_stlp": tmp_stlp}
+    dev = coeffs.beta.device
+
+    def eps_fn(x, t):
+        ext = {"timestep": torch.full((n, 1), float(t), device=dev),
+               "highlevel": highlevel, "noise": x, **extra}
+        return apply_fn(ext).reshape(n, cfg.nt * 2)
+
+    return reverse_sample(None, None, cfg, coeffs, noise=noise,
+                          generator=generator, eps_fn=eps_fn, n=n)
 
 
 def _reverse_superstep(cm_fn: Callable, fused_loss, cfg: Config,

@@ -1,15 +1,20 @@
-"""Policy network (diffusion head + RefineNet) as torch ``nn.Module``s —
-port of ``pstl_tpu/models/net.py``.
+"""Policy network (diffusion and VAE heads + RefineNet) as torch
+``nn.Module``s — port of ``pstl_tpu/models/net.py``.
 
 Dtypes follow the flax model: fp32 parameters, matmuls in the compute dtype
 (``cfg.compute_dtype``, bf16 by default) with the input, weight and bias
 cast to it, ReLU in the compute dtype, fp32 out of every MLP.  The matmul
 and the bias add are separate ops (two roundings in bf16), as in flax's
-``Dense``.  Not ported yet: the VAE and BC heads.
+``Dense``.  The diffusion head runs both its inputs: the multi-candidate
+rows of the planner and the per-scene (``gt_data_training``, "mono") rows
+of training; the VAE head runs the mono rows.  :func:`init_flax_like` draws
+fresh parameters as flax's ``Dense`` does.  Not ported yet: the BC head,
+the VAE's multi-candidate (trajopt) inputs and the init hint.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -92,14 +97,16 @@ class Net(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.vae or cfg.bc or not cfg.diffusion:
+        if cfg.bc or not (cfg.diffusion or cfg.vae):
             raise NotImplementedError(
-                "the torch port has the diffusion head only (VAE and BC "
-                "heads are not ported yet)")
-        if not cfg.multi_check or cfg.use_init_hint:
+                "the torch port has the diffusion and VAE heads only (the "
+                "BC head is not ported yet)")
+        if cfg.vae and not cfg.diffusion and not cfg.gt_data_training:
             raise NotImplementedError(
-                "the single-candidate (gt_data_training) and init-hint "
-                "diffusion inputs are not ported yet")
+                "the VAE head runs on the mono (gt_data_training) inputs "
+                "only; its multi-candidate trajopt inputs are not ported")
+        if cfg.use_init_hint:
+            raise NotImplementedError("the init-hint inputs are not ported")
         self.cfg = cfg
         h = tuple(cfg.hiddens)
         dt = compute_dtype(cfg)
@@ -109,6 +116,8 @@ class Net(nn.Module):
         self.lane_encoder = MLP(cfg.n_segs * self.LANE_DIM, h + (F,), dt)
         feat = 7 * F
         self.policy_net = MLP(feat + cfg.latent_dim, h + (cfg.nt * 2,), dt)
+        if cfg.vae:
+            self.traj_encoder = MLP(cfg.nt * 2, h + (cfg.vae_dim * 2,), dt)
         if cfg.rect_head:
             rect_in = feat + 1 + self.STLP_DIM + cfg.nt * 2
             if cfg.diverse_loss:
@@ -151,25 +160,63 @@ class Net(nn.Module):
                 prev_feature: Optional[Tensor] = None,
                 n_randoms: Optional[int] = None,
                 get_feature: bool = False):
-        """Diffusion forward of the multi-candidate rows: epsilon prediction
-        (n, nt, 2).  ext: timestep (n,1), highlevel (n,1), noise (n, nt*2);
-        the scene feature is tiled to bs * n_randoms * 3 rows and
-        ``stlp_dense`` supplies the pSTL parameters."""
+        """Policy forward (``pstl_tpu.models.net.Net.__call__``).
+
+        Multi-candidate rows (the planner): the scene feature is tiled to
+        bs * n_randoms * 3 rows and ``stlp_dense`` supplies the pSTL
+        parameters; ext: timestep (n, 1), highlevel (n, 1), noise
+        (n, nt*2).  Mono rows (``gt_data_training``): the per-scene feature,
+        ext["highlevel"] (bs, 1) and ext["gt_stlp"] (bs, 6) are tiled to
+        n = bs * n_randoms rows; the diffusion head takes timestep and noise
+        per row, the VAE head gt_controls (bs, nt, 2) and its latent noise
+        (n, vae_dim).  Diffusion returns the epsilon prediction (n, nt, 2)
+        (and the feature with ``get_feature``); the VAE returns tanh-bounded
+        controls and (mean, logstd, std) of its latent.
+        """
         cfg = self.cfg
+        multi = cfg.multi_check
         if n_randoms is None:
             n_randoms = cfg.n_randoms
         if prev_feature is not None:
             feature = prev_feature
         else:
-            feature = torch.repeat_interleave(self.encode(batch),
-                                              n_randoms * 3, 0)
-        time_feat = pos_encoding(ext["timestep"], self.TIME_DIM)
-        pin = torch.cat([feature, ext["noise"], time_feat, ext["highlevel"],
-                         batch["stlp_dense"][:, 0]], -1)
-        raw = self.policy_net(pin) + ext["noise"]
-        controls = raw.reshape(-1, cfg.nt, 2)
+            feature = self.encode(batch)
+            if multi:
+                feature = torch.repeat_interleave(feature, n_randoms * 3, 0)
+        stlp_feat = batch["stlp_dense"][:, 0] if multi else ext["gt_stlp"]
+        tile = lambda v: torch.repeat_interleave(v, n_randoms, 0)
+        latent_stats = (None, None, None)
+        if cfg.diffusion:
+            time_feat = pos_encoding(ext["timestep"], self.TIME_DIM)
+            if multi:
+                pin = torch.cat([feature, ext["noise"], time_feat,
+                                 ext["highlevel"], stlp_feat], -1)
+            else:
+                pin = torch.cat([tile(feature), ext["noise"], time_feat,
+                                 tile(ext["highlevel"]), tile(stlp_feat)],
+                                -1)
+        else:
+            code = tile(self.traj_encoder(
+                ext["gt_controls"].reshape(-1, cfg.nt * 2)))
+            mean = code[..., :cfg.vae_dim]
+            logstd = code[..., cfg.vae_dim:]
+            std = torch.exp(logstd)
+            latent = ext["noise"] * std + mean
+            latent_stats = (mean, logstd, std)
+            pin = torch.cat([tile(feature), latent, tile(ext["highlevel"]),
+                             tile(stlp_feat)], -1)
+        raw = self.policy_net(pin)
+        if cfg.diffusion:
+            controls = (raw + ext["noise"]).reshape(-1, cfg.nt, 2)
+        else:
+            raw = raw.reshape(-1, cfg.nt, 2)
+            controls = torch.stack(
+                [torch.tanh(raw[..., 0]) * cfg.mul_w_max,
+                 torch.tanh(raw[..., 1]) * cfg.mul_a_max], dim=-1)
         if get_feature:
             return controls, feature
+        if cfg.vae:
+            return controls, latent_stats
         return controls
 
     # ------------------------------------------------------------------
@@ -229,6 +276,27 @@ class Net(nn.Module):
 
 
 # ----------------------------------------------------------------------
+#: flax's lecun_normal: a normal truncated to [-2, 2] has this standard
+#: deviation, and the draw is divided by it
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_flax_like(net: nn.Module, generator: torch.Generator) -> None:
+    """Draw every ``Linear`` as flax's default ``Dense`` initializes it:
+    lecun-normal weights (a normal truncated to two standard deviations,
+    scaled to variance 1/fan_in) and zero biases, from ``generator``, in
+    module order.  (PyTorch's default ``Linear`` init is a different
+    distribution.)"""
+    for m in net.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+            m.weight.mul_(std)
+            nn.init.zeros_(m.bias)
+
+
 def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
                    feature: Tensor, cfg: Config,
                    n_randoms: Optional[int] = None):

@@ -5,7 +5,9 @@ minimum clearance of candidate rollouts against a scene's neighbor discs.
 The JAX package selects polyline segments with a one-hot einsum because
 TPU gathers are slow; here it is an argmin plus ``gather``.  The custom VJP
 of ``min_clearance_tiled`` is not ported: autograd through the forward
-below is used instead (it differs only in how exact ties split).
+below is used instead (it differs only in how exact ties split).  The fused
+kernel that replaces ``min_neighbor_distance`` under
+``cfg.use_pallas_clearance`` is ``ops/clearance_kernel.py``.
 """
 
 from __future__ import annotations
@@ -89,9 +91,10 @@ def anchor_points(x: Tensor, y: Tensor, th: Tensor, L: Tensor, W: Tensor,
 
 
 def car_clearance(xyth_a: Tensor, L_a, W_a, xyth_b: Tensor, L_b, W_b,
-                  num_L: int = 4, num_W: int = 1) -> Tensor:
+                  num_L: int = 4, num_W: int = 1, full: bool = False):
     """Min disc-to-disc clearance between two oriented boxes; leading dims
-    of a and b broadcast.  Returns (...,)."""
+    of a and b broadcast.  Returns (...,); with ``full`` also the min
+    centre distance and the radius sum."""
     ones = torch.ones_like(xyth_a[..., 0])
     xys1, r1 = anchor_points(xyth_a[..., 0], xyth_a[..., 1], xyth_a[..., 2],
                              L_a * ones, W_a * ones, num_L, num_W)
@@ -100,7 +103,32 @@ def car_clearance(xyth_a: Tensor, L_a, W_a, xyth_b: Tensor, L_b, W_b,
                              L_b * onesb, W_b * onesb, num_L, num_W)
     diff = xys1[..., :, None, :] - xys2[..., None, :, :]
     d = torch.linalg.vector_norm(diff, dim=-1)
-    return torch.amin(d, dim=(-2, -1)) - r1 - r2
+    min_dist = torch.amin(d, dim=(-2, -1))
+    if full:
+        return min_dist - r1 - r2, min_dist, r1 + r2
+    return min_dist - r1 - r2
+
+
+def min_neighbor_distance(ego_traj: Tensor, nei_traj: Tensor,
+                          nei_valid: Tensor, ego_L: float, ego_W: float,
+                          num_L: int = 4, num_W: int = 1,
+                          full: bool = False):
+    """Masked min clearance to any neighbor per timestep: clearance clipped
+    to [-5, 20], invalid neighbors 100, min over K.  ego_traj (n, T, >=3);
+    nei_traj (n, K, T, >=6) rows (x, y, th, ..., L, W); nei_valid (n, K, T).
+    Returns (n, T); with ``full`` also the masked min centre distance and
+    the radius sums (n, K, T)."""
+    res = car_clearance(ego_traj[..., None, :, :3], ego_L, ego_W,
+                        nei_traj[..., :3], nei_traj[..., -2],
+                        nei_traj[..., -1], num_L, num_W, full=full)
+    car_dist = res[0] if full else res
+    masked = (torch.clamp(car_dist, -5.0, 20.0) * nei_valid
+              + (1 - nei_valid) * 100.0)
+    min_d = torch.amin(masked, dim=-2)
+    if full:
+        return (min_d, res[1] * nei_valid + (1 - nei_valid) * 100.0,
+                res[2])
+    return min_d
 
 
 class NeighborDiscs(NamedTuple):

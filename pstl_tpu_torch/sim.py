@@ -219,12 +219,14 @@ def check_supported(cfg: Config) -> None:
     if cfg.refinement or cfg.raw_refinement:
         raise NotImplementedError("refinement (refine.py) is not ported")
     if cfg.vae or cfg.bc or not cfg.diffusion:
-        raise NotImplementedError("only the diffusion planner is ported")
-    # use_pallas_clearance (BENCH_PALLAS=1) is accepted and changes nothing:
-    # pstl_tpu reaches its min-clearance kernels only from
-    # specs.prep_signals on signals without hoisted neighbor discs
-    # (pstl_tpu/specs.py:76-88), and the planner's signals always carry
-    # them (dense_signal_input(dense, cfg=cfg), specs.py:687-691)
+        raise NotImplementedError(
+            "the planner runs the diffusion head only (the VAE head is "
+            "ported for mono training, the BC head not at all)")
+    # use_pallas_clearance (BENCH_PALLAS=1) is accepted and changes nothing
+    # here: the planner scores through TiledScorer (min_clearance_tiled on
+    # per-scene discs) and never calls specs.prep_signals, the only caller
+    # of the clearance kernels (ops/clearance_kernel.py), which the mono
+    # training step reaches (train.py)
     if cfg.use_init_hint:
         raise NotImplementedError("use_init_hint needs the hint draws, "
                                   "which are not ported")

@@ -1,21 +1,25 @@
-"""Driving pSTL scoring for the planner (port of the tiled-scorer slice of
-``pstl_tpu/specs.py``): dense batching with a given ``stlp_dense``, the
-``TiledScorer`` robustness of (bs x n_randoms x 3) candidate rows, and the
-masked mean.
+"""Driving pSTL specifications (port of ``pstl_tpu/specs.py``): for the
+planner, dense batching with a given ``stlp_dense`` and the ``TiledScorer``
+robustness of (bs x n_randoms x 3) candidate rows; for the mono training
+step, the signal cache ``prep_signals`` (whose neighbor clearance runs the
+clearance kernels under ``cfg.use_pallas_clearance``), the fused
+``ClauseBank`` scorer, ``compute_scores`` and the pSTL calibration
+``calibrate_stlp``.
 
 The 6-dim pSTL parameter vector is
 ``stlp = (v_min, v_max, d_min, d_max, d_safe, th_max)``.  Not ported yet:
-the formula tree and ``ClauseBank``, ``calibrate_stlp`` and the flex
+the formula tree (``build_formulas``), ``dense_signal_input`` and the flex
 ``get_dense_stlp`` draws (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.ops import clearance_kernel
 from pstl_tpu_torch.ops import geometry as geom
 from pstl_tpu_torch.ops import stl
 from pstl_tpu_torch.ops.guidance_loss import (  # noqa: F401
@@ -23,6 +27,232 @@ from pstl_tpu_torch.ops.guidance_loss import (  # noqa: F401
     CandMinorGuidanceLoss, make_guidance_loss, mask_mean)
 
 Tensor = torch.Tensor
+
+# high-level maneuver labels
+HL_KEEP, HL_LEFT, HL_RIGHT, HL_OUTLIER = 0, 1, 2, 3
+
+
+# ---------------------------------------------------------------------------
+# signal cache
+# ---------------------------------------------------------------------------
+
+def prep_signals(x: Dict[str, Tensor], cfg: Config,
+                 with_collision: bool = False) -> Dict[str, Tensor]:
+    """Lane-distance / neighbor-clearance signals the formulas read.
+
+    ``x``: ego_traj (n, T, >=4) rollout states; neighbors (n, K, T, 7)
+    tracks (valid, x, y, th, v, L, W); {curr,left,right}lane_wpts
+    (n, n_segs, 3); stlp (n, 1, 6) or (n, T, 6); optionally nei_discs.
+    Adds x2{curr,left,right}_d / _th (n, T), min_nei_d (n, T)
+    [, min_centroid_d, radius_sum] and the norm_stl factors.  The neighbor
+    clearance takes one of three routes, as in the JAX package: hoisted
+    discs (``geometry.min_clearance_tiled``), the clearance kernels under
+    ``cfg.use_pallas_clearance`` (``ops/clearance_kernel.py``), or
+    ``geometry.min_neighbor_distance``.
+    """
+    out = dict(x)
+    pts = x["ego_traj"][..., 0:3]
+    for key in ("curr", "left", "right"):
+        d, th = geom.point_to_polyline(pts, x[f"{key}lane_wpts"],
+                                       clip=cfg.clip_dist, with_angle=True,
+                                       inline=cfg.inline)
+        out[f"x2{key}_d"] = d
+        out[f"x2{key}_th"] = th
+
+    nei = x["neighbors"]
+    need_full = with_collision or cfg.collision_loss is not None
+    if "nei_discs" in x and not need_full and cfg.refined_nW == 1:
+        out["min_nei_d"] = geom.min_clearance_tiled(
+            x["ego_traj"][:, None, :, 0:3], x["nei_discs"], cfg.ego_L,
+            cfg.ego_W, cfg.refined_nL)[:, 0]
+    elif cfg.use_pallas_clearance and not need_full and cfg.refined_nW == 1:
+        out["min_nei_d"] = clearance_kernel.min_neighbor_distance_fused(
+            x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],
+            ego_L=cfg.ego_L, ego_W=cfg.ego_W, num_L=cfg.refined_nL)
+    else:
+        res = geom.min_neighbor_distance(
+            x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],
+            ego_L=cfg.ego_L, ego_W=cfg.ego_W, num_L=cfg.refined_nL,
+            num_W=cfg.refined_nW, full=need_full)
+        if need_full:
+            out["min_nei_d"], out["min_centroid_d"], out["radius_sum"] = res
+        else:
+            out["min_nei_d"] = res
+
+    if cfg.norm_stl and "v_factor" not in x:
+        stlp = x["stlp"]
+        out["v_factor"] = torch.clamp(stlp[..., I_VMAX] - stlp[..., I_VMIN],
+                                      min=0.3)
+        out["d_factor"] = torch.clamp(
+            (stlp[..., I_DMAX] - stlp[..., I_DMIN]) * 5, min=0.3)
+        out["safe_factor"] = torch.clamp(stlp[..., I_DSAFE], min=0.3)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fused clause-bank scorer
+# ---------------------------------------------------------------------------
+
+class ClauseBank:
+    """Robustness at t = 0 of the three maneuver formulas [keep,
+    left-change, right-change]: each of the 10 distinct clauses is computed
+    once, Always(0, nt) as one soft-min over the horizon and
+    Eventually(0, nt//2, Always(0, nt, .)) through one reverse
+    ``logcumsumexp``.  See ``pstl_tpu.specs.ClauseBank``."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.dtype = torch.bfloat16 if cfg.robustness_dtype == "bfloat16" \
+            else torch.float32
+
+    def _alw0(self, g: Tensor, tau: float, hard: bool) -> Tensor:
+        return stl.soft_min(g, tau, dim=-1, hard=hard, dtype=self.dtype)
+
+    def _ev_alw0(self, g: Tensor, tau: float, hard: bool) -> Tensor:
+        nt2 = self.cfg.nt // 2
+        g = g.to(self.dtype)
+        if hard:
+            suffix = stl.cumulative(torch.minimum, g, dim=-1, reverse=True)
+            return torch.amax(suffix[..., :nt2], dim=-1)
+        suffix = -stl.logcumsumexp(-g * tau, dim=-1, reverse=True) / tau
+        return stl.soft_max(suffix[..., :nt2], tau, dim=-1, dtype=self.dtype)
+
+    def _clauses(self, x, tau, hard):
+        cfg = self.cfg
+        v = x["ego_traj"][..., 3]
+        stlp = x["stlp"]
+        P = lambda i: stlp[..., i]
+        if cfg.norm_stl:
+            vf, df, sf = x["v_factor"], x["d_factor"], x["safe_factor"]
+        else:
+            vf = df = sf = 1.0
+        pair = lambda a, b: stl.soft_min(torch.stack([a, b], -1), tau,
+                                         dim=-1, hard=hard, dtype=self.dtype)
+        out = [
+            self._alw0((v - P(I_VMIN)) / vf, tau, hard),
+            self._alw0((-v + P(I_VMAX)) / vf, tau, hard),
+            self._alw0((x["x2curr_d"] - P(I_DMIN)) / df, tau, hard),
+            self._alw0((-x["x2curr_d"] + P(I_DMAX)) / df, tau, hard),
+            self._alw0((P(I_THMAX) - x["x2curr_th"]) / P(I_THMAX), tau,
+                       hard),
+            self._alw0((x["min_nei_d"] - P(I_DSAFE)) / sf, tau, hard),
+        ]
+        for side in ("left", "right"):
+            d = x[f"x2{side}_d"]
+            g_d = pair((d - P(I_DMIN)) / df, (-d + P(I_DMAX)) / df)
+            out.append(self._ev_alw0(g_d, tau, hard))
+            g_th = (P(I_THMAX) - x[f"x2{side}_th"]) / P(I_THMAX)
+            out.append(self._ev_alw0(g_th, tau, hard))
+        return out
+
+    def scores(self, x: Dict[str, Tensor], tau: float,
+               hard: bool = False) -> List[Tensor]:
+        (alw_vmin, alw_vmax, alw_dmin, alw_dmax, alw_th, alw_safe,
+         left_d, left_th, right_d, right_th) = self._clauses(x, tau, hard)
+
+        def conj(parts):
+            return stl.soft_min(torch.stack(parts, dim=-1), tau, dim=-1,
+                                hard=hard, dtype=self.dtype)
+
+        return [conj([alw_vmin, alw_vmax, alw_dmin, alw_dmax, alw_th,
+                      alw_safe]),
+                conj([alw_vmin, alw_vmax, left_d, left_th, alw_safe]),
+                conj([alw_vmin, alw_vmax, right_d, right_th, alw_safe])]
+
+
+def build_scorer(cfg: Config) -> ClauseBank:
+    """The production robustness scorer (fused clause bank)."""
+    return ClauseBank(cfg)
+
+
+def select_scores(scores_list: Sequence[Tensor], stl_idx: Tensor) -> Tensor:
+    """Per-row formula selection; the outlier class 3 selects the last
+    entry (+1 in ``compute_scores``)."""
+    out = torch.zeros_like(scores_list[0])
+    for i, s in enumerate(scores_list):
+        out = out + s * (stl_idx == i)
+    return out
+
+
+def compute_scores(signals: Dict[str, Tensor], formulas: ClauseBank,
+                   stl_idx: Tensor, mask: Tensor, cfg: Config,
+                   tau: Optional[float] = None, hard: bool = False):
+    """Evaluate the three formulas, select per row (label 3: +1), masked
+    accuracy.  ``signals`` are prepared here when the lane distances are
+    missing.  stl_idx (n,) or (n, 1); mask (n,).  Returns (scores_list,
+    scores (n,), acc).  (The JAX function's ``scene`` / ``oracle_filter``
+    options are not ported.)"""
+    if not isinstance(formulas, ClauseBank):
+        raise NotImplementedError("the formula tree (build_formulas) is not "
+                                  "ported; score with build_scorer(cfg)")
+    if tau is None:
+        tau = cfg.smoothing_factor
+    if "x2curr_d" not in signals:
+        signals = prep_signals(signals, cfg)
+    scores_list = formulas.scores(signals, tau, hard)
+    scores_list = scores_list + [scores_list[-1].detach() * 0.0 + 1.0]
+    scores = select_scores(scores_list, stl_idx.reshape(-1))
+    acc = mask_mean((scores > 0).to(scores.dtype), mask.reshape(-1))
+    return scores_list, scores, acc
+
+
+# ---------------------------------------------------------------------------
+# STL parameter calibration
+# ---------------------------------------------------------------------------
+
+def calibrate_stlp(batch: Dict[str, Tensor], gt_trajs: Tensor,
+                   cfg: Config) -> Tensor:
+    """Per-scene ground-truth pSTL parameters from the GT trajectory
+    (``pstl_tpu.specs.calibrate_stlp``).  batch: neighbor_trajs_aug
+    (n, K, T, 7), {curr,left,right}lane_wpts, gt_high_level (n, 1);
+    gt_trajs (n, T, >=4).  Returns stlp (n, 6)."""
+    DEFAULT_DMIN, DEFAULT_DMAX, DEFAULT_TH = -5.0, 5.0, 0.5
+    nt = cfg.nt
+    gt_vmin = torch.amin(gt_trajs[..., 3], dim=-1)
+    gt_vmax = torch.amax(gt_trajs[..., 3], dim=-1)
+    nei = batch["neighbor_trajs_aug"]
+    nei_dist = geom.min_neighbor_distance(
+        gt_trajs[..., 0:4], nei[..., 1:7], nei[..., 0], ego_L=cfg.ego_L,
+        ego_W=cfg.ego_W, num_L=cfg.refined_nL, num_W=cfg.refined_nW)
+    gt_d_safe = torch.amin(nei_dist, dim=-1)
+
+    dists, angles = {}, {}
+    for key in ("curr", "left", "right"):
+        dists[key], angles[key] = geom.point_to_polyline(
+            gt_trajs[..., 0:3], batch[f"{key}lane_wpts"],
+            clip=cfg.clip_dist, inline=cfg.inline, with_angle=True)
+    hl = batch["gt_high_level"][:, 0]
+    half = nt // 2 - 1
+    dmin = {"curr": torch.amin(dists["curr"], -1),
+            "left": torch.amin(dists["left"][:, half:], -1),
+            "right": torch.amin(dists["right"][:, half:], -1)}
+    dmax = {"curr": torch.amax(dists["curr"], -1),
+            "left": torch.amax(dists["left"][:, half:], -1),
+            "right": torch.amax(dists["right"][:, half:], -1)}
+    thm = {"curr": torch.amax(angles["curr"], -1),
+           "left": torch.amax(angles["left"][:, half:], -1),
+           "right": torch.amax(angles["right"][:, half:], -1)}
+
+    def pick(d, default):
+        return (d["curr"] * (hl == 0) + d["left"] * (hl == 1)
+                + d["right"] * (hl == 2) + default * (hl == 3))
+
+    gt_dmin = pick(dmin, DEFAULT_DMIN)
+    gt_dmax = pick(dmax, DEFAULT_DMAX)
+    gt_th_max = pick(thm, DEFAULT_TH)
+    if cfg.flex:
+        return torch.stack([torch.clamp(gt_vmin - 1, min=-0.3), gt_vmax + 1,
+                            gt_dmin - 0.3, gt_dmax + 0.3,
+                            torch.clamp(gt_d_safe - 0.1, min=0),
+                            gt_th_max + 0.1], dim=-1)
+    return torch.stack([gt_vmin - 0.1, gt_vmax + 0.1, gt_dmin - 0.1,
+                        gt_dmax + 0.1, gt_d_safe - 0.1, gt_th_max + 0.05],
+                       dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# dense batching and the tiled scorer (the planner's path)
+# ---------------------------------------------------------------------------
 
 
 def dup(x: Tensor, m: int) -> Tensor:
@@ -162,6 +392,6 @@ def make_score_rows(batch: Dict[str, Tensor], dense: Dict[str, Tensor],
     ``score_rows(ego_states (N, T, >=4)) -> (N,)``."""
     if not cfg.tiled_scorer:
         raise NotImplementedError(
-            "tiled_scorer=False scores through ClauseBank, which the torch "
-            "port does not have yet")
+            "tiled_scorer=False (the ClauseBank over pre-tiled dense "
+            "signals, dense_signal_input) is not ported")
     return TiledScorer(batch, dense["stlp_dense"], cfg, n_randoms)

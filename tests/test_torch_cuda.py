@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (the fused and frozen-payload
-guidance kernels and the superstep kernel), against their plain PyTorch
-versions on identical inputs.  Marked ``cuda``: skipped where
-``torch.cuda.is_available()`` is false (a CUDA kernel has no CPU mode).
+guidance kernels, the superstep kernel and the clearance kernel pair),
+against their plain PyTorch versions on identical inputs.  Marked
+``cuda``: skipped where ``torch.cuda.is_available()`` is false (a CUDA
+kernel has no CPU mode).
 This file imports no jax, so it also runs on a host without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -11,7 +12,11 @@ all but a 1e-3 share of elements, all within the 2*beta_t trust region
 (the kernel's hand-written gradient and the plain version's autograd
 differ in fp32 rounding, which bf16 cumsum rounding can turn into one bf16
 step).  Unguided superstep: SS_RTOL / SS_ATOL elementwise (MLP sums in
-another order, a bf16 activation rounding the other way).
+another order, a bf16 activation rounding the other way).  Clearance:
+forward rtol / atol 1e-4 for every element, VJP rtol 1e-3 / atol 1e-4
+(the JAX package's kernel-vs-XLA tolerances) for every element but, up to
+chip_smoke's share, those the plain version routes by a near-tie
+(``chip_smoke.clearance_near_ties``).
 """
 
 import pytest
@@ -22,6 +27,7 @@ from pstl_tpu_torch import diffusion
 from pstl_tpu_torch.config import bench_config
 from pstl_tpu_torch.models.net import Net
 from pstl_tpu_torch.ops import _build
+from pstl_tpu_torch.ops import clearance_kernel as ck
 from pstl_tpu_torch.ops import guidance_kernel as gk
 from pstl_tpu_torch.ops import superstep_kernel as sk
 
@@ -78,11 +84,14 @@ def test_kernel_rejects_bad_operands(dev):
 
 def test_build_three_libraries(dev):
     """chip_smoke's libraries build together (one nvcc each) and load, each
-    exporting its C entry."""
+    exporting its C entries."""
+    entries = {"min_clearance": ("pstl_min_clearance_fwd",
+                                 "pstl_min_clearance_bwd")}
     libs = _build.load_all(chip_smoke.LIBS)
     assert sorted(libs) == sorted(chip_smoke.LIBS)
     for name, lib in libs.items():
-        assert hasattr(lib, f"pstl_{name}")
+        for entry in entries.get(name, (f"pstl_{name}",)):
+            assert hasattr(lib, entry)
         assert "registers" in _build.BUILD_INFO[name]["report"]
 
 
@@ -188,3 +197,52 @@ def test_superstep_wrapper_launches_on_cuda(dev):
                          False)
     finally:
         sk.superstep_plain = real
+
+
+@pytest.mark.parametrize("n,clip_region", [(1000, False), (333, True)],
+                         ids=["random", "clip_region"])
+def test_clearance_kernels_match_plain(dev, n, clip_region):
+    ego, nei = chip_smoke.clearance_random_inputs(n, 8, 20, seed=n,
+                                                 clip_region=clip_region)
+    ego, nei = ego.to(dev), nei.to(dev)
+    g = torch.randn((n, 20), generator=torch.Generator().manual_seed(1)).to(
+        dev)
+    L, W = chip_smoke.EGO_L, chip_smoke.EGO_W
+    before = (ck.fwd_launches, ck.bwd_launches)
+    out = ck.min_clearance_fwd(ego, nei, L, W, 4)
+    d = ck.min_clearance_bwd(ego, nei, g, L, W, 4)
+    torch.cuda.synchronize()
+    assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    chip_smoke.clearance_check(
+        "forward", out, ck.min_clearance_fwd_plain(ego, nei, L, W, 4),
+        chip_smoke.CLEAR_FWD_RTOL)
+    chip_smoke.clearance_check(
+        "backward", d, ck.min_clearance_bwd_plain(ego, nei, g, L, W, 4),
+        chip_smoke.CLEAR_BWD_RTOL, chip_smoke.clearance_near_ties(
+            ego, nei, L, W, 4, chip_smoke.CLEAR_TIE_M))
+
+
+def test_clearance_autograd_launches_both(dev):
+    """MinClearance on CUDA tensors: the forward kernel, then the backward
+    kernel as its VJP; no gradient to the neighbors; bad operands raise
+    without a launch."""
+    ego, nei = chip_smoke.clearance_random_inputs(64, 8, 20, seed=3,
+                                                 clip_region=True)
+    e = ego.to(dev).requires_grad_(True)
+    nt = nei.to(dev)
+    before = (ck.fwd_launches, ck.bwd_launches)
+    ck.min_clearance(e, nt, 4.084, 1.73, 4).sum().backward()
+    torch.cuda.synchronize()
+    assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = ck.min_clearance_bwd_plain(ego.to(dev), nt,
+                                     torch.ones(64, 20, device=dev),
+                                     4.084, 1.73, 4)
+    assert float((e.grad - ref).abs().max()) <= 1e-3
+    for bad in (nt.cpu(), nt.double(), nt[:, :, :-1].contiguous(),
+                nt.transpose(1, 2)):
+        with pytest.raises((ValueError, TypeError)):
+            ck.min_clearance_fwd(ego.to(dev), bad, 4.084, 1.73, 4)
+    assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)

@@ -54,6 +54,9 @@ def test_package_import_loads_no_jax():
     """Importing the port (its entry modules) loads no jax, even
     indirectly."""
     code = ("import pstl_tpu_torch, pstl_tpu_torch.sim, "
+            "pstl_tpu_torch.train, pstl_tpu_torch.losses, "
+            "pstl_tpu_torch.data.dataset, "
+            "pstl_tpu_torch.ops.clearance_kernel, "
             "pstl_tpu_torch.models.convert; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
