@@ -20,6 +20,34 @@
 // Its torch transcription is tested against autograd on the CPU
 // (tests/test_torch_guidance.py, tests/test_torch_frozen_kernel.py).
 //
+// What bounds it on the H100 and what the design does about it.  A column's
+// update is tiny (about 50 k fp32 operations, a few hundred bytes), and a
+// launch has only bs*R columns (3072 on the main path), so neither bytes
+// nor operations bound it: the latency of one column's dependent chain of
+// sqrtf / expf / logf / cosf / sinf does.  So a column is spread over a
+// WARP, lane = time step (T <= 32): every per-step quantity (state,
+// distances, clause terms, gradients, Adam moments) is one scalar in a
+// register of its lane, and no array is indexed by a run-time t.  What
+// crosses time steps is a warp shuffle:
+//   - the four exclusive prefix sums of the rollout and the four exclusive
+//     suffix sums of its backward are Hillis-Steele scans (excl_prefix,
+//     excl_suffix);
+//   - the (max, sum) statistics of each Always clause are butterfly
+//     reductions (lse_stats), which leave the same bits in every lane;
+//   - the suffix logaddexp of Eventually-Always is the doubling scan the
+//     Pallas kernel uses (`_ev_alw`: doubling steps, -1e30 beyond T),
+//     and its backward, the recurrence B_u = a_u B_{u-1} + q_u, is a scan
+//     of the affine maps (a_u, q_u) (all a_u in [0, 1], all q_u >= 0: no
+//     cancellation);
+//   - the softmin over the 5-6 clause rows is computed by every lane alike.
+// The K loop (argmin over neighbors) and the S-1 segment search stay serial
+// inside a lane, so the tie rules below hold as before.  The frozen
+// selection of a lane is one segment index and K disc pairs packed into
+// two 64-bit words of 4-bit fields (nLe, nLn <= 8 < 16, K <= 16).  Lanes
+// t >= T run the same code on step T-1's constants and feed identities into
+// every scan and reduction (0 to a sum, -inf to a max, -1e30 to the
+// logaddexp scan); all 32 lanes reach every shuffle.
+//
 // Semantics shared with the Pallas kernels: argmins take the earliest index
 // (strict <); lanes in s order; exact pairs e outer, nn inner; coarse pairs
 // the ego disc nearest the neighbor's disc centroid, then the neighbor disc
@@ -28,7 +56,16 @@
 // to bf16, as jax.grad of the Pallas kernel's bf16 cumsum does.  Gradient
 // ties: the min over neighbors routes its whole gradient to the earliest
 // minimal k (jnp.minimum splits exact ties 0.5/0.5); clips follow jnp.clip
-// (0.5 at a boundary).  Both differ only on measure-zero ties.
+// (0.5 at a boundary).  Both differ only on measure-zero ties.  A divisor
+// that is the same for the whole column and used more than once (tau, the
+// norm factors, P5, a softmin's sum, Adam's bias corrections) is inverted
+// once, by an IEEE division, and multiplied: within an ulp of the quotient,
+// and about a fifth of the kernel's time less.  sqrtf, expf, logf, cosf,
+// sinf and every other division are the accurate ones (no fast-math flag:
+// tests/torch_guidance_twin.py has the same forms on the CPU).  The scans
+// sum in another order than a serial loop: with BF16 the summands have 8
+// significant bits and the fp32 sums are almost always exact; without it a
+// sum can differ by an ulp.
 
 #pragma once
 
@@ -36,17 +73,17 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
-#define MAXT 32
-#define MAXK 16
+#define MAXT 32   // a column's horizon fits a warp
+#define MAXK 16   // 4-bit fields of a 64-bit word
 #define MAXNL 8
 #define MAXS 64
-#define BLOCK 32  // candidate columns per block, one per guidance thread
+#define FULL_MASK 0xffffffffu
 
 enum { F_INLINE = 1, F_CLIP = 2, F_QUIRK = 4, F_COARSE = 8, F_BF16 = 16 };
 
 struct Params {
   int bs, T, R, M, S, K, nLe, nLn, nt2, niters, flags;
-  float tau, dt, mul_w, mul_a, lr;
+  float tau, rtau, dt, mul_w, mul_a, lr;  // rtau = 1 / tau
   float axe[MAXNL];
 };
 
@@ -71,14 +108,56 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   return amax + log1pf(expf(-fabsf(a - b)));
 }
 
-// log-sum-exp of x[0..n-1] as (m, S): value m + log(S), weights
-// exp(x_i - m) / S
-__device__ __forceinline__ void lse_stats(const float* x, int n, float& m,
-                                          float& S) {
-  m = x[0];
-  for (int i = 1; i < n; ++i) m = fmaxf(m, x[i]);
-  S = 0.f;
-  for (int i = 0; i < n; ++i) S += expf(x[i] - m);
+// ---- what crosses time steps: warp scans and reductions ----------------
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, d));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL_MASK, v, d);
+  return v;
+}
+
+// The scans below always take the five doubling steps of a full warp, so
+// they unroll into straight-line code and the independent ones of a pass
+// (the four of the rollout, the four of its backward, the two of the
+// Eventually-Always pair) interleave; beyond T a step only adds identities.
+
+// sum of v over the lanes below this one; lanes t >= T hold 0
+__device__ __forceinline__ float excl_prefix(float v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float n = __shfl_up_sync(FULL_MASK, v, d);
+    if (lane >= d) v += n;
+  }
+  const float e = __shfl_up_sync(FULL_MASK, v, 1);
+  return lane > 0 ? e : 0.f;
+}
+
+// sum of v over the lanes above this one; lanes t >= T hold 0
+__device__ __forceinline__ float excl_suffix(float v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float n = __shfl_down_sync(FULL_MASK, v, d);
+    if (lane + d < 32) v += n;
+  }
+  const float e = __shfl_down_sync(FULL_MASK, v, 1);
+  return lane < 31 ? e : 0.f;
+}
+
+// log-sum-exp over the lanes that are `on` of their term z, as (m, S):
+// value m + log(S), this lane's weight e / S with e = exp(z - m) (0 when
+// off).  m and S come out the same in every lane.
+__device__ __forceinline__ void lse_stats(float z, bool on, float& m,
+                                          float& S, float& e) {
+  m = warp_max(on ? z : -INFINITY);
+  e = on ? expf(z - m) : 0.f;
+  S = warp_sum(e);
 }
 
 struct Scene {  // shared-memory views of one scene's constants
@@ -87,96 +166,39 @@ struct Scene {  // shared-memory views of one scene's constants
   const float* ndy;
   const float* crad;   // [K][T]
   const float* cval;
+  const float* axe;    // [MAXNL] ego disc offsets
 };
 
 struct Column {  // one candidate column's per-row constants
-  float P[6], vf, df, sf, valid, th0, v0;
+  float P[6], rvf, rdf, rsf, rP5, valid, th0, v0;  // r* = 1 / (vf, df, sf, P5)
   int j;         // lane / maneuver of the column
   bool keep;     // r < M: lane-keep formula, else lane change
 };
 
-// Euler rollout by prefix sums (state before each step), recentred at 0.
-__device__ void rollout(const float* w, const float* a, const Column& col,
-                        const Params& p, float* x, float* y, float* th,
-                        float* v, float* c, float* s) {
-  const bool bf = p.flags & F_BF16;
-  float sw = 0.f, sa = 0.f, sx = 0.f, sy = 0.f;
-  for (int t = 0; t < p.T; ++t) {
-    th[t] = col.th0 + p.dt * sw;
-    v[t] = col.v0 + p.dt * sa;
-    c[t] = cosf(th[t]);
-    s[t] = sinf(th[t]);
-    x[t] = sx;
-    y[t] = sy;
-    float ww = w[t] * p.mul_w, aa = a[t] * p.mul_a;
-    float dx = v[t] * c[t] * p.dt, dy = v[t] * s[t] * p.dt;
-    if (bf) { ww = rbf(ww); aa = rbf(aa); dx = rbf(dx); dy = rbf(dy); }
-    sw += ww; sa += aa; sx += dx; sy += dy;
-  }
-}
+struct State {  // the rollout at this lane's step (state before the step)
+  float x, y, th, v, c, s;
+};
 
-// Frozen selections at (w, a): lane segment per t, disc pair per (k, t).
-__device__ void freeze(const float* w, const float* a, const Column& col,
-                       const Scene& sc, const Params& p, unsigned char* seg,
-                       unsigned char* pe, unsigned char* pn) {
-  float x[MAXT], y[MAXT], th[MAXT], v[MAXT], c[MAXT], s[MAXT];
-  rollout(w, a, col, p, x, y, th, v, c, s);
-  const float* L = sc.lanes + col.j * p.S * 3;
-  const int T = p.T;
-  for (int t = 0; t < T; ++t) {
-    float best = 1e30f;
-    int bi = 0;
-    float pd_prev = sqrtf(sq(x[t] - L[0]) + sq(y[t] - L[1]));
-    for (int q = 0; q < p.S - 1; ++q) {
-      float pd_next = sqrtf(sq(x[t] - L[(q + 1) * 3])
-                            + sq(y[t] - L[(q + 1) * 3 + 1]));
-      float segc = pd_prev + pd_next;
-      if (segc < best) { best = segc; bi = q; }
-      pd_prev = pd_next;
-    }
-    seg[t] = (unsigned char)bi;
-  }
-  for (int k = 0; k < p.K; ++k) {
-    for (int t = 0; t < T; ++t) {
-      int be = 0, bn = 0;
-      if (p.flags & F_COARSE) {
-        float ncx = sc.ndx[(k * p.nLn) * T + t];
-        float ncy = sc.ndy[(k * p.nLn) * T + t];
-        for (int nn = 1; nn < p.nLn; ++nn) {
-          ncx = ncx + sc.ndx[(k * p.nLn + nn) * T + t];
-          ncy = ncy + sc.ndy[(k * p.nLn + nn) * T + t];
-        }
-        ncx = ncx / (float)p.nLn;
-        ncy = ncy / (float)p.nLn;
-        float beste = 1e30f, exs = 0.f, eys = 0.f;
-        for (int e = 0; e < p.nLe; ++e) {
-          float exd = x[t] + p.axe[e] * c[t];
-          float eyd = y[t] + p.axe[e] * s[t];
-          float de = sq(exd - ncx) + sq(eyd - ncy);
-          if (de < beste) { beste = de; be = e; exs = exd; eys = eyd; }
-        }
-        float best2 = 1e30f;
-        for (int nn = 0; nn < p.nLn; ++nn) {
-          float d2 = sq(exs - sc.ndx[(k * p.nLn + nn) * T + t])
-                     + sq(eys - sc.ndy[(k * p.nLn + nn) * T + t]);
-          if (d2 < best2) { best2 = d2; bn = nn; }
-        }
-      } else {
-        float best2 = 1e30f;
-        for (int e = 0; e < p.nLe; ++e) {
-          float exd = x[t] + p.axe[e] * c[t];
-          float eyd = y[t] + p.axe[e] * s[t];
-          for (int nn = 0; nn < p.nLn; ++nn) {
-            float d2 = sq(exd - sc.ndx[(k * p.nLn + nn) * T + t])
-                       + sq(eyd - sc.ndy[(k * p.nLn + nn) * T + t]);
-            if (d2 < best2) { best2 = d2; be = e; bn = nn; }
-          }
-        }
-      }
-      pe[k * MAXT + t] = (unsigned char)be;
-      pn[k * MAXT + t] = (unsigned char)bn;
-    }
-  }
+// Euler rollout by prefix sums, recentred at 0; `w`, `a` are this lane's
+// controls (0 in lanes t >= T).
+__device__ __forceinline__ State rollout(float w, float a, const Column& col,
+                                         const Params& p, int lane) {
+  const bool bf = p.flags & F_BF16;
+  const bool live = lane < p.T;
+  float ww = w * p.mul_w, aa = a * p.mul_a;
+  if (bf) { ww = rbf(ww); aa = rbf(aa); }
+  if (!live) { ww = 0.f; aa = 0.f; }
+  State st;
+  st.th = col.th0 + p.dt * excl_prefix(ww, lane);
+  st.v = col.v0 + p.dt * excl_prefix(aa, lane);
+  st.c = cosf(st.th);
+  st.s = sinf(st.th);
+  float dx = st.v * st.c * p.dt, dy = st.v * st.s * p.dt;
+  if (bf) { dx = rbf(dx); dy = rbf(dy); }
+  if (!live) { dx = 0.f; dy = 0.f; }
+  st.x = excl_prefix(dx, lane);
+  st.y = excl_prefix(dy, lane);
+  return st;
 }
 
 // The frozen lane segment of one step: its end points, the heading of its
@@ -186,32 +208,96 @@ struct LaneSel {
   bool first, last;
 };
 
-// Selections as indices: the in-kernel freeze's segment per t and disc pair
-// per (k, t), into the scene's lanes and disc centres in shared memory.
+// Selections as indices: the in-kernel freeze's segment of this lane's step
+// and its disc pair per k (4 bits each), into the scene's lanes and disc
+// centres in shared memory.
 struct IdxSel {
-  const float* L;  // the column's lane, [S][3]
+  const float* L;    // the column's lane, [S][3]
   const float* ndx;  // [K][nLn][T]
   const float* ndy;
-  const unsigned char* seg;  // [MAXT]
-  const unsigned char* pe;   // [MAXK * MAXT] ego disc
-  const unsigned char* pn;   // [MAXK * MAXT] neighbor disc
-  __device__ __forceinline__ LaneSel lane(int t, const Params& p) const {
-    const int sg = seg[t];
-    return LaneSel{L[sg * 3], L[sg * 3 + 1], L[sg * 3 + 2], L[(sg + 1) * 3],
-                   L[(sg + 1) * 3 + 1], sg == 0, sg == p.S - 2};
+  const float* axe;  // [MAXNL]
+  int seg;
+  unsigned long long pe, pn;  // ego / neighbor disc of pair k at bits 4k..
+  __device__ __forceinline__ LaneSel lane(int, const Params& p) const {
+    return LaneSel{L[seg * 3], L[seg * 3 + 1], L[seg * 3 + 2],
+                   L[(seg + 1) * 3], L[(seg + 1) * 3 + 1], seg == 0,
+                   seg == p.S - 2};
   }
   __device__ __forceinline__ void disc(int k, int t, const Params& p,
                                        float& ax, float& nx,
                                        float& ny) const {
-    ax = p.axe[pe[k * MAXT + t]];
-    const int ni = (k * p.nLn + pn[k * MAXT + t]) * p.T + t;
+    ax = axe[(int)(pe >> (4 * k)) & 15];
+    const int ni = (k * p.nLn + ((int)(pn >> (4 * k)) & 15)) * p.T + t;
     nx = ndx[ni];
     ny = ndy[ni];
   }
 };
 
+// Frozen selections of this lane's step t at (w, a).
+__device__ __forceinline__ IdxSel freeze(float w, float a, const Column& col,
+                                         const Scene& sc, const Params& p,
+                                         int lane, int t) {
+  const State st = rollout(w, a, col, p, lane);
+  const int T = p.T;
+  IdxSel sel{sc.lanes + col.j * p.S * 3, sc.ndx, sc.ndy, sc.axe, 0, 0ull,
+             0ull};
+  const float* L = sel.L;
+  {
+    float best = 1e30f;
+    int bi = 0;
+    float pd_prev = sqrtf(sq(st.x - L[0]) + sq(st.y - L[1]));
+    for (int q = 0; q < p.S - 1; ++q) {
+      float pd_next = sqrtf(sq(st.x - L[(q + 1) * 3])
+                            + sq(st.y - L[(q + 1) * 3 + 1]));
+      float segc = pd_prev + pd_next;
+      if (segc < best) { best = segc; bi = q; }
+      pd_prev = pd_next;
+    }
+    sel.seg = bi;
+  }
+  for (int k = 0; k < p.K; ++k) {
+    const float* kx = sc.ndx + (k * p.nLn) * T + t;  // disc nn at kx[nn * T]
+    const float* ky = sc.ndy + (k * p.nLn) * T + t;
+    int be = 0, bn = 0;
+    if (p.flags & F_COARSE) {
+      float ncx = kx[0], ncy = ky[0];
+      for (int nn = 1; nn < p.nLn; ++nn) {
+        ncx = ncx + kx[nn * T];
+        ncy = ncy + ky[nn * T];
+      }
+      ncx = ncx / (float)p.nLn;
+      ncy = ncy / (float)p.nLn;
+      float beste = 1e30f, exs = 0.f, eys = 0.f;
+      for (int e = 0; e < p.nLe; ++e) {
+        float exd = st.x + sc.axe[e] * st.c;
+        float eyd = st.y + sc.axe[e] * st.s;
+        float de = sq(exd - ncx) + sq(eyd - ncy);
+        if (de < beste) { beste = de; be = e; exs = exd; eys = eyd; }
+      }
+      float best2 = 1e30f;
+      for (int nn = 0; nn < p.nLn; ++nn) {
+        float d2 = sq(exs - kx[nn * T]) + sq(eys - ky[nn * T]);
+        if (d2 < best2) { best2 = d2; bn = nn; }
+      }
+    } else {
+      float best2 = 1e30f;
+      for (int e = 0; e < p.nLe; ++e) {
+        float exd = st.x + sc.axe[e] * st.c;
+        float eyd = st.y + sc.axe[e] * st.s;
+        for (int nn = 0; nn < p.nLn; ++nn) {
+          float d2 = sq(exd - kx[nn * T]) + sq(eyd - ky[nn * T]);
+          if (d2 < best2) { best2 = d2; be = e; bn = nn; }
+        }
+      }
+    }
+    sel.pe |= (unsigned long long)be << (4 * k);
+    sel.pn |= (unsigned long long)bn << (4 * k);
+  }
+  return sel;
+}
+
 // Selections as frozen payload values of one column (b, r), in device
-// memory with r minor, so a warp's loads of one (t) or (k, t) coalesce.
+// memory with r minor: lane t of the column's warp reads its own step.
 struct PaySel {
   const float* lane_pay[7];  // x2 y2 th2 x3 y3 first last at (b, t=0, r)
   const float* disc_pay[3];  // axe nx ny at (b, k=0, t=0, r)
@@ -232,7 +318,7 @@ struct PaySel {
   }
 };
 
-// Lane-distance pieces at step t against the frozen segment.
+// Lane-distance pieces at one step against the frozen segment.
 struct LaneT {
   float x2, y2, th2, x3, y3, area, bc, normal, l2d, l2d1, d0, sgn;
   float nc, ba, aa, dpre, d;
@@ -272,243 +358,241 @@ __device__ __forceinline__ LaneT lane_terms(float x, float y,
   return o;
 }
 
-// Eventually(0, nt2, Always(0, T, g)) with z = -g*tau: suffix
-// s_t = logaddexp(z_t, s_{t+1}) (serial), value lse(-s[:nt2]) / tau.
-__device__ float ev_alw_fwd(const float* z, int T, int nt2, float tau,
-                            float* suf, float& m2, float& S2) {
-  suf[T - 1] = z[T - 1];
-  for (int t = T - 2; t >= 0; --t) suf[t] = logaddexp(z[t], suf[t + 1]);
-  float tmp[MAXT];
-  for (int t = 0; t < nt2; ++t) tmp[t] = -suf[t];
-  lse_stats(tmp, nt2, m2, S2);
-  return (m2 + logf(S2)) / tau;
+// Eventually(0, nt2, Always(0, T, g)) with z = -g*tau in lane t: the suffix
+// s_t = logaddexp(z_t, s_{t+1}) by a doubling scan (-1e30 is an exact
+// identity of logaddexp in fp32), value lse(-s[:nt2]) * rtau.  Leaves this
+// lane's suffix in `suf` and the statistics of the outer lse in (e2, S2).
+__device__ __forceinline__ float ev_alw_fwd(float z, int lane, int T, int nt2,
+                                            float rtau, float& suf,
+                                            float& e2, float& S2) {
+  float s = lane < T ? z : -1e30f;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    float n = __shfl_down_sync(FULL_MASK, s, k);
+    if (lane + k >= T) n = -1e30f;
+    s = logaddexp(s, n);
+  }
+  suf = s;
+  float m2;
+  lse_stats(-s, lane < nt2, m2, S2, e2);
+  return (m2 + logf(S2)) * rtau;
 }
 
 // d ev / d g_u = sum_{t <= min(u, nt2-1)} q_t exp(z_u - s_t), with
-// q = softmax(-s[:nt2]); accumulated as B_u = B_{u-1} exp(s_u - s_{u-1}) + q_u
-__device__ void ev_alw_bwd(const float* z, const float* suf, int T, int nt2,
-                           float m2, float S2, float gout, float* gg) {
-  float B = 0.f;
-  for (int u = 0; u < T; ++u) {
-    if (u > 0) B *= expf(suf[u] - suf[u - 1]);
-    if (u < nt2) B += expf(-suf[u] - m2) / S2;
-    gg[u] += gout * expf(z[u] - suf[u]) * B;
+// q = softmax(-s[:nt2]) = e2 / S2.  With B_u = B_{u-1} exp(s_u - s_{u-1})
+// + q_u it is gout exp(z_u - s_u) B_u; the recurrence is an inclusive scan
+// of the affine maps B -> a_u B + q_u.
+__device__ __forceinline__ float ev_alw_bwd(float z, float suf, float e2,
+                                            float S2, int lane, int nt2,
+                                            float gout) {
+  const float sp = __shfl_up_sync(FULL_MASK, suf, 1);
+  float A = lane > 0 ? expf(suf - sp) : 0.f;
+  float B = lane < nt2 ? e2 / S2 : 0.f;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const float Ap = __shfl_up_sync(FULL_MASK, A, k);
+    const float Bp = __shfl_up_sync(FULL_MASK, B, k);
+    if (lane >= k) {
+      B = A * Bp + B;
+      A = A * Ap;
+    }
   }
+  return gout * expf(z - suf) * B;
 }
 
-// Robustness of one column at (w, a) and, when `gw`/`ga` are given, the
-// gradient of dL/dscore * score with respect to (w, a).  `sel` is IdxSel or
-// PaySel; `sc` supplies the disc radii and validity.
+// Robustness of one column at (w, a) and the gradient of
+// dL/dscore * score with respect to this lane's (w, a) in (gw, ga).  `sel`
+// is IdxSel or PaySel, `ls` its lane segment at this lane's step t
+// (min(lane, T-1)); `sc` supplies the disc radii and validity.
 template <class Sel>
-__device__ float score_grad(const float* w, const float* a,
-                            const Column& col, const Scene& sc,
-                            const Sel& sel, const Params& p, float thres,
-                            float gscale, float* gw, float* ga) {
+__device__ float score_grad(float w, float a, const Column& col,
+                            const Scene& sc, const Sel& sel,
+                            const LaneSel& ls, const Params& p, int lane,
+                            int t, float thres, float gscale, float& gw,
+                            float& ga) {
   const int T = p.T;
-  const float tau = p.tau;
-  float x[MAXT], y[MAXT], th[MAXT], v[MAXT], c[MAXT], s[MAXT];
-  rollout(w, a, col, p, x, y, th, v, c, s);
+  const float tau = p.tau, rtau = p.rtau;
+  const bool live = lane < T;
+  const State st = rollout(w, a, col, p, lane);
+  const float x = st.x, y = st.y, th = st.th, v = st.v, c = st.c, s = st.s;
 
-  float d[MAXT], tha[MAXT], mnd[MAXT];
-  unsigned char kmin[MAXT];
-  for (int t = 0; t < T; ++t) {
-    LaneT lt = lane_terms(x[t], y[t], sel.lane(t, p), p);
-    d[t] = lt.d;
-    tha[t] = 1.f - cosf(lt.th2 - th[t]);
-    float best = 0.f;
-    int kb = 0;
-    for (int k = 0; k < p.K; ++k) {
-      float ax, nx, ny;
-      sel.disc(k, t, p, ax, nx, ny);
-      float exd = x[t] + ax * c[t], eyd = y[t] + ax * s[t];
-      float d2 = sq(exd - nx) + sq(eyd - ny);
-      float per = sqrtf(d2 + 1e-12f) - sc.crad[k * T + t];
-      float vk = sc.cval[k * T + t];
-      float masked = fminf(fmaxf(per, -5.f), 20.f) * vk + (1.f - vk) * 100.f;
-      if (k == 0 || masked < best) { best = masked; kb = k; }
-    }
-    mnd[t] = best;
-    kmin[t] = (unsigned char)kb;
+  const LaneT lt = lane_terms(x, y, ls, p);
+  const float d = lt.d;
+  const float tha = 1.f - cosf(lt.th2 - th);
+  float mnd = 0.f;
+  int kmin = 0;
+  for (int k = 0; k < p.K; ++k) {
+    float ax, nx, ny;
+    sel.disc(k, t, p, ax, nx, ny);
+    float exd = x + ax * c, eyd = y + ax * s;
+    float d2 = sq(exd - nx) + sq(eyd - ny);
+    float per = sqrtf(d2 + 1e-12f) - sc.crad[k * T + t];
+    float vk = sc.cval[k * T + t];
+    float masked = fminf(fmaxf(per, -5.f), 20.f) * vk + (1.f - vk) * 100.f;
+    if (k == 0 || masked < mnd) { mnd = masked; kmin = k; }
   }
 
   const float* P = col.P;
-  // z arrays (z = -g * tau) of the Always clauses shared by both formulas
-  float zv1[MAXT], zv2[MAXT], zsf[MAXT];
-  for (int t = 0; t < T; ++t) {
-    zv1[t] = -((v[t] - P[0]) / col.vf) * tau;
-    zv2[t] = -((-v[t] + P[1]) / col.vf) * tau;
-    zsf[t] = -((mnd[t] - P[4]) / col.sf) * tau;
-  }
-  float m_v1, S_v1, m_v2, S_v2, m_sf, S_sf;
-  lse_stats(zv1, T, m_v1, S_v1);
-  lse_stats(zv2, T, m_v2, S_v2);
-  lse_stats(zsf, T, m_sf, S_sf);
-  float alw_v1 = -(m_v1 + logf(S_v1)) / tau;
-  float alw_v2 = -(m_v2 + logf(S_v2)) / tau;
-  float alw_sf = -(m_sf + logf(S_sf)) / tau;
+  // z = -g * tau of the Always clauses shared by both formulas
+  const float zv1 = -((v - P[0]) * col.rvf) * tau;
+  const float zv2 = -((-v + P[1]) * col.rvf) * tau;
+  const float zsf = -((mnd - P[4]) * col.rsf) * tau;
+  const float zth = -((P[5] - tha) * col.rP5) * tau;
+  float m_v1, S_v1, e_v1, m_v2, S_v2, e_v2, m_sf, S_sf, e_sf;
+  lse_stats(zv1, live, m_v1, S_v1, e_v1);
+  lse_stats(zv2, live, m_v2, S_v2, e_v2);
+  lse_stats(zsf, live, m_sf, S_sf, e_sf);
+  const float alw_v1 = -(m_v1 + logf(S_v1)) * rtau;
+  const float alw_v2 = -(m_v2 + logf(S_v2)) * rtau;
+  const float alw_sf = -(m_sf + logf(S_sf)) * rtau;
 
-  float rows[6], xr[6], mr, Sr, score;
-  int nrows;
+  // the band terms of the lane offset
+  const float xa = -((d - P[2]) * col.rdf) * tau;
+  const float xb = -((-d + P[3]) * col.rdf) * tau;
+  float rows[6];
   // keep: lane-offset band and heading over the current lane
-  float zd1[MAXT], zd2[MAXT], zth[MAXT], m_d1 = 0.f, S_d1 = 1.f,
-        m_d2 = 0.f, S_d2 = 1.f, m_th = 0.f, S_th = 1.f;
+  float S_d1 = 1.f, e_d1 = 0.f, S_d2 = 1.f, e_d2 = 0.f, S_th = 1.f,
+        e_th = 0.f;
   // change: Eventually-Always of the band and of the heading
-  float zb[MAXT], sufb[MAXT], sufh[MAXT], mb = 0.f, Sb = 1.f, mh = 0.f,
+  float zb = 0.f, sufb = 0.f, sufh = 0.f, eb2 = 0.f, Sb = 1.f, eh2 = 0.f,
         Sh = 1.f;
+  rows[0] = alw_v1;
+  rows[1] = alw_v2;
   if (col.keep) {
-    for (int t = 0; t < T; ++t) {
-      zd1[t] = -((d[t] - P[2]) / col.df) * tau;
-      zd2[t] = -((-d[t] + P[3]) / col.df) * tau;
-      zth[t] = -((P[5] - tha[t]) / P[5]) * tau;
-    }
-    lse_stats(zd1, T, m_d1, S_d1);
-    lse_stats(zd2, T, m_d2, S_d2);
-    lse_stats(zth, T, m_th, S_th);
-    rows[0] = alw_v1; rows[1] = alw_v2;
-    rows[2] = -(m_d1 + logf(S_d1)) / tau;
-    rows[3] = -(m_d2 + logf(S_d2)) / tau;
-    rows[4] = -(m_th + logf(S_th)) / tau;
+    float m_d1, m_d2, m_th;
+    lse_stats(xa, live, m_d1, S_d1, e_d1);
+    lse_stats(xb, live, m_d2, S_d2, e_d2);
+    lse_stats(zth, live, m_th, S_th, e_th);
+    rows[2] = -(m_d1 + logf(S_d1)) * rtau;
+    rows[3] = -(m_d2 + logf(S_d2)) * rtau;
+    rows[4] = -(m_th + logf(S_th)) * rtau;
     rows[5] = alw_sf;
-    nrows = 6;
   } else {
-    for (int t = 0; t < T; ++t) {
-      float ga_ = (d[t] - P[2]) / col.df, gb_ = (-d[t] + P[3]) / col.df;
-      float xa = -ga_ * tau, xb = -gb_ * tau;
-      float m = fmaxf(xa, xb);
-      float band = -(m + logf(expf(xa - m) + expf(xb - m))) / tau;
-      zb[t] = -band * tau;
-      zth[t] = -((P[5] - tha[t]) / P[5]) * tau;
-    }
-    rows[0] = alw_v1; rows[1] = alw_v2;
-    rows[2] = ev_alw_fwd(zb, T, p.nt2, tau, sufb, mb, Sb);
-    rows[3] = ev_alw_fwd(zth, T, p.nt2, tau, sufh, mh, Sh);
+    float m = fmaxf(xa, xb);
+    float band = -(m + logf(expf(xa - m) + expf(xb - m))) * rtau;
+    zb = -band * tau;
+    rows[2] = ev_alw_fwd(zb, lane, T, p.nt2, rtau, sufb, eb2, Sb);
+    rows[3] = ev_alw_fwd(zth, lane, T, p.nt2, rtau, sufh, eh2, Sh);
     rows[4] = alw_sf;
-    nrows = 5;
+    rows[5] = INFINITY;  // no sixth row: exp(-inf) adds 0 to the softmin
   }
-  for (int i = 0; i < nrows; ++i) xr[i] = -rows[i] * tau;
-  lse_stats(xr, nrows, mr, Sr);
-  score = -(mr + logf(Sr)) / tau;
-  if (gw == nullptr) return score;
+  // softmin over the rows, the same in every lane
+  float xr[6], mr, Sr = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) xr[i] = -rows[i] * tau;
+  mr = xr[0];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) mr = fmaxf(mr, xr[i]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) Sr += expf(xr[i] - mr);
+  const float score = -(mr + logf(Sr)) * rtau;
 
   // ---- backward -----------------------------------------------------
-  float gs = (thres - score > 0.f) ? -col.valid * gscale : 0.f;
+  const float gs = (thres - score > 0.f) ? -col.valid * gscale : 0.f;
+  const float gsr = gs / Sr;
   float gr[6];
-  for (int i = 0; i < nrows; ++i) gr[i] = gs * (expf(xr[i] - mr) / Sr);
-  float gv[MAXT], gd[MAXT], gtha[MAXT], gmnd[MAXT];
-  for (int t = 0; t < T; ++t) { gv[t] = 0.f; gd[t] = 0.f; gtha[t] = 0.f; gmnd[t] = 0.f; }
-  const float g_v1 = gr[0], g_v2 = gr[1], g_sf = gr[nrows - 1];
-  for (int t = 0; t < T; ++t) {
-    gv[t] += g_v1 * (expf(zv1[t] - m_v1) / S_v1) / col.vf;
-    gv[t] -= g_v2 * (expf(zv2[t] - m_v2) / S_v2) / col.vf;
-    gmnd[t] += g_sf * (expf(zsf[t] - m_sf) / S_sf) / col.sf;
-  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) gr[i] = gsr * expf(xr[i] - mr);
+  const float g_sf = col.keep ? gr[5] : gr[4];
+  float gv = gr[0] * (e_v1 / S_v1) * col.rvf;
+  gv -= gr[1] * (e_v2 / S_v2) * col.rvf;
+  const float gmnd = g_sf * (e_sf / S_sf) * col.rsf;
+  float gd, gtha;
   if (col.keep) {
-    for (int t = 0; t < T; ++t) {
-      gd[t] += gr[2] * (expf(zd1[t] - m_d1) / S_d1) / col.df;
-      gd[t] -= gr[3] * (expf(zd2[t] - m_d2) / S_d2) / col.df;
-      gtha[t] -= gr[4] * (expf(zth[t] - m_th) / S_th) / P[5];
-    }
+    gd = gr[2] * (e_d1 / S_d1) * col.rdf;
+    gd -= gr[3] * (e_d2 / S_d2) * col.rdf;
+    gtha = -(gr[4] * (e_th / S_th) * col.rP5);
   } else {
-    float gband[MAXT], gth_[MAXT];
-    for (int t = 0; t < T; ++t) { gband[t] = 0.f; gth_[t] = 0.f; }
-    ev_alw_bwd(zb, sufb, T, p.nt2, mb, Sb, gr[2], gband);
-    ev_alw_bwd(zth, sufh, T, p.nt2, mh, Sh, gr[3], gth_);
-    for (int t = 0; t < T; ++t) {
-      float xa = -((d[t] - P[2]) / col.df) * tau;
-      float xb = -((-d[t] + P[3]) / col.df) * tau;
-      float m = fmaxf(xa, xb);
-      float ea = expf(xa - m), eb = expf(xb - m);
-      float pa = ea / (ea + eb), pb = eb / (ea + eb);
-      gd[t] += gband[t] * (pa / col.df - pb / col.df);
-      gtha[t] -= gth_[t] / P[5];
-    }
+    const float gband = ev_alw_bwd(zb, sufb, eb2, Sb, lane, p.nt2, gr[2]);
+    const float gth_ = ev_alw_bwd(zth, sufh, eh2, Sh, lane, p.nt2, gr[3]);
+    float m = fmaxf(xa, xb);
+    float ea = expf(xa - m), eb = expf(xb - m);
+    float rab = 1.f / (ea + eb);
+    float pa = ea * rab, pb = eb * rab;
+    gd = gband * (pa * col.rdf - pb * col.rdf);
+    gtha = -(gth_ * col.rP5);
   }
 
-  float gx[MAXT], gy[MAXT], gth[MAXT], gc[MAXT], gsn[MAXT];
-  for (int t = 0; t < T; ++t) {
-    gx[t] = 0.f; gy[t] = 0.f; gc[t] = 0.f; gsn[t] = 0.f;
-    LaneT lt = lane_terms(x[t], y[t], sel.lane(t, p), p);
-    // heading deviation 1 - cos(th2 - th)
-    gth[t] = -gtha[t] * sinf(lt.th2 - th[t]);
-    // lane distance
-    float g = gd[t];
+  float gx = 0.f, gy = 0.f, gc = 0.f, gsn = 0.f;
+  // heading deviation 1 - cos(th2 - th)
+  float gth = -gtha * sinf(lt.th2 - th);
+  // lane distance
+  {
+    float g = gd;
     if (p.flags & F_CLIP) g *= clip_grad(lt.dpre, -5.f, 5.f);
     float gd0 = g * lt.nc;
     float gl2d = g * lt.ba * lt.sgn + gd0 * (1.f - lt.normal);
     float gl2d1 = g * lt.aa * lt.sgn;
     float garea = gd0 * lt.normal / lt.bc;
-    gx[t] += garea * (lt.y2 - lt.y3);
-    gy[t] += garea * (lt.x3 - lt.x2);
+    gx += garea * (lt.y2 - lt.y3);
+    gy += garea * (lt.x3 - lt.x2);
     {
-      float q = sq(x[t] - lt.x2) + sq(y[t] - lt.y2);
+      float q = sq(x - lt.x2) + sq(y - lt.y2);
       float gq = gl2d * 0.5f / lt.l2d * max_grad(q, 1e-3f);
-      gx[t] += gq * 2.f * (x[t] - lt.x2);
-      gy[t] += gq * 2.f * (y[t] - lt.y2);
+      gx += gq * 2.f * (x - lt.x2);
+      gy += gq * 2.f * (y - lt.y2);
     }
     if (p.flags & F_INLINE) {
-      float q = sq(x[t] - lt.x3) + sq(y[t] - lt.y3);
+      float q = sq(x - lt.x3) + sq(y - lt.y3);
       float gq = gl2d1 * 0.5f / lt.l2d1 * max_grad(q, 1e-3f);
-      gx[t] += gq * 2.f * (x[t] - lt.x3);
-      gy[t] += gq * 2.f * (y[t] - lt.y3);
+      gx += gq * 2.f * (x - lt.x3);
+      gy += gq * 2.f * (y - lt.y3);
     }
-    // clearance to the nearest frozen pair
-    {
-      int k = kmin[t];
-      float vk = sc.cval[k * T + t];
-      float ax, nx, ny;
-      sel.disc(k, t, p, ax, nx, ny);
-      float dxk = x[t] + ax * c[t] - nx;
-      float dyk = y[t] + ax * s[t] - ny;
-      float dist = sqrtf(sq(dxk) + sq(dyk) + 1e-12f);
-      float per = dist - sc.crad[k * T + t];
-      float gper = gmnd[t] * vk * clip_grad(per, -5.f, 20.f);
-      float gd2 = gper * 0.5f / dist;
-      gx[t] += gd2 * 2.f * dxk;
-      gy[t] += gd2 * 2.f * dyk;
-      gc[t] += gd2 * 2.f * dxk * ax;
-      gsn[t] += gd2 * 2.f * dyk * ax;
-    }
+  }
+  // clearance to the nearest frozen pair
+  {
+    const int k = kmin;
+    float vk = sc.cval[k * T + t];
+    float ax, nx, ny;
+    sel.disc(k, t, p, ax, nx, ny);
+    float dxk = x + ax * c - nx;
+    float dyk = y + ax * s - ny;
+    float dist = sqrtf(sq(dxk) + sq(dyk) + 1e-12f);
+    float per = dist - sc.crad[k * T + t];
+    float gper = gmnd * vk * clip_grad(per, -5.f, 20.f);
+    float gd2 = gper * 0.5f / dist;
+    gx += gd2 * 2.f * dxk;
+    gy += gd2 * 2.f * dyk;
+    gc += gd2 * 2.f * dxk * ax;
+    gsn += gd2 * 2.f * dyk * ax;
   }
 
   // rollout backward: x_t = sum_{i<t} (v_i c_i) dt, likewise y
   const bool bf = p.flags & F_BF16;
-  float accx = 0.f, accy = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    float GX = bf ? rbf(accx) : accx, GY = bf ? rbf(accy) : accy;
-    accx += gx[t];
-    accy += gy[t];
+  float GX = excl_suffix(live ? gx : 0.f, lane);
+  float GY = excl_suffix(live ? gy : 0.f, lane);
+  if (bf) { GX = rbf(GX); GY = rbf(GY); }
+  {
     float tx = GX * p.dt, ty = GY * p.dt;
-    gv[t] += tx * c[t] + ty * s[t];
-    gc[t] += tx * v[t];
-    gsn[t] += ty * v[t];
-    gth[t] += -s[t] * gc[t] + c[t] * gsn[t];
+    gv += tx * c + ty * s;
+    gc += tx * v;
+    gsn += ty * v;
+    gth += -s * gc + c * gsn;
   }
   // th_t = th0 + dt sum_{i<t} w_i mul_w, v_t = v0 + dt sum_{i<t} a_i mul_a
-  float accw = 0.f, acca = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    float GW = bf ? rbf(accw) : accw, GA = bf ? rbf(acca) : acca;
-    accw += p.dt * gth[t];
-    acca += p.dt * gv[t];
-    gw[t] = GW * p.mul_w;
-    ga[t] = GA * p.mul_a;
-  }
+  float GW = excl_suffix(live ? p.dt * gth : 0.f, lane);
+  float GA = excl_suffix(live ? p.dt * gv : 0.f, lane);
+  if (bf) { GW = rbf(GW); GA = rbf(GA); }
+  gw = GW * p.mul_w;
+  ga = GA * p.mul_a;
   return score;
 }
 
 // ---- shared by the kernels --------------------------------------------
 
 // Fill Params from a C entry's arguments; false if a size is beyond the
-// fixed arrays above.
+// limits above.
 static inline bool fill_params(Params& p, int bs, int T, int R, int M, int S,
                                int K, int nLe, int nLn, int nt2, int niters,
                                float tau, float dt, float mul_w, float mul_a,
                                float lr, double ego_L, double re, int flags) {
-  if (T > MAXT || K > MAXK || nLe > MAXNL || nLn > MAXNL || S > MAXS ||
-      S < 2 || nt2 < 1 || nt2 > T)
+  if (T < 1 || T > MAXT || K < 1 || K > MAXK || nLe < 1 || nLe > MAXNL ||
+      nLn < 1 || nLn > MAXNL || S > MAXS || S < 2 || nt2 < 1 || nt2 > T)
     return false;
   p.bs = bs; p.T = T; p.R = R; p.M = M; p.S = S; p.K = K; p.nLe = nLe;
   p.nLn = nLn; p.nt2 = nt2; p.niters = niters; p.flags = flags;
-  p.tau = tau; p.dt = dt; p.mul_w = mul_w; p.mul_a = mul_a; p.lr = lr;
+  p.tau = tau; p.rtau = 1.f / tau; p.dt = dt; p.mul_w = mul_w;
+  p.mul_a = mul_a; p.lr = lr;
   for (int e = 0; e < MAXNL; ++e) {
     double alpha = e < nLe ? (double)e / (nLe > 1 ? nLe - 1 : 1) : 0.0;
     p.axe[e] = (float)((-ego_L / 2 + re) * (1 - alpha)
@@ -519,12 +603,14 @@ static inline bool fill_params(Params& p, int bs, int T, int R, int M, int S,
 
 // Floats of shared memory that one scene's constants take.
 __host__ __device__ inline size_t scene_floats(const Params& p) {
-  return (size_t)(3 * p.S * 3 + 2 * p.K * p.nLn * p.T + 2 * p.K * p.T);
+  return (size_t)(3 * p.S * 3 + 2 * p.K * p.nLn * p.T + 2 * p.K * p.T
+                  + MAXNL);
 }
 
 // Copy scene b's disc radii and validity (2 K T floats) into shared memory
 // (all threads of the block take part; the caller synchronises before
-// reading them).  The lanes and disc centres stay unset: enough for PaySel.
+// reading them).  The lanes, disc centres and offsets stay unset: enough
+// for PaySel.
 __device__ Scene load_clear(float* smem, const float* __restrict__ crad,
                             const float* __restrict__ cvalid, int b,
                             const Params& p) {
@@ -535,11 +621,11 @@ __device__ Scene load_clear(float* smem, const float* __restrict__ crad,
     s_crad[i] = crad[(size_t)b * nk + i];
     s_cval[i] = cvalid[(size_t)b * nk + i];
   }
-  return Scene{nullptr, nullptr, nullptr, s_crad, s_cval};
+  return Scene{nullptr, nullptr, nullptr, s_crad, s_cval, nullptr};
 }
 
-// Copy all of scene b's constants into shared memory (scene_floats(p)
-// floats), as load_clear does.
+// Copy all of scene b's constants and the ego disc offsets into shared
+// memory (scene_floats(p) floats), as load_clear does.
 __device__ Scene load_scene(float* smem, const float* __restrict__ lanes,
                             const float* __restrict__ ndx,
                             const float* __restrict__ ndy,
@@ -550,20 +636,23 @@ __device__ Scene load_scene(float* smem, const float* __restrict__ lanes,
   float* s_lanes = smem;
   float* s_ndx = s_lanes + nl;
   float* s_ndy = s_ndx + nd;
+  float* s_axe = s_ndy + nd;
   for (int i = threadIdx.x; i < nl; i += blockDim.x)
     s_lanes[i] = lanes[(size_t)b * nl + i];
   for (int i = threadIdx.x; i < nd; i += blockDim.x) {
     s_ndx[i] = ndx[(size_t)b * nd + i];
     s_ndy[i] = ndy[(size_t)b * nd + i];
   }
-  Scene sc = load_clear(s_ndy + nd, crad, cvalid, b, p);
+  if (threadIdx.x < MAXNL) s_axe[threadIdx.x] = p.axe[threadIdx.x];
+  Scene sc = load_clear(s_axe + MAXNL, crad, cvalid, b, p);
   sc.lanes = s_lanes;
   sc.ndx = s_ndx;
   sc.ndy = s_ndy;
+  sc.axe = s_axe;
   return sc;
 }
 
-// Column (b, r)'s per-row constants.
+// Column (b, r)'s per-row constants (the same in every lane of its warp).
 __device__ Column load_column(const float* __restrict__ stlp,
                               const float* __restrict__ nf,
                               const float* __restrict__ valid,
@@ -571,10 +660,12 @@ __device__ Column load_column(const float* __restrict__ stlp,
                               const Params& p) {
   const int R = p.R;
   Column col;
+#pragma unroll
   for (int i = 0; i < 6; ++i) col.P[i] = stlp[((size_t)b * 6 + i) * R + r];
-  col.vf = nf[((size_t)b * 3 + 0) * R + r];
-  col.df = nf[((size_t)b * 3 + 1) * R + r];
-  col.sf = nf[((size_t)b * 3 + 2) * R + r];
+  col.rvf = 1.f / nf[((size_t)b * 3 + 0) * R + r];
+  col.rdf = 1.f / nf[((size_t)b * 3 + 1) * R + r];
+  col.rsf = 1.f / nf[((size_t)b * 3 + 2) * R + r];
+  col.rP5 = 1.f / col.P[5];
   col.valid = valid[(size_t)b * R + r];
   col.th0 = scal[b * 2];
   col.v0 = scal[b * 2 + 1];
@@ -584,57 +675,53 @@ __device__ Column load_column(const float* __restrict__ stlp,
 }
 
 // `niters` Adam steps, each followed by the beta trust-region clip around
-// the start, for one column on the selections `sel`: w, a (T values each)
-// hold the posterior mean on entry and the guided mean on return.
+// the start, for one column on the selections `sel`: w, a (this lane's
+// step) hold the posterior mean on entry and the guided mean on return.
 template <class Sel>
-__device__ void adam_clip(float* w, float* a, const Column& col,
+__device__ void adam_clip(float& w, float& a, const Column& col,
                           const Scene& sc, const Sel& sel, const Params& p,
-                          float beta, float thres, float gscale) {
-  const int T = p.T;
-  float w0[MAXT], a0[MAXT];
-  float mw[MAXT], vw[MAXT], ma[MAXT], va[MAXT], gw[MAXT], ga[MAXT];
-  for (int t = 0; t < T; ++t) {
-    w0[t] = w[t]; a0[t] = a[t];
-    mw[t] = 0.f; vw[t] = 0.f; ma[t] = 0.f; va[t] = 0.f;
-  }
+                          int lane, float beta, float thres, float gscale) {
+  const int t = min(lane, p.T - 1);
+  const LaneSel ls = sel.lane(t, p);
+  const float w0 = w, a0 = a;
+  float mw = 0.f, vw = 0.f, ma = 0.f, va = 0.f;
   const float b1 = 0.9f, b2 = 0.999f, omb1 = (float)(1.0 - 0.9),
               omb2 = (float)(1.0 - 0.999), eps = 1e-8f;
   const bool quirk = p.flags & F_QUIRK;
   double b1p = 1.0, b2p = 1.0;
   for (int it = 0; it < p.niters; ++it) {
-    score_grad(w, a, col, sc, sel, p, thres, gscale, gw, ga);
+    float gw, ga;
+    score_grad(w, a, col, sc, sel, ls, p, lane, t, thres, gscale, gw, ga);
     b1p *= 0.9;
     b2p *= 0.999;
-    const float c1 = (float)(1.0 - b1p), c2 = (float)(1.0 - b2p);
-    for (int t = 0; t < T; ++t) {
-      mw[t] = b1 * mw[t] + omb1 * gw[t];
-      vw[t] = b2 * vw[t] + omb2 * gw[t] * gw[t];
-      ma[t] = b1 * ma[t] + omb1 * ga[t];
-      va[t] = b2 * va[t] + omb2 * ga[t] * ga[t];
-      float nw = w[t] - p.lr * (mw[t] / c1) / (sqrtf(vw[t] / c2) + eps);
-      float na = a[t] - p.lr * (ma[t] / c1) / (sqrtf(va[t] / c2) + eps);
-      float dw, da;
-      if (quirk) {
-        dw = fminf(fabsf(nw - w0[t]), beta);
-        da = fminf(fabsf(na - a0[t]), beta);
-      } else {
-        dw = fminf(fmaxf(nw - w0[t], -beta), beta);
-        da = fminf(fmaxf(na - a0[t], -beta), beta);
-      }
-      w[t] = w0[t] + dw;
-      a[t] = a0[t] + da;
+    const float rc1 = 1.f / (float)(1.0 - b1p);
+    const float rc2 = 1.f / (float)(1.0 - b2p);
+    mw = b1 * mw + omb1 * gw;
+    vw = b2 * vw + omb2 * gw * gw;
+    ma = b1 * ma + omb1 * ga;
+    va = b2 * va + omb2 * ga * ga;
+    float nw = w - p.lr * (mw * rc1) / (sqrtf(vw * rc2) + eps);
+    float na = a - p.lr * (ma * rc1) / (sqrtf(va * rc2) + eps);
+    float dw, da;
+    if (quirk) {
+      dw = fminf(fabsf(nw - w0), beta);
+      da = fminf(fabsf(na - a0), beta);
+    } else {
+      dw = fminf(fmaxf(nw - w0, -beta), beta);
+      da = fminf(fmaxf(na - a0, -beta), beta);
     }
+    w = w0 + dw;
+    a = a0 + da;
   }
 }
 
-// The guided update of one column: freeze at (w, a), then adam_clip on the
-// frozen indices.  w, a (T values each) hold the posterior mean on entry
-// and the guided mean on return.
-__device__ void guided_update(float* w, float* a, const Column& col,
-                              const Scene& sc, const Params& p, float beta,
-                              float thres, float gscale) {
-  unsigned char seg[MAXT], pe[MAXK * MAXT], pn[MAXK * MAXT];
-  freeze(w, a, col, sc, p, seg, pe, pn);
-  const IdxSel sel{sc.lanes + col.j * p.S * 3, sc.ndx, sc.ndy, seg, pe, pn};
-  adam_clip(w, a, col, sc, sel, p, beta, thres, gscale);
+// The guided update of one column by its warp: freeze at (w, a), then
+// adam_clip on the frozen indices.  w, a hold this lane's step of the
+// posterior mean on entry (0 in lanes t >= T) and of the guided mean on
+// return.  Every lane of the warp must call it.
+__device__ void guided_update(float& w, float& a, const Column& col,
+                              const Scene& sc, const Params& p, int lane,
+                              float beta, float thres, float gscale) {
+  const IdxSel sel = freeze(w, a, col, sc, p, lane, min(lane, p.T - 1));
+  adam_clip(w, a, col, sc, sel, p, lane, beta, thres, gscale);
 }

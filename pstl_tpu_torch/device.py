@@ -1,0 +1,17 @@
+"""Where the port's entry points run: on the card, unless the caller asks
+for the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given; by default the card, and an error without one
+    (pass ``device="cpu"`` to run the plain versions on the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "the argument device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)

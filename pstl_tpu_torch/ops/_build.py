@@ -107,6 +107,22 @@ def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
     return {name: _LIBS[name] for name in names}
 
 
+def ptxas_summary(report: str) -> list:
+    """Per kernel of a ``-Xptxas -v`` report, one line: its (mangled) name,
+    its stack frame and spill bytes, its registers and shared memory."""
+    out, row = [], None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            row = [ln.split("'")[1]]
+        elif row and "bytes stack frame" in ln and len(row) == 1:
+            row.append(ln.strip())
+        elif row and "registers" in ln:
+            row.append(ln.split(":", 1)[1].strip())
+            out.append(" | ".join(row))
+            row = None
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as ``lib<name>.so``."""
     return load_all([name])[name]

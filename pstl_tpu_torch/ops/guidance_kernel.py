@@ -26,11 +26,12 @@ and the scene-folded ``_kernel_fused_f`` / ``_kernel_f``
 (``guidance_pallas_fold``: the same folded tiles in one program) compute each
 column's loss independently of the others
 (tests/test_pallas_guidance.py::test_fold_variants_match), and the launches
-already cover every column with one block per (scene, 32 columns) and the
-scene's constants in shared memory.  So ``guidance_adam_cm`` runs fold2 and
-the fused fold through ``guidance_fused``, and the frozen fold through
-``guidance_frozen``, unchanged.  ``guidance_pallas_cols`` (the TPU chunk
-width) is accepted and ignored.
+already cover every column with one block per (scene, chunk of columns),
+one warp per column, and the scene's constants in shared memory.  So
+``guidance_adam_cm`` runs fold2 and the fused fold through
+``guidance_fused``, and the frozen fold through ``guidance_frozen``,
+unchanged.  ``guidance_pallas_cols`` (the TPU chunk width) is accepted and
+ignored.
 
 Operand layout (all float32, contiguous), for bs scenes, T steps, R = 3*M
 candidate columns r = j*M + m (j = maneuver, whose lane the column reads):

@@ -24,7 +24,7 @@ both for every step once per plan.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,9 +41,19 @@ guided_launches = 0
 _MAXMID, _MAXH = 8, 512
 
 
+class PackedMlp(NamedTuple):
+    """The bf16 weight matrices in the order the tensor-core kernel reads
+    them (:func:`pack_b`), flat."""
+    Wnw: Tensor
+    Wna: Tensor
+    mid: Tuple[Tensor, ...]
+    Wo: Tensor                          # rows [WowT; WoaT]
+
+
 class MlpOperands(NamedTuple):
     """The split eps MLP in the compute dtype, contiguous (``eps_cm.operands``
-    without the timestep projection and the sizes)."""
+    without the timestep projection and the sizes).  ``packed`` is set for
+    bfloat16 weights."""
     base: Tensor                        # (bs, h1, R)
     WnwT: Tensor                        # (h1, T)
     WnaT: Tensor                        # (h1, T)
@@ -52,16 +62,57 @@ class MlpOperands(NamedTuple):
     WoaT: Tensor
     bow: Tensor                         # (T, 1)
     boa: Tensor
+    packed: Optional[PackedMlp] = None
+
+
+def pack_b(W: Tensor, n_mult: int = 32) -> Tensor:
+    """A weight matrix W^T (n_out, n_in) as the B operand of
+    ``mma.sync.aligned.m16n8k16.row.col`` in fragment order, flat: zero
+    padded to (Np, Kp) = multiples of (``n_mult``, 32), then for output tile
+    nt (8 rows), feature block kk (32 features) and lane = 4*g + q the eight
+    values Wp[nt*8 + g, kk*32 + 16*ks + 8*r + 2*q + h] in (ks, r, h) order:
+    the lane's fragment registers b_r of k-steps 2kk + ks, 16 bytes a lane,
+    one 512-byte line a warp."""
+    n_out, n_in = W.shape
+    Np = -(-n_out // n_mult) * n_mult
+    Kp = -(-n_in // 32) * 32
+    Wp = W.new_zeros((Np, Kp))
+    Wp[:n_out, :n_in] = W
+    v = Wp.view(Np // 8, 8, Kp // 32, 2, 2, 4, 2)   # nt, g, kk, ks, r, q, h
+    return v.permute(0, 2, 1, 5, 3, 4, 6).contiguous().view(-1)
+
+
+def pack_mlp(mlp: MlpOperands) -> PackedMlp:
+    """The matrices of ``mlp`` for the tensor-core kernel: hidden widths
+    padded to multiples of 32 (so a layer's padded outputs are the next
+    layer's padded features), the stacked output rows to a multiple of 8."""
+    return PackedMlp(
+        Wnw=pack_b(mlp.WnwT), Wna=pack_b(mlp.WnaT),
+        mid=tuple(pack_b(W) for W, _ in mlp.mid),
+        Wo=pack_b(torch.cat([mlp.WowT, mlp.WoaT], dim=0), n_mult=8))
 
 
 def mlp_operands(ops: dict) -> MlpOperands:
-    """``eps_cm.operands`` -> the kernel's MLP operands."""
+    """``eps_cm.operands`` -> the kernel's MLP operands (with the packed
+    matrices when the compute dtype is bfloat16).  Raises where the layers do
+    not chain, as with no hidden layer (``hiddens=()``): the split MLP needs
+    a layer 1 whose outputs the output layer reads."""
     c = lambda x: x.contiguous()
-    return MlpOperands(
+    widths = [ops["base_cm"].shape[1]] + [W.shape[0] for W, _ in ops["mid"]]
+    reads = [W.shape[1] for W, _ in ops["mid"]] + [ops["WowT"].shape[1]]
+    if widths != reads:
+        raise ValueError(
+            f"superstep: the split eps MLP needs at least one hidden layer, "
+            f"each layer reading the one before it: layer widths {widths}, "
+            f"read as {reads}")
+    mlp = MlpOperands(
         base=c(ops["base_cm"]), WnwT=c(ops["WnwT"]), WnaT=c(ops["WnaT"]),
         mid=tuple((c(W), c(b)) for W, b in ops["mid"]),
         WowT=c(ops["WowT"]), WoaT=c(ops["WoaT"]), bow=c(ops["bow"]),
         boa=c(ops["boa"]))
+    if mlp.base.dtype == torch.bfloat16:
+        mlp = mlp._replace(packed=pack_mlp(mlp))
+    return mlp
 
 
 def step_tables(cfg: Config, coeffs, cm_ops: dict, gscale: Tensor,
@@ -139,7 +190,8 @@ def _lib():
     fn = _build.load("superstep").pstl_superstep
     if fn.argtypes is None:
         fn.argtypes = ([_P] * 6 + [ctypes.POINTER(_P)] * 2
-                       + [ctypes.POINTER(_I), _I] + [_P] * 15
+                       + [ctypes.POINTER(_I), _I] + [_P] * 6
+                       + [ctypes.POINTER(_P)] + [_P] * 12
                        + [_I] * 10 + [_F] * 5 + [_D] * 2 + [_I] * 3 + [_P])
         fn.restype = _I
     return fn
@@ -176,20 +228,37 @@ def _launch(x, z, te, gvec, mlp: MlpOperands, gops: gk.Operands,
                    (f"mid[{i}].b", b, (dims[i + 1], 1), dt)]
     for name, t, shape, dtype in checks:
         gk._check(name, t, shape, dev, dtype, who="superstep")
+    bf16 = dt == torch.bfloat16
+    packed = None
+    if bf16:
+        packed = mlp.packed
+        if packed is None:
+            raise ValueError("superstep: bfloat16 weights need their packed "
+                             "form (mlp_operands, or pack_mlp)")
+        for name, t in (("Wnw", packed.Wnw), ("Wna", packed.Wna),
+                        ("Wo", packed.Wo),
+                        *((f"mid[{i}]", W) for i, W in enumerate(packed.mid))):
+            if t.device != dev or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(f"superstep: packed {name} must be a "
+                                 f"contiguous {dt} tensor on {dev}")
     out = torch.empty_like(x)
     midW = (_P * max(nmid, 1))(*[W.data_ptr() for W, _ in mlp.mid])
     midb = (_P * max(nmid, 1))(*[b.data_ptr() for _, b in mlp.mid])
+    pmid = (_P * max(nmid, 1))(*[W.data_ptr() for W in
+                                 (packed.mid if bf16 else ())])
     cdims = (_I * len(dims))(*dims)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(
         x.data_ptr(), z.data_ptr(), mlp.base.data_ptr(), te.data_ptr(),
         mlp.WnwT.data_ptr(), mlp.WnaT.data_ptr(), midW, midb, cdims, nmid,
         mlp.WowT.data_ptr(), mlp.WoaT.data_ptr(), mlp.bow.data_ptr(),
-        mlp.boa.data_ptr(), *(t.data_ptr() for t in gops[:-1]),
+        mlp.boa.data_ptr(),
+        *((packed.Wnw.data_ptr(), packed.Wna.data_ptr(), pmid,
+           packed.Wo.data_ptr()) if bf16 else (None, None, pmid, None)),
+        *(t.data_ptr() for t in gops[:-1]),
         gvec.data_ptr(), out.data_ptr(), bs, T, R, p.M, p.S, p.K, p.nLe,
         p.nLn, p.nt2, p.niters, p.tau, p.dt, p.mul_w, p.mul_a, p.lr,
-        p.ego_L, p.re, gk.flags(p), int(dt == torch.bfloat16), int(guided),
-        stream)
+        p.ego_L, p.re, gk.flags(p), int(bf16), int(guided), stream)
     if err != 0:
         raise RuntimeError(f"superstep kernel launch failed: CUDA error "
                            f"{err}")

@@ -22,6 +22,7 @@ import torch
 
 from pstl_tpu_torch import diffusion, specs
 from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.device import resolve_device
 from pstl_tpu_torch.models import net as models
 from pstl_tpu_torch.models.net import Net
 from pstl_tpu_torch.ops import dynamics as dyn
@@ -83,6 +84,10 @@ def rasterize_corridor(center_dense: np.ndarray, lane_valids: np.ndarray,
 
 def scenes_from_dataset(data: Dict[str, np.ndarray],
                         device=None) -> SceneTensors:
+    """The scene tensors of a dataset on ``device``: by default the card,
+    and an error without one (``device="cpu"`` for the CPU).  The planner
+    and the closed loop run where the scenes are."""
+    device = resolve_device(device)
     if "scene_drivable" in data:
         mask = np.asarray(data["scene_drivable"])
         origin = np.asarray(data["scene_drivable_origin"])
@@ -233,6 +238,17 @@ def check_supported(cfg: Config) -> None:
     diffusion.check_supported(cfg)
 
 
+def check_devices(dev: torch.device, net: Net,
+                  coeffs: diffusion.Coeffs) -> None:
+    """The planner runs where its scenes are: raise if the net or the
+    diffusion coefficients lie elsewhere."""
+    for what, t in (("the net", next(net.parameters())),
+                    ("the diffusion coefficients", coeffs.beta)):
+        if t.device != dev:
+            raise ValueError(f"the scenes are on {dev} but {what} on "
+                             f"{t.device}: move them to the scenes' device")
+
+
 def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
     """Returns ``plan(obs, noise=None, generator=None) -> (u0 (bs, 2),
     info)``: dense batching with the aggressive stlp override, the DDPM
@@ -249,6 +265,7 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
              generator: Optional[torch.Generator] = None):
         bs = obs["ego_traj"].shape[0]
         dev = obs["ego_traj"].device
+        check_devices(dev, net, coeffs)
         n = bs * M * 3
         override = torch.as_tensor(AGGRESSIVE_STLP, device=dev)
         states = obs["ego_traj"][:, 0, :4]
@@ -433,8 +450,9 @@ def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
     seeded with ``seed``); ``step(carry, noise=None)`` runs one replanning
     step for every scene (done scenes are masked, not skipped).  Call
     ``step`` in a loop for several steps."""
-    body = _make_body(scenes, cfg, make_planner(cfg, net, coeffs))
     dev = scenes.ego_full.device
+    check_devices(dev, net, coeffs)
+    body = _make_body(scenes, cfg, make_planner(cfg, net, coeffs))
 
     def init_carry(seed: int = 0, t0=None):
         gen = torch.Generator(device=dev)

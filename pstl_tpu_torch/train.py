@@ -36,6 +36,7 @@ import torch
 from pstl_tpu_torch import diffusion, losses, specs
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
+from pstl_tpu_torch.device import resolve_device
 from pstl_tpu_torch.models.net import Net, init_flax_like
 from pstl_tpu_torch.ops import dynamics as dyn
 
@@ -55,17 +56,6 @@ class TrainState(NamedTuple):
     net: Net
     opt: torch.optim.Optimizer
     step: int
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given; by default the card, and an error without one
-    (pass ``device="cpu"`` to run the plain versions on the CPU)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port trains on the card; "
-                           "pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
 
 
 def make_optimizer(cfg: Config, params: Net) -> torch.optim.Adam:

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (the fused and frozen-payload
 guidance kernels, the superstep kernel and the clearance kernel pair),
-against their plain PyTorch versions on identical inputs.  Marked
+against their plain PyTorch versions on identical inputs, at the main
+path's widths and at the edges of the warp-per-column design (``EDGES``,
+``HIDDENS``).  Marked
 ``cuda``: skipped where ``torch.cuda.is_available()`` is false (a CUDA
 kernel has no CPU mode).
 This file imports no jax, so it also runs on a host without it:
@@ -43,7 +45,27 @@ def dev():
     return torch.device("cuda", 0)
 
 
+#: the edges of the warp-per-column kernels: horizons that leave 20 lanes
+#: idle, fill the warp exactly or sit between; one neighbor and the most the
+#: 4-bit selection fields hold; a column count that is no multiple of a
+#: block's columns, with one scene; the Eventually window at its two ends
+EDGES = [dict(nt=12, n_neighbors=1), dict(nt=32, n_neighbors=16),
+         dict(n_randoms=5, scenes=1), dict(nt2=1), dict(nt2="T")]
+EDGE_IDS = ["T12_K1", "T32_K16", "R15_bs1", "nt2_1", "nt2_T"]
+
+
+def _edge(kw, n_scenes):
+    """Split an EDGES entry into (config fields, scenes, nt2 override)."""
+    kw = dict(kw)
+    return kw, kw.pop("scenes", n_scenes), kw.pop("nt2", None)
+
+
+def _with_nt2(p, nt2):
+    return p if nt2 is None else p._replace(nt2=p.T if nt2 == "T" else nt2)
+
+
 def _problem(dev, n_scenes, **kw):
+    kw, n_scenes, nt2 = _edge(kw, n_scenes)
     cfg = bench_config("heavy").with_(**kw)
     scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=n_scenes)
     _, fused, mu = chip_smoke.plan_inputs(cfg, scenes)
@@ -51,14 +73,23 @@ def _problem(dev, n_scenes, **kw):
     beta = diffusion.get_coeffs(cfg, device=dev).beta[40]
     gvec = torch.stack([beta, torch.tensor(100.0, device=dev), ops.gscale])
     args = (mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous(), *ops[:-1],
-            gvec, gk.kernel_params(cfg, fused))
+            gvec, _with_nt2(gk.kernel_params(cfg, fused), nt2))
     return args, float(beta)
+
+
+def _assert_guided(got, ref, beta):
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    off = err > chip_smoke.ATOL + chip_smoke.RTOL * ref.abs()
+    assert float(off.float().mean()) <= chip_smoke.MAX_OFF_SHARE
+    assert float(err.max()) <= 2 * beta + 1e-6
 
 
 @pytest.mark.parametrize("kw", [
     dict(), dict(clearance_coarse_pair=False, guidance_pallas_bf16_cumsum=False),
     dict(guidance_positive_offset_quirk=True, inline=True, clip_dist=True,
-         norm_stl=True)], ids=["heavy", "exact_fp32", "quirk_inline_norm"])
+         norm_stl=True), *EDGES],
+    ids=["heavy", "exact_fp32", "quirk_inline_norm", *EDGE_IDS])
 def test_kernel_matches_plain(dev, kw):
     args, beta = _problem(dev, 4, **kw)
     before = gk.launches
@@ -66,11 +97,8 @@ def test_kernel_matches_plain(dev, kw):
     assert gk.launches == before + 1
     ref = torch.stack(gk.guidance_fused_plain(*args))
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    err = (got - ref).abs()
-    off = err > chip_smoke.ATOL + chip_smoke.RTOL * ref.abs()
-    assert float(off.float().mean()) <= chip_smoke.MAX_OFF_SHARE
-    assert float(err.max()) <= 2 * beta + 1e-6
+    _assert_guided(got, ref, beta)
+    assert float((got - torch.stack(args[:2])).abs().max()) > 0
 
 
 def test_kernel_rejects_bad_operands(dev):
@@ -82,7 +110,7 @@ def test_kernel_rejects_bad_operands(dev):
                           args[1][:, :, :-1].contiguous(), *args[2:])
 
 
-def test_build_three_libraries(dev):
+def test_build_four_libraries(dev):
     """chip_smoke's libraries build together (one nvcc each) and load, each
     exporting its C entries."""
     entries = {"min_clearance": ("pstl_min_clearance_fwd",
@@ -92,12 +120,16 @@ def test_build_three_libraries(dev):
     for name, lib in libs.items():
         for entry in entries.get(name, (f"pstl_{name}",)):
             assert hasattr(lib, entry)
-        assert "registers" in _build.BUILD_INFO[name]["report"]
+        report = _build.BUILD_INFO[name]["report"]
+        assert "registers" in report
+        kernels = _build.ptxas_summary(report)
+        assert kernels and all("stack frame" in k for k in kernels)
 
 
 def _frozen_problem(dev, n_scenes, **kw):
     """The frozen kernel's arguments at the main path's widths: payloads
     frozen once by freeze_cm on the card."""
+    kw, n_scenes, nt2 = _edge(kw, n_scenes)
     cfg = bench_config("heavy", gpallas="1").with_(**kw)
     scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=n_scenes)
     _, fused, mu = chip_smoke.plan_inputs(cfg, scenes)
@@ -107,7 +139,8 @@ def _frozen_problem(dev, n_scenes, **kw):
     beta = diffusion.get_coeffs(cfg, device=dev).beta[40]
     gvec = torch.stack([beta, torch.tensor(100.0, device=dev), ops.gscale])
     args = (mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous(), *pay,
-            *gk.frozen_scene(ops), gvec, gk.kernel_params(cfg, fused))
+            *gk.frozen_scene(ops), gvec,
+            _with_nt2(gk.kernel_params(cfg, fused), nt2))
     return args, float(beta)
 
 
@@ -115,8 +148,8 @@ def _frozen_problem(dev, n_scenes, **kw):
     dict(),
     dict(clearance_coarse_pair=False, guidance_pallas_bf16_cumsum=False),
     dict(guidance_positive_offset_quirk=True, inline=True, clip_dist=True,
-         norm_stl=True, geometry_dtype="bfloat16")],
-    ids=["heavy", "exact_fp32", "quirk_inline_norm_geom_bf16"])
+         norm_stl=True, geometry_dtype="bfloat16"), *EDGES],
+    ids=["heavy", "exact_fp32", "quirk_inline_norm_geom_bf16", *EDGE_IDS])
 def test_frozen_kernel_matches_plain(dev, kw):
     args, beta = _frozen_problem(dev, 4, **kw)
     before = gk.frozen_launches
@@ -124,11 +157,8 @@ def test_frozen_kernel_matches_plain(dev, kw):
     assert gk.frozen_launches == before + 1
     ref = torch.stack(gk.guidance_frozen_plain(*args))
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    err = (got - ref).abs()
-    off = err > chip_smoke.ATOL + chip_smoke.RTOL * ref.abs()
-    assert float(off.float().mean()) <= chip_smoke.MAX_OFF_SHARE
-    assert float(err.max()) <= 2 * beta + 1e-6
+    _assert_guided(got, ref, beta)
+    assert float((got - torch.stack(args[:2])).abs().max()) > 0
 
 
 def test_frozen_kernel_rejects_bad_operands(dev):
@@ -142,22 +172,32 @@ def test_frozen_kernel_rejects_bad_operands(dev):
     assert gk.frozen_launches == before
 
 
-def _superstep_problem(dev, hiddens, n_scenes=4):
+def _superstep_problem(dev, hiddens, n_scenes=4, **kw):
     """Superstep operands of a randomly initialised net (seeded) with the
-    given hidden widths, at the main path's other shapes."""
-    cfg = bench_config("heavy", gpallas="4").with_(hiddens=hiddens)
+    given hidden widths, at the main path's other shapes unless ``kw`` (an
+    EDGES entry) changes them."""
+    kw, n_scenes, nt2 = _edge(kw, n_scenes)
+    cfg = bench_config("heavy", gpallas="4").with_(hiddens=hiddens, **kw)
     torch.manual_seed(0)
     net = Net(cfg).to(dev).eval()
     scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=n_scenes)
-    return cfg, chip_smoke.superstep_inputs(cfg, scenes, net)
+    ins = chip_smoke.superstep_inputs(cfg, scenes, net)
+    return cfg, ins[:-1] + (_with_nt2(ins[-1], nt2),)
 
 
-@pytest.mark.parametrize("hiddens", [(256, 256), (256,)],
-                         ids=["nmid1", "nmid0"])
+#: hidden widths: the main path's, no mid layer, the widest the kernel takes,
+#: a narrow one, and widths that are no multiple of the 32-feature padding
+#: (with two mid layers)
+HIDDENS = [(256, 256), (256,), (512, 512), (64,), (96, 40, 72)]
+
+
+@pytest.mark.parametrize("hiddens,kw", [
+    *((h, {}) for h in HIDDENS), *(((256, 256), e) for e in EDGES)],
+    ids=[*("x".join(map(str, h)) for h in HIDDENS), *EDGE_IDS])
 @pytest.mark.parametrize("guided", [True, False], ids=["guided", "unguided"])
-def test_superstep_matches_plain(dev, hiddens, guided):
+def test_superstep_matches_plain(dev, hiddens, kw, guided):
     cfg, (x, z, te_all, gvec_all, mlp, gops, p) = _superstep_problem(
-        dev, hiddens)
+        dev, hiddens, **kw)
     j = cfg.diffusion_steps - 1 - 60
     args = (x, z, te_all[j], gvec_all[j], mlp, gops, p, guided)
     before = (sk.launches, sk.guided_launches)
@@ -176,6 +216,35 @@ def test_superstep_matches_plain(dev, hiddens, guided):
     else:
         assert bool((err <= chip_smoke.SS_ATOL
                      + chip_smoke.SS_RTOL * ref.abs()).all())
+
+
+def test_superstep_fp32_weights_match_plain(dev):
+    """float32 weights take the CUDA-core path (in-order FMAs, no TF32): the
+    unguided step equals the plain version to fp32 rounding."""
+    cfg = bench_config("heavy", gpallas="4").with_(compute_dtype="float32")
+    torch.manual_seed(0)
+    net = Net(cfg).to(dev).eval()
+    scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=2)
+    x, z, te_all, gvec_all, mlp, gops, p = chip_smoke.superstep_inputs(
+        cfg, scenes, net)
+    assert mlp.base.dtype == torch.float32 and mlp.packed is None
+    j = cfg.diffusion_steps - 1 - 60
+    with torch.no_grad():
+        got = sk.superstep(x, z, te_all[j], gvec_all[j], mlp, gops, p, False)
+        ref = sk.superstep_plain(x, z, te_all[j], gvec_all[j], mlp, gops, p,
+                                 False)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_superstep_without_hidden_layer_raises(dev):
+    """With no hidden layer the MLP has no layer 1 to split: the operands
+    are refused where they are made, on the card as on the CPU, before any
+    launch."""
+    before = sk.launches
+    with pytest.raises(ValueError, match="hidden layer"):
+        _superstep_problem(dev, (), n_scenes=1)
+    assert sk.launches == before
 
 
 def test_superstep_wrapper_launches_on_cuda(dev):

@@ -10,7 +10,13 @@ package on the CPU.
   interpret mode, with bf16 cumsum and the coarse pair on: the only oracle
   for the bf16 path.
 - The torch transcription of the kernel's hand-written VJP
-  (tests/torch_guidance_twin.py) against autograd.
+  (tests/torch_guidance_twin.py) against autograd, with what crosses time
+  steps as serial loops and as the kernel's warp scans, the latter with the
+  kernel's hoisted reciprocals in place of divisions.
+- Each warp scan alone (prefix and suffix sums, the doubling ``logaddexp``
+  scan of Eventually-Always, the affine-map scan of its backward) against
+  its serial form and autograd in float64 to 1e-8, and in float32 against
+  ``pallas_guidance._ev_alw`` at that function's own 2e-4.
 
 Tolerances: rtol 2e-4 / atol 2e-5 on guided controls, the tolerance of the
 JAX package's own kernel-vs-XLA tests (fp32 sums in another order; the
@@ -33,6 +39,7 @@ from pstl_tpu_torch import specs as tspecs
 from pstl_tpu_torch.config import Config as TConfig
 from pstl_tpu_torch.ops import guidance_kernel as gk
 
+import torch_guidance_twin as twin
 from torch_guidance_twin import guidance_fused_twin, score_grad
 from torch_parity import guidance_case, np_, to_t
 
@@ -160,6 +167,25 @@ def test_manual_vjp_matches_autograd(case):
     softmins is itself off by up to ~2e-4 relative (the hand-written
     backward agrees with the float64 value to ~1e-7), which would hide an
     algebra error of that size."""
+    _vjp_against_autograd(case, scan=False)
+
+
+@pytest.mark.parametrize("case", [
+    dict(), dict(norm_stl=True, clearance_coarse_pair=True),
+    dict(inline=True, clip_dist=True),
+    dict(guidance_pallas_bf16_cumsum=True, clearance_coarse_pair=True),
+    dict(nt=12), dict(nt=32)],
+    ids=["default", "norm_coarse", "inline_clip", "bf16_coarse", "T12",
+         "T32"])
+def test_scan_vjp_matches_autograd(case):
+    """The same with what crosses time steps in the kernel's warp forms
+    (scan-ordered sums, the doubling logaddexp scan, the affine-map scan of
+    its backward), at horizons that leave lanes idle and that fill the
+    warp."""
+    _vjp_against_autograd(case, scan=True)
+
+
+def _vjp_against_autograd(case, scan):
     ops, p, w, a, gvec = _kernel_inputs(seed=5, **case)
     sel = gk.freeze(w, a, ops.lanes, ops.ndx, ops.ndy, ops.scal, p)
     f64 = torch.float64
@@ -170,7 +196,8 @@ def test_manual_vjp_matches_autograd(case):
     w2 = (w.to(f64) + 0.01 * torch.sin(
         torch.arange(w.numel(), dtype=f64).reshape(w.shape)))
     a = a.to(f64)
-    score, gw, ga = score_grad(w2, a, pay, ops, p, gvec[1], gvec[2])
+    score, gw, ga = score_grad(w2, a, pay, ops, p, gvec[1], gvec[2],
+                               scan=scan)
     wr, ar = w2.clone().requires_grad_(True), a.clone().requires_grad_(True)
     s_ref = gk.scores_frozen(wr, ar, pay, ops.crad, ops.cvalid, ops.stlp,
                              ops.nf, ops.scal, p)
@@ -193,6 +220,119 @@ def test_twin_step_matches_plain():
     pl = gk.guidance_fused_plain(*args)
     for x, y in zip(tw, pl):
         _close(x, y)
+
+
+def test_scan_twin_step_matches_plain():
+    """The full fused step with the hand-written gradient in the kernel's
+    warp forms equals the plain version (float32, bf16 cumsum: the scan's
+    other summation order stays inside the tolerance)."""
+    ops, p, w, a, gvec = _kernel_inputs(seed=7, clearance_coarse_pair=True,
+                                        guidance_pallas_bf16_cumsum=True)
+    args = (w, a, *ops[:-1], gvec, p)
+    tw = guidance_fused_twin(*args, scan=True)
+    pl = gk.guidance_fused_plain(*args)
+    for x, y in zip(tw, pl):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("case", [
+    dict(), dict(norm_stl=True, clearance_coarse_pair=True),
+    dict(guidance_positive_offset_quirk=True),
+    dict(inline=True, clip_dist=True)],
+    ids=["default", "norm_coarse", "quirk", "inline_clip"])
+def test_scan_twin_step_matches_serial_twin(case):
+    """float32 without the bf16 rounding, where nothing hides an ulp: the
+    step in the kernel's forms (scan-ordered sums; tau, the norm factors,
+    P5, the band's softmin sum and Adam's bias corrections inverted once
+    and multiplied) against the step with serial sums and divisions, and
+    against the plain version, at the kernel-vs-plain tolerance."""
+    ops, p, w, a, gvec = _kernel_inputs(seed=7, **case)
+    args = (w, a, *ops[:-1], gvec, p)
+    tw = guidance_fused_twin(*args, scan=True)
+    serial = guidance_fused_twin(*args)
+    pl = gk.guidance_fused_plain(*args)
+    assert float((tw[0] - w).abs().max()) > 1e-4    # the step moved mu
+    for x, y, z in zip(tw, serial, pl):
+        _close(x, y)
+        _close(x, z)
+
+
+def test_adam_reciprocal_form_matches_division():
+    """Adam with the bias corrections inverted once and multiplied against
+    ``guidance_kernel.adam_clip`` (which divides): float64 to 1e-8, float32
+    at the kernel-vs-plain tolerance."""
+    ops, p, w, a, gvec = _kernel_inputs(seed=4)
+    rng = np.random.RandomState(0)
+    for dtype, rtol, atol in ((torch.float64, 1e-8, 1e-12),
+                              (torch.float32, RTOL, ATOL)):
+        gs = [torch.as_tensor(rng.randn(2, *w.shape), dtype=dtype)
+              for _ in range(p.niters)]
+        w_, a_ = w.to(dtype), a.to(dtype)
+        beta = torch.tensor(0.5, dtype=dtype)
+
+        def run(loop):
+            it = iter(gs)
+            return loop(w_, a_, lambda *_: tuple(next(it)), beta, p)
+
+        for x, y in zip(run(twin.adam_clip_recip), run(gk.adam_clip)):
+            _close(x, y, rtol, atol)
+
+
+def _scan_case(T, seed, dtype=torch.float64, spread=60.0):
+    """z = -g * tau of a clause at tau = 100: spread over +-hundreds, so the
+    exps of the scans underflow as they do in the kernel."""
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(spread * rng.randn(3, T, 7), dtype=dtype)
+
+
+@pytest.mark.parametrize("T", [1, 5, 12, 20, 32])
+def test_scan_sums_match_serial(T):
+    """Hillis-Steele exclusive prefix / suffix sums on 32 lanes against
+    cumsum, float64 to 1e-8 (they differ by summation order alone)."""
+    x = _scan_case(T, T, spread=1.0)
+    np.testing.assert_allclose(np_(twin.excl_prefix_scan(x)),
+                               np_(gk._excl_cumsum(x)), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(np_(twin.excl_suffix_scan(x)),
+                               np_(gk._excl_rev_cumsum(x)), rtol=1e-8,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("T,nt2", [(1, 1), (5, 2), (12, 6), (20, 10),
+                                   (20, 1), (20, 20), (32, 16)])
+def test_ev_scans_match_serial_and_autograd(T, nt2):
+    """The doubling logaddexp scan and the affine-map scan of its backward
+    against the serial recurrences and against autograd, float64 to 1e-8."""
+    tau = 100.0
+    g = (_scan_case(T, 10 * T + nt2) / tau).requires_grad_(True)
+    z = -g * tau
+    suf_s, m_s, S_s, ev_s = twin._ev_fwd(z, nt2)
+    suf, m2, S2, ev = twin.ev_fwd_scan(z, nt2)
+    np.testing.assert_allclose(np_(suf), np_(suf_s), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(np_(ev), np_(ev_s), rtol=1e-8, atol=1e-8)
+    gout = torch.as_tensor(np.random.RandomState(T).randn(3, 7))
+    got = twin.ev_bwd_scan(z.detach(), suf.detach(), nt2, m2.detach(),
+                           S2.detach(), gout)
+    serial = twin._ev_bwd(z.detach(), suf_s.detach(), nt2, m_s.detach(),
+                          S_s.detach(), gout)
+    ref, = torch.autograd.grad(torch.sum(ev_s / tau * gout), g)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(np_(got), np_(serial), rtol=1e-8,
+                               atol=1e-10 * scale)
+    np.testing.assert_allclose(np_(got), np_(ref), rtol=1e-8,
+                               atol=1e-10 * scale)
+
+
+@pytest.mark.parametrize("T,nt2,tau", [(20, 10, 100.0), (20, 10, 1.0),
+                                       (12, 6, 100.0), (32, 16, 5.0)])
+def test_ev_scan_matches_pallas_ev_alw(T, nt2, tau):
+    """float32, against the TPU kernel's own helper at its own tolerance
+    (``_ev_alw``: "equality tests use 2e-4")."""
+    g = _scan_case(T, 3, dtype=torch.float32, spread=0.6)[0]       # (T, R)
+    ref = pallas_guidance._ev_alw(jnp.asarray(np_(g)), tau, nt2)   # (1, R)
+    ev = twin.ev_fwd_scan((-g * tau)[None], nt2)[3] / tau          # (1, R)
+    np.testing.assert_allclose(np_(ev), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_wrapper_routes_cpu_to_plain():

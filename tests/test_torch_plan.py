@@ -46,7 +46,7 @@ def planner_setup(bs=2, scene_len=14, seed=0):
                                    ).finalize()
     data = jsyn.generate_dataset(seed, bs, cfg_j, scene_len=scene_len)
     sc_j = jsim.scenes_from_dataset(data)
-    sc_t = tsim.scenes_from_dataset(data)
+    sc_t = tsim.scenes_from_dataset(data, device="cpu")
     net_j = JNet(cfg_j)
     n = bs * cfg_j.n_randoms * 3
     obs0 = jax.vmap(lambda s, e, t: jsim.observe(s, e, t, cfg_j))(

@@ -119,3 +119,42 @@ def test_episode_matches_jax(setup):
         np.testing.assert_array_equal(np_(mt[k]), np_(mj[k]), err_msg=k)
     for k in ("progress", "stl_acc"):
         _close(mt[k], mj[k], 1e-4, 1e-4)
+
+
+def test_scenes_default_to_the_card(setup):
+    """``scenes_from_dataset`` with no device goes to the card; where there
+    is none it raises and names the argument that asks for the CPU."""
+    from pstl_tpu_torch.data import synthetic
+    from pstl_tpu_torch.device import resolve_device
+    from pstl_tpu_torch import train
+    cfg_t = setup[1]
+    data = synthetic.generate_dataset(1, 2, cfg_t, scene_len=14)
+    assert train.resolve_device is resolve_device    # one place for both
+    if torch.cuda.is_available():
+        assert tsim.scenes_from_dataset(data).ego_full.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tsim.scenes_from_dataset(data)
+    sc = tsim.scenes_from_dataset(data, device="cpu")
+    assert all(t.device.type == "cpu" for t in sc if t is not None)
+    for a, b in zip(sc, setup[3]):
+        np.testing.assert_array_equal(np_(a), np_(b))
+
+
+def test_planner_refuses_another_device(setup):
+    """The planner runs where the scenes are: a net or coefficients on
+    another device raise, at construction and in the plan."""
+    import copy
+    _, cfg_t, _, sc_t, _, _, net_t = setup
+    coeffs = tdiff.get_coeffs(cfg_t)
+    elsewhere = copy.deepcopy(net_t).to("meta")
+    with pytest.raises(ValueError, match="the net"):
+        tsim.make_closed_loop_step(sc_t, cfg_t, elsewhere, coeffs)
+    moved = tdiff.Coeffs(*(c.to("meta") for c in coeffs))
+    with pytest.raises(ValueError, match="coefficients"):
+        tsim.make_closed_loop_step(sc_t, cfg_t, net_t, moved)
+    plan = tsim.make_planner(cfg_t, elsewhere, coeffs)
+    obs = tsim.observe(sc_t, sc_t.ego_full[:, 0],
+                       torch.zeros(2, dtype=torch.long), cfg_t)
+    with pytest.raises(ValueError, match="the net"):
+        plan(obs)

@@ -121,3 +121,94 @@ def test_fold2_matches_pallas_interpret(cols):
     assert gk.launches == before           # CPU tensors: the plain version
     np.testing.assert_allclose(np_(out), np_(pal), rtol=2e-4, atol=2e-5)
     assert np.abs(np_(ft._from_cand_minor(out)) - mu).max() > 1e-4
+
+
+def _random_ops(hiddens, T, dtype, seed=0, bs=2, R=6):
+    """``eps_cm.operands``-shaped random MLP pieces with the given hidden
+    widths (each matrix the first bf16 values from 1.0 up, shuffled: exact
+    and all different, so a permutation shows)."""
+    rng = np.random.RandomState(seed)
+
+    def mat(*shape):
+        n = int(np.prod(shape))
+        bits = torch.arange(n, dtype=torch.int16) + 0x3f80   # 1.0 upwards
+        vals = bits.view(torch.bfloat16)[torch.as_tensor(rng.permutation(n))]
+        return vals.reshape(shape).to(dtype)
+
+    dims = list(hiddens)
+    return dict(
+        base_cm=torch.zeros((bs, dims[0], R), dtype=dtype),
+        WnwT=mat(dims[0], T), WnaT=mat(dims[0], T),
+        mid=[(mat(b, a), torch.zeros((b, 1), dtype=dtype))
+             for a, b in zip(dims, dims[1:])],
+        WowT=mat(T, dims[-1]), WoaT=mat(T, dims[-1]),
+        bow=torch.zeros((T, 1), dtype=dtype),
+        boa=torch.zeros((T, 1), dtype=dtype))
+
+
+def _fragment_order(W, n_mult):
+    """The B operand of ``mma.sync.aligned.m16n8k16.row.col`` for W^T
+    (n_out, n_in), written out lane by lane from the instruction's fragment
+    layout: lane = 4*g + q holds, in register b_r of a 16-deep k-step, the
+    pair k = 8*r + 2*q + {0, 1} of output n = g."""
+    n_out, n_in = W.shape
+    Np = -(-n_out // n_mult) * n_mult
+    Kp = -(-n_in // 32) * 32
+    Wp = np.zeros((Np, Kp), np.float32)
+    Wp[:n_out, :n_in] = W
+    out = []
+    for nt in range(Np // 8):
+        for kk in range(Kp // 32):              # two k-steps per 16 bytes
+            for lane in range(32):
+                g, q = lane // 4, lane % 4
+                for kstep in range(2):
+                    for r in range(2):
+                        for h in range(2):
+                            out.append(Wp[nt * 8 + g, kk * 32 + kstep * 16
+                                          + r * 8 + q * 2 + h])
+    return np.array(out, np.float32), Wp
+
+
+@pytest.mark.parametrize("hiddens,T", [((32,), 20), ((7, 5), 3),
+                                       ((9, 3, 5), 4), ((33,), 12)],
+                         ids=["nmid0", "nmid1_odd", "nmid2_odd", "odd_33"])
+def test_packed_weights_are_a_permutation(hiddens, T):
+    """``mlp_operands`` packs every bf16 matrix into the tensor-core
+    kernel's fragment order: the zero-padded operand, permuted, nothing
+    lost and nothing twice; float32 weights are not packed."""
+    ops = _random_ops(hiddens, T, torch.bfloat16)
+    mlp = sk.mlp_operands(ops)
+    assert mlp.packed is not None and len(mlp.packed.mid) == len(mlp.mid)
+    pairs = [(mlp.WnwT, mlp.packed.Wnw, 32), (mlp.WnaT, mlp.packed.Wna, 32),
+             (torch.cat([mlp.WowT, mlp.WoaT]), mlp.packed.Wo, 8)]
+    pairs += [(W, P, 32) for (W, _), P in zip(mlp.mid, mlp.packed.mid)]
+    for W, P, n_mult in pairs:
+        assert P.dtype == torch.bfloat16 and P.is_contiguous()
+        want, Wp = _fragment_order(np_(W.float()), n_mult)
+        np.testing.assert_array_equal(np_(P.float()), want)
+        np.testing.assert_array_equal(np.sort(np_(P.float())),
+                                      np.sort(Wp.reshape(-1)))
+        assert P.numel() % (32 * 8) == 0       # whole 16-byte lanes
+        assert int((P != 0).sum()) == W.numel()
+    assert sk.mlp_operands(_random_ops(hiddens, T, torch.float32)
+                           ).packed is None
+
+
+def test_no_hidden_layer_is_refused():
+    """``hiddens=()`` is not a configuration of the split MLP: layer 1 would
+    be the output layer, and the operands ``make_cm_eps_fn`` then makes do
+    not chain.  ``mlp_operands`` (which the superstep sampler calls once per
+    plan) refuses them by name, before the plain version or the kernel sees
+    them."""
+    import chip_smoke
+    from pstl_tpu_torch.config import bench_config
+    cfg = bench_config("heavy", gpallas="4").with_(hiddens=(), n_randoms=2)
+    torch.manual_seed(0)
+    net = tnet.Net(cfg).eval()
+    scenes = chip_smoke.scene_batch(cfg, torch.device("cpu"), n_scenes=1)
+    with pytest.raises(ValueError, match="at least one hidden layer"):
+        chip_smoke.superstep_inputs(cfg, scenes, net)
+    ops = _random_ops((32,), 20, torch.float32)
+    ops["WowT"] = ops["WowT"][:, :-1]
+    with pytest.raises(ValueError, match="at least one hidden layer"):
+        sk.mlp_operands(ops)
