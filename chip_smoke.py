@@ -53,11 +53,16 @@ and no result line is printed:
    ``guidance_sel_every=2``, 8 steps each, and ``"0"`` (the XLA guidance
    loop), 8 steps with no kernel launch.
 13. clearance kernels: the forward and backward min-clearance kernels
-   against their plain versions at n = 8192 rows (128 scenes x 64), K = 8,
-   T = 20, nL = 4, on the ``e2_vae_mono`` step's own inputs and on random
-   ones (about 30 % invalid neighbors, clearances on both sides of the clip
+   against their plain versions at n = 8192 rows, K = 8, T = 20, nL = 4, in
+   both layouts: on the ``e2_vae_mono`` step's own inputs (128 scenes'
+   neighbors, 64 rows a scene) and on random ones with a neighbor set per
+   row (about 30 % invalid neighbors, clearances on both sides of the clip
    bound), with a N(0, 1) cotangent; errors, the share beyond tolerance and
-   median times.
+   median times.  Their bound counts the function's own operands (the ego
+   states, the per-scene neighbors, the cotangent and the outputs, each
+   once) and ``clearance_ops``; the bytes' and the operations' times are
+   both printed.  The 67 TFLOP/s peak counts fused multiply-adds, which
+   these kernels, rounding product by product, cannot use.
 14. card vs CPU for one mono train step: ``e2_vae_mono`` in fp32 with
    stl_weight 1 (the backward kernel carries a nonzero cotangent), 16
    scenes x 64, the same draws: loss, metrics, every gradient and the
@@ -158,8 +163,11 @@ def gpu_name_power():
 
 
 #: a launch-geometry macro of a kernel source: warps and candidate columns a
-#: block, blocks an SM (the register cap), output tiles a warp
-GEOMETRY_MACRO = r"^#define (\w+_(?:WARPS|COLS|MINB|NTW)) +(\d+)"
+#: block, blocks an SM (the register cap), output tiles a warp; for the
+#: clearance kernels candidate rows and most threads a block, and the nL
+#: whose disc-pair loop is a template instance
+GEOMETRY_MACRO = (r"^#define (\w+_(?:WARPS|COLS|MINB|NTW|ROWS|THREADS|NLT)) "
+                  r"+(\d+)")
 
 
 def geometry(name):
@@ -292,15 +300,18 @@ def superstep_ops(mlp, p, bs, R, guided):
     return {dt: mlp_ops, "float32": fp32}
 
 
-def clearance_ops(n, K, T, nL, backward):
-    """Per (row, t): the ego discs (~4 per disc, cos, sin); per neighbor
-    its discs (~8 per disc, cos, sin), the nL*nL squared distances (~6
-    each, with the min), sqrt, radii, clip and mask (~10).  The backward
-    recomputes that, counts the pair ties of the minimal neighbor and routes
-    the cotangent (~8 per pair) and adds the heading term (~8 per disc)."""
-    fwd = 4 * nL + 2 + K * (8 * nL + 2 + 6 * nL * nL + 10)
-    ops = fwd + (fwd + 8 * nL * nL + 8 * nL if backward else 0)
-    return n * T * ops
+def clearance_ops(n, K, T, nL, backward, m=1):
+    """What the function needs, whatever implements it.  Per (scene, k, t),
+    with n / m scenes: the neighbor's discs (~8 per disc, cos, sin).  Per
+    (row, t): the ego discs (~4 per disc, cos, sin) and per neighbor the
+    nL*nL squared distances (~6 each, with the min), sqrt, radii, clip and
+    mask (~10).  The VJP is that forward once, the pair ties of the minimal
+    neighbor and the cotangent's routing (~8 per pair) and the heading term
+    (~8 per disc)."""
+    per_item = 4 * nL + 2 + K * (6 * nL * nL + 10)
+    if backward:
+        per_item += 8 * nL * nL + 8 * nL
+    return n * T * per_item + (n // m) * K * T * (8 * nL + 2)
 
 
 def scene_batch(cfg, dev, n_scenes=SCENES, scene_len=38):
@@ -933,8 +944,8 @@ def mono_net(cfg, dev, seed=0):
 def e2_clearance_inputs(dev, cfg, batch):
     """The clearance kernels' operands in one ``e2_vae_mono`` step on
     ``batch``: one eval forward on the card, its forward-kernel call
-    recorded (the rollouts of the batch's VAE controls and its neighbors,
-    repeated n_randoms times)."""
+    recorded: (ego, nei, rows_per_scene), the rollouts of the batch's VAE
+    controls, its per-scene neighbors and n_randoms."""
     import torch
     from pstl_tpu_torch import diffusion, specs, train
     from pstl_tpu_torch.ops import clearance_kernel as ck
@@ -945,7 +956,7 @@ def e2_clearance_inputs(dev, cfg, batch):
     real = ck.min_clearance_fwd
 
     def record(ego, nei, *a):
-        seen.append((ego, nei))
+        seen.append((ego, nei, a[-1]))
         return real(ego, nei, *a)
 
     ck.min_clearance_fwd = record
@@ -958,16 +969,16 @@ def e2_clearance_inputs(dev, cfg, batch):
     return seen[0]
 
 
-def clearance_near_ties(ego, nei, L, W, nL, margin):
+def clearance_near_ties(ego, nei, L, W, nL, margin, m=1):
     """(n, T) mask of the elements whose backward routing the plain version
     decides by at most ``margin`` metres: at a minimum inside the clip gate,
     the two smallest masked clearances over K, or, at a neighbor within
     ``margin`` of the minimum, its two closest disc pairs (in distance) or
     its clearance and a clip bound.  (Ties at the clip bound 20 or at the
-    invalid value 100 route nothing.)"""
+    invalid value 100 route nothing.)  ``m``: ego rows a neighbor set."""
     import torch
     from pstl_tpu_torch.ops import clearance_kernel as ck
-    masked, geo = ck._disc_geometry(ego, nei, L, W, nL)
+    masked, geo = ck._disc_geometry(ego, ck._per_row(ego, nei, m), L, W, nL)
     d2, per, valid = geo[4], geo[7], geo[8]
     srt = torch.sort(masked, dim=-1).values
     near = torch.zeros_like(srt[..., 0], dtype=torch.bool)
@@ -976,7 +987,8 @@ def clearance_near_ties(ego, nei, L, W, nL, margin):
                 & (srt[..., 0] < 20.0))
     dist = torch.sqrt(torch.sort(torch.stack(d2, -1).flatten(-2),
                                  dim=-1).values[..., :2] + 1e-12)
-    pair = dist[..., 1] - dist[..., 0] <= margin
+    pair = (dist[..., 1] - dist[..., 0] <= margin if dist.shape[-1] > 1
+            else torch.zeros_like(per, dtype=torch.bool))
     clip = ((per + 5.0).abs() <= margin) | ((per - 20.0).abs() <= margin)
     at_min = (masked <= srt[..., :1] + margin) & (valid > 0)
     return near | ((pair | clip) & at_min).any(-1)
@@ -1014,8 +1026,9 @@ def clearance_check(what, got, ref, rtol, near=None, atol=CLEAR_ATOL,
 
 def clearance_phase(dev):
     """Phase 13: both clearance kernels vs their plain versions at the main
-    shapes on the e2 step's inputs and on random ones; returns per kernel
-    (max error, ms, plain ms, bound) with the times on the e2 inputs."""
+    shapes on the e2 step's inputs (per-scene neighbors, 64 rows a scene)
+    and on random ones (a neighbor set per row); returns per kernel (max
+    error, ms, plain ms, bound) with the times on the e2 inputs."""
     import numpy as np
     import torch
     from pstl_tpu_torch.config import mono_config
@@ -1030,24 +1043,28 @@ def clearance_phase(dev):
     n = cfg.batch_size * cfg.n_randoms
     sets = {"e2 step": e2_clearance_inputs(dev, cfg, batch),
             "random": tuple(x.to(dev) for x in clearance_random_inputs(
-                n, cfg.n_neighbors, cfg.nt, seed=1))}
+                n, cfg.n_neighbors, cfg.nt, seed=1)) + (1,)}
     g = torch.randn((n, cfg.nt),
                     generator=torch.Generator().manual_seed(2)).to(dev)
     worst = {"fwd": 0.0, "bwd": 0.0}
     res = {}
-    for name, (ego, nei) in sets.items():
-        if tuple(ego.shape) != (n, cfg.nt, 3) or nei.shape[1] != 8:
+    for name, (ego, nei, m) in sets.items():
+        want_m = cfg.n_randoms if name == "e2 step" else 1
+        if (tuple(ego.shape) != (n, cfg.nt, 3) or m != want_m
+                or tuple(nei.shape) != (n // m, 8, cfg.nt, 7)):
             raise RuntimeError(f"clearance inputs {name}: shapes "
-                               f"{tuple(ego.shape)}, {tuple(nei.shape)}")
-        fwd = lambda: ck.min_clearance_fwd(ego, nei, L, W, nL)
-        fwd_p = lambda: ck.min_clearance_fwd_plain(ego, nei, L, W, nL)
-        bwd = lambda: ck.min_clearance_bwd(ego, nei, g, L, W, nL)
-        bwd_p = lambda: ck.min_clearance_bwd_plain(ego, nei, g, L, W, nL)
+                               f"{tuple(ego.shape)}, {tuple(nei.shape)}, "
+                               f"{m} rows a scene")
+        fwd = lambda: ck.min_clearance_fwd(ego, nei, L, W, nL, m)
+        fwd_p = lambda: ck.min_clearance_fwd_plain(ego, nei, L, W, nL, m)
+        bwd = lambda: ck.min_clearance_bwd(ego, nei, g, L, W, nL, m)
+        bwd_p = lambda: ck.min_clearance_bwd_plain(ego, nei, g, L, W, nL, m)
         out, d = fwd(), bwd()
         ref, dref = fwd_p(), bwd_p()
         torch.cuda.synchronize()
         per = ref[ref < 100]
-        log(f"clearance inputs {name}: n={n} K={nei.shape[1]} T={cfg.nt} "
+        log(f"clearance inputs {name}: n={n} ({n // m} neighbor sets x {m} "
+            f"rows) K={nei.shape[1]} T={cfg.nt} "
             f"nL={nL}; clearances in [{float(per.min()):.3f}, "
             f"{float(per.max()):.3f}], {float((ref == 20).float().mean()):.3f}"
             f" clipped at 20, {float((ref == 100).float().mean()):.4f} "
@@ -1056,23 +1073,31 @@ def clearance_phase(dev):
             f"clearance forward ({name})", out, ref, CLEAR_FWD_RTOL))
         worst["bwd"] = max(worst["bwd"], clearance_check(
             f"clearance backward ({name})", d, dref, CLEAR_BWD_RTOL,
-            clearance_near_ties(ego, nei, L, W, nL, CLEAR_TIE_M)))
+            clearance_near_ties(ego, nei, L, W, nL, CLEAR_TIE_M, m)))
         if float(d.abs().max()) <= 0:
             raise RuntimeError(f"clearance backward ({name}) is all zero")
-        if name == "e2 step":
-            res["fwd"] = (kernel_ms(fwd), time_cuda(fwd_p),
-                          bound(nbytes(ego, nei, out),
-                                clearance_ops(n, nei.shape[1], cfg.nt, nL,
-                                              False)))
-            res["bwd"] = (kernel_ms(bwd), time_cuda(bwd_p),
-                          bound(nbytes(ego, nei, g, d),
-                                clearance_ops(n, nei.shape[1], cfg.nt, nL,
-                                              True)))
-    for k, (ms, plain_ms, bnd) in res.items():
-        log(f"clearance {k} times (e2 step inputs, n={n}): kernel "
-            f"{ms['graph_ms']:.4f} ms (graph replay), one eager call "
-            f"{ms['ms']:.4f} ms, plain {plain_ms:.4f} ms (median of 20); bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]})")
+        if name != "e2 step":
+            log(f"clearance times ({name} inputs, a neighbor set per row): "
+                f"forward {time_kernel(fwd):.4f} ms, backward "
+                f"{time_kernel(bwd):.4f} ms (graph replay)")
+            continue
+        # the function's own operands, each once: the neighbors per scene
+        for k, call, plain, operands in (("fwd", fwd, fwd_p, (ego, nei, out)),
+                                         ("bwd", bwd, bwd_p,
+                                          (ego, nei, g, d))):
+            n_bytes = nbytes(*operands)
+            ops = clearance_ops(n, nei.shape[1], cfg.nt, nL, k == "bwd", m)
+            ms, plain_ms, bnd = res[k] = (kernel_ms(call), time_cuda(plain),
+                                          bound(n_bytes, ops))
+            log(f"clearance {k} times (e2 step inputs, n={n}): kernel "
+                f"{ms['graph_ms']:.4f} ms (graph replay), one eager call "
+                f"{ms['ms']:.4f} ms, plain {plain_ms:.4f} ms (median of "
+                f"20); bound {bnd[0]:.5f} ms ({bnd[1]}): {n_bytes} bytes, "
+                f"{n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; "
+                f"{ops} float32 operations, "
+                f"{ops / OPS_PER_S['float32'] * 1e3:.5f} ms at 67 TFLOP/s "
+                f"(a peak of fused multiply-adds, which the kernels' "
+                f"product-by-product rounding cannot use)")
     log(f"clearance: phase wall {time.time() - t0:.1f} s")
     return {k: (worst[k],) + v for k, v in res.items()}
 
@@ -1111,7 +1136,8 @@ def mono_reference_phase(dev):
             d_ego = real_bwd(ego, nei, g, *a)
             if zero_vjp:
                 d_ego = torch.zeros_like(d_ego)
-            seen.append(tuple(x.detach().cpu() for x in (ego, nei, g, d_ego)))
+            seen.append(tuple(x.detach().cpu() for x in (ego, nei, g, d_ego))
+                        + (a[-1],))
             return d_ego
 
         net = copy.deepcopy(net_cpu).to(d)
@@ -1142,8 +1168,8 @@ def mono_reference_phase(dev):
         return max(float((ga[k] - gb[k]).abs().max())
                    / max(float(gb[k].abs().max()), 1e-30) for k in gb)
 
-    m_cpu, g_cpu, (ego, nei, cot, d_cpu) = run("cpu")
-    m_dev, g_dev, (ego_dev, _, cot_dev, d_dev) = run(dev)
+    m_cpu, g_cpu, (ego, nei, cot, d_cpu, rows) = run("cpu")
+    m_dev, g_dev, (ego_dev, _, cot_dev, d_dev, _) = run(dev)
     _, g_zero, _ = run(dev, zero_vjp=True)
     if not float(cot.abs().max()) > 0 or not float(d_cpu.abs().max()) > 0:
         raise RuntimeError("the clearance VJP got or gave a zero cotangent")
@@ -1169,7 +1195,7 @@ def mono_reference_phase(dev):
     clearance_check(
         "mono reference backward kernel output (card vs cpu)", d_dev, d_cpu,
         MONO_GRAD_TOL, clearance_near_ties(ego, nei, cfg.ego_L, cfg.ego_W,
-                                           cfg.refined_nL, MONO_TIE_M),
+                                           cfg.refined_nL, MONO_TIE_M, rows),
         atol=MONO_GRAD_TOL * d_scale, max_share=MONO_MAX_OFF_SHARE)
 
 

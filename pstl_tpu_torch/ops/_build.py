@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +33,13 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: per library: seconds the build took (0.0 when it was already built) and
 #: the compiler's report (registers, shared memory and spills per kernel)
 BUILD_INFO: Dict[str, dict] = {}
+
+
+def source_macros(name: str) -> Dict[str, int]:
+    """The integer ``#define``s of ``csrc/<name>.cu``: macro -> value."""
+    with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"^#define (\w+) +(\d+)$", f.read(), re.M)}
 
 
 def find_nvcc() -> str:

@@ -10,6 +10,14 @@ custom VJP.  On CUDA tensors :func:`min_clearance_fwd` and
 computation in PyTorch ops.  There is no fallback from one to the other.
 ``fwd_launches`` and ``bwd_launches`` count kernel launches.
 
+Neighbors are given per scene: ``nei`` is (n / m, K, T, 7) for n ego rows,
+``m = rows_per_scene``, and row r meets the neighbors of scene ``r // m``
+(the order of ``torch.repeat_interleave(x, m, 0)``).  ``m = 1`` is one
+neighbor set per row, the TPU kernel's layout.  The kernels build a scene's
+neighbor discs once per block in shared memory, where every candidate row of
+the block reads them; the plain versions repeat the neighbors themselves and
+are then ``_fwd_block`` / ``_bwd_block`` on the expanded rows.
+
 :class:`MinClearance` is the autograd function: its forward is the forward
 kernel, its backward the backward kernel, which recomputes the forward from
 the inputs (no residual is saved) and gives no gradient to the neighbors.
@@ -31,6 +39,7 @@ range and for valid neighbors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,7 +49,15 @@ Tensor = torch.Tensor
 fwd_launches = 0
 bwd_launches = 0
 
-_MAXK, _MAXNL = 64, 8
+
+@functools.lru_cache(maxsize=None)
+def _limits():
+    """(most nL, bytes of shared memory a block can use) as the kernels'
+    source defines them; one scene's discs, K*T*(2*nL+2) floats, must fit
+    the latter."""
+    from pstl_tpu_torch.ops import _build
+    macros = _build.source_macros("min_clearance")
+    return macros["MC_MAXNL"], macros["MC_SMEM_MAX"]
 
 
 def _consts(ego_L: float, ego_W: float):
@@ -89,19 +106,37 @@ def _disc_geometry(ego: Tensor, nei: Tensor, ego_L: float, ego_W: float,
                     sth)
 
 
+def _check_rows(n: int, scenes: int, m: int) -> None:
+    if m < 1 or n % m != 0:
+        raise ValueError(f"min_clearance: n={n} ego rows are no multiple of "
+                         f"rows_per_scene={m}")
+    if scenes * m != n:
+        raise ValueError(f"min_clearance: nei holds {scenes} scenes, "
+                         f"expected n / rows_per_scene = {n} / {m} = {n // m}")
+
+
+def _per_row(ego: Tensor, nei: Tensor, m: int) -> Tensor:
+    """The neighbors of every ego row: each scene's repeated m times."""
+    _check_rows(ego.shape[0], nei.shape[0], m)
+    return nei if m == 1 else torch.repeat_interleave(nei, m, 0)
+
+
 def min_clearance_fwd_plain(ego: Tensor, nei: Tensor, ego_L: float,
-                            ego_W: float, num_L: int = 4) -> Tensor:
-    """``_fwd_block``: (n, T, 3), (n, K, T, 7) -> (n, T)."""
-    masked, _ = _disc_geometry(ego, nei, ego_L, ego_W, num_L)
+                            ego_W: float, num_L: int = 4,
+                            rows_per_scene: int = 1) -> Tensor:
+    """``_fwd_block``: (n, T, 3), (n / m, K, T, 7) -> (n, T)."""
+    masked, _ = _disc_geometry(ego, _per_row(ego, nei, rows_per_scene),
+                               ego_L, ego_W, num_L)
     return torch.amin(masked, dim=-1)
 
 
 def min_clearance_bwd_plain(ego: Tensor, nei: Tensor, g: Tensor,
-                            ego_L: float, ego_W: float,
-                            num_L: int = 4) -> Tensor:
+                            ego_L: float, ego_W: float, num_L: int = 4,
+                            rows_per_scene: int = 1) -> Tensor:
     """``_bwd_block``: the cotangent g (n, T) -> d ego (n, T, 3)."""
     masked, (ex, ey, nx, ny, d2, d2min, dist, per, valid, ax, cth,
-             sth) = _disc_geometry(ego, nei, ego_L, ego_W, num_L)
+             sth) = _disc_geometry(ego, _per_row(ego, nei, rows_per_scene),
+                                   ego_L, ego_W, num_L)
     out = torch.amin(masked, dim=-1, keepdim=True)
     eqK = (masked == out).to(g.dtype)
     wK = eqK / torch.clamp(eqK.sum(-1, keepdim=True), min=1.0)
@@ -133,7 +168,7 @@ def _lib():
     for fn, nptr in ((lib.pstl_min_clearance_fwd, 3),
                      (lib.pstl_min_clearance_bwd, 4)):
         if fn.argtypes is None:
-            fn.argtypes = [_P] * nptr + [_I] * 4 + [_F] * 3 + [_P]
+            fn.argtypes = [_P] * nptr + [_I] * 5 + [_F] * 3 + [_P]
             fn.restype = _I
     return lib
 
@@ -152,29 +187,40 @@ def _check(name: str, x: Tensor, shape, dev) -> None:
         raise ValueError(f"min_clearance: {name} must be contiguous")
 
 
-def _sizes(ego: Tensor, nei: Tensor, num_L: int):
+def _sizes(ego: Tensor, nei: Tensor, num_L: int, rows_per_scene: int = 1):
+    """(n, T, K) of operands the kernels take; raises on any other."""
     if ego.ndim != 3 or nei.ndim != 4:
         raise ValueError(f"min_clearance: ego must be (n, T, 3) and nei "
-                         f"(n, K, T, 7), got {tuple(ego.shape)} and "
-                         f"{tuple(nei.shape)}")
+                         f"(n / rows_per_scene, K, T, 7), got "
+                         f"{tuple(ego.shape)} and {tuple(nei.shape)}")
     n, T = ego.shape[:2]
     K = nei.shape[1]
-    if not (1 <= K <= _MAXK and 1 <= num_L <= _MAXNL):
-        raise ValueError(f"min_clearance: K={K}, nL={num_L} beyond the "
-                         f"kernel's limits (K<={_MAXK}, nL<={_MAXNL})")
+    _check_rows(n, nei.shape[0], rows_per_scene)
+    max_nL, smem_max = _limits()
+    if not (K >= 1 and T >= 1 and 1 <= num_L <= max_nL):
+        raise ValueError(f"min_clearance: K={K}, T={T}, nL={num_L} beyond "
+                         f"the kernel's limits (K>=1, T>=1, 1<=nL<={max_nL})")
+    scene_bytes = 4 * K * T * (2 * num_L + 2)
+    if scene_bytes > smem_max:
+        raise ValueError(f"min_clearance: one scene's neighbor discs, "
+                         f"K*T*(2*nL+2) floats = {scene_bytes} bytes at K={K},"
+                         f" T={T}, nL={num_L}, do not fit the {smem_max} "
+                         f"bytes of shared memory a block can use")
     _check("ego", ego, (n, T, 3), ego.device)
-    _check("nei", nei, (n, K, T, 7), ego.device)
+    _check("nei", nei, (n // rows_per_scene, K, T, 7), ego.device)
     return n, T, K
 
 
-def _launch_fwd(ego, nei, ego_L, ego_W, num_L) -> Tensor:
+def _launch_fwd(ego, nei, ego_L, ego_W, num_L, rows_per_scene) -> Tensor:
     global fwd_launches
-    n, T, K = _sizes(ego, nei, num_L)
+    n, T, K = _sizes(ego, nei, num_L, rows_per_scene)
     out = torch.empty((n, T), dtype=torch.float32, device=ego.device)
+    if n == 0:
+        return out
     stream = torch.cuda.current_stream(ego.device).cuda_stream
     err = _lib().pstl_min_clearance_fwd(
         ego.data_ptr(), nei.data_ptr(), out.data_ptr(), n, T, K, num_L,
-        *_consts(ego_L, ego_W), stream)
+        rows_per_scene, *_consts(ego_L, ego_W), stream)
     if err != 0:
         raise RuntimeError(f"min_clearance forward kernel launch failed: "
                            f"CUDA error {err}")
@@ -182,15 +228,18 @@ def _launch_fwd(ego, nei, ego_L, ego_W, num_L) -> Tensor:
     return out
 
 
-def _launch_bwd(ego, nei, g, ego_L, ego_W, num_L) -> Tensor:
+def _launch_bwd(ego, nei, g, ego_L, ego_W, num_L,
+                rows_per_scene) -> Tensor:
     global bwd_launches
-    n, T, K = _sizes(ego, nei, num_L)
+    n, T, K = _sizes(ego, nei, num_L, rows_per_scene)
     _check("g", g, (n, T), ego.device)
     d_ego = torch.empty((n, T, 3), dtype=torch.float32, device=ego.device)
+    if n == 0:
+        return d_ego
     stream = torch.cuda.current_stream(ego.device).cuda_stream
     err = _lib().pstl_min_clearance_bwd(
         ego.data_ptr(), nei.data_ptr(), g.data_ptr(), d_ego.data_ptr(), n, T,
-        K, num_L, *_consts(ego_L, ego_W), stream)
+        K, num_L, rows_per_scene, *_consts(ego_L, ego_W), stream)
     if err != 0:
         raise RuntimeError(f"min_clearance backward kernel launch failed: "
                            f"CUDA error {err}")
@@ -199,25 +248,28 @@ def _launch_bwd(ego, nei, g, ego_L, ego_W, num_L) -> Tensor:
 
 
 def min_clearance_fwd(ego: Tensor, nei: Tensor, ego_L: float, ego_W: float,
-                      num_L: int = 4) -> Tensor:
+                      num_L: int = 4, rows_per_scene: int = 1) -> Tensor:
     """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
     if ego.device.type == "cuda":
-        return _launch_fwd(ego, nei, ego_L, ego_W, num_L)
+        return _launch_fwd(ego, nei, ego_L, ego_W, num_L, rows_per_scene)
     if ego.device.type == "cpu":
-        return min_clearance_fwd_plain(ego, nei, ego_L, ego_W, num_L)
+        return min_clearance_fwd_plain(ego, nei, ego_L, ego_W, num_L,
+                                       rows_per_scene)
     raise ValueError(f"min_clearance: no implementation for device "
                      f"{ego.device}")
 
 
 def min_clearance_bwd(ego: Tensor, nei: Tensor, g: Tensor, ego_L: float,
-                      ego_W: float, num_L: int = 4) -> Tensor:
+                      ego_W: float, num_L: int = 4,
+                      rows_per_scene: int = 1) -> Tensor:
     """VJP: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
     if ego.device.type == "cuda":
-        return _launch_bwd(ego, nei, g, ego_L, ego_W, num_L)
+        return _launch_bwd(ego, nei, g, ego_L, ego_W, num_L, rows_per_scene)
     if ego.device.type == "cpu":
-        return min_clearance_bwd_plain(ego, nei, g, ego_L, ego_W, num_L)
+        return min_clearance_bwd_plain(ego, nei, g, ego_L, ego_W, num_L,
+                                       rows_per_scene)
     raise ValueError(f"min_clearance: no implementation for device "
                      f"{ego.device}")
 
@@ -227,31 +279,33 @@ class MinClearance(torch.autograd.Function):
     the inputs; no gradient to ``nei``)."""
 
     @staticmethod
-    def forward(ctx, ego, nei, ego_L, ego_W, num_L):
+    def forward(ctx, ego, nei, ego_L, ego_W, num_L, rows_per_scene):
         ctx.save_for_backward(ego, nei)
-        ctx.consts = (ego_L, ego_W, num_L)
-        return min_clearance_fwd(ego, nei, ego_L, ego_W, num_L)
+        ctx.consts = (ego_L, ego_W, num_L, rows_per_scene)
+        return min_clearance_fwd(ego, nei, *ctx.consts)
 
     @staticmethod
     def backward(ctx, g):
         ego, nei = ctx.saved_tensors
         d_ego = min_clearance_bwd(ego, nei, g.float().contiguous(),
                                   *ctx.consts)
-        return d_ego, None, None, None, None
+        return d_ego, None, None, None, None, None
 
 
 def min_clearance(ego_xyth: Tensor, nei: Tensor, ego_L: float, ego_W: float,
-                  num_L: int = 4) -> Tensor:
+                  num_L: int = 4, rows_per_scene: int = 1) -> Tensor:
     """Fused masked min neighbor clearance.  ego_xyth: (n, T, 3); nei:
-    (n, K, T, 7) rows (valid, x, y, th, -, L, W).  Returns (n, T) float32."""
+    (n / rows_per_scene, K, T, 7) rows (valid, x, y, th, -, L, W).  Returns
+    (n, T) float32."""
     return MinClearance.apply(ego_xyth.float().contiguous(),
-                              nei.float().contiguous(), ego_L, ego_W, num_L)
+                              nei.float().contiguous(), ego_L, ego_W, num_L,
+                              rows_per_scene)
 
 
 def neighbor_rows(nei_traj: Tensor, nei_valid: Tensor) -> Tensor:
     """The kernels' 7-column neighbor rows (valid, x, y, th, 0, L, W) from
-    tracks (n, K, T, >=6) rows (x, y, th, ..., L, W) and validity (n, K, T),
-    without gradient."""
+    tracks (..., K, T, >=6) rows (x, y, th, ..., L, W) and validity
+    (..., K, T), without gradient."""
     return torch.cat([nei_valid[..., None], nei_traj[..., 0:3],
                       torch.zeros_like(nei_traj[..., 0:1]),
                       nei_traj[..., -2:-1], nei_traj[..., -1:]],
@@ -260,9 +314,11 @@ def neighbor_rows(nei_traj: Tensor, nei_valid: Tensor) -> Tensor:
 
 def min_neighbor_distance_fused(ego_traj: Tensor, nei_traj: Tensor,
                                 nei_valid: Tensor, ego_L: float,
-                                ego_W: float, num_L: int = 4) -> Tensor:
+                                ego_W: float, num_L: int = 4,
+                                rows_per_scene: int = 1) -> Tensor:
     """Drop-in for ``geometry.min_neighbor_distance`` with ``num_W == 1``.
-    ego_traj: (n, T, >=3); nei_traj: (n, K, T, >=6) rows (x, y, th, ..., L,
-    W); nei_valid: (n, K, T).  Returns (n, T)."""
+    ego_traj: (n, T, >=3); nei_traj: (n / rows_per_scene, K, T, >=6) rows
+    (x, y, th, ..., L, W); nei_valid: (n / rows_per_scene, K, T).  Returns
+    (n, T)."""
     return min_clearance(ego_traj[..., :3], neighbor_rows(nei_traj, nei_valid),
-                         ego_L, ego_W, num_L)
+                         ego_L, ego_W, num_L, rows_per_scene)

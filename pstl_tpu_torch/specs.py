@@ -36,6 +36,20 @@ HL_KEEP, HL_LEFT, HL_RIGHT, HL_OUTLIER = 0, 1, 2, 3
 # signal cache
 # ---------------------------------------------------------------------------
 
+def clearance_route(cfg: Config, x: Sequence[str] = (),
+                    with_collision: bool = False) -> str:
+    """Which of its three routes ``prep_signals`` takes for the neighbor
+    clearance of signals with the keys ``x``: "discs" (hoisted neighbor
+    discs), "kernel" (the clearance kernels) or "geometry"
+    (``geometry.min_neighbor_distance``)."""
+    if (with_collision or cfg.collision_loss is not None
+            or cfg.refined_nW != 1):
+        return "geometry"
+    if "nei_discs" in x:
+        return "discs"
+    return "kernel" if cfg.use_pallas_clearance else "geometry"
+
+
 def prep_signals(x: Dict[str, Tensor], cfg: Config,
                  with_collision: bool = False) -> Dict[str, Tensor]:
     """Lane-distance / neighbor-clearance signals the formulas read.
@@ -45,10 +59,14 @@ def prep_signals(x: Dict[str, Tensor], cfg: Config,
     (n, n_segs, 3); stlp (n, 1, 6) or (n, T, 6); optionally nei_discs.
     Adds x2{curr,left,right}_d / _th (n, T), min_nei_d (n, T)
     [, min_centroid_d, radius_sum] and the norm_stl factors.  The neighbor
-    clearance takes one of three routes, as in the JAX package: hoisted
-    discs (``geometry.min_clearance_tiled``), the clearance kernels under
-    ``cfg.use_pallas_clearance`` (``ops/clearance_kernel.py``), or
-    ``geometry.min_neighbor_distance``.
+    clearance takes one of three routes (``clearance_route``), as in the
+    JAX package: hoisted discs (``geometry.min_clearance_tiled``), the
+    clearance kernels under ``cfg.use_pallas_clearance``
+    (``ops/clearance_kernel.py``), or ``geometry.min_neighbor_distance``.
+    On the kernel route only, ``neighbors`` may hold one set per scene,
+    (n / m, K, T, 7) for m consecutive ego rows a scene: the kernels read a
+    scene's neighbors once for all its rows.  The other routes raise on
+    that.
     """
     out = dict(x)
     pts = x["ego_traj"][..., 0:3]
@@ -60,15 +78,22 @@ def prep_signals(x: Dict[str, Tensor], cfg: Config,
         out[f"x2{key}_th"] = th
 
     nei = x["neighbors"]
+    n = x["ego_traj"].shape[0]
     need_full = with_collision or cfg.collision_loss is not None
-    if "nei_discs" in x and not need_full and cfg.refined_nW == 1:
+    route = clearance_route(cfg, x, with_collision)
+    if route != "kernel" and nei.shape[0] != n:
+        raise ValueError(
+            f"prep_signals: neighbors for {nei.shape[0]} rows, ego_traj has "
+            f"{n}; only the clearance kernels take per-scene neighbors")
+    if route == "discs":
         out["min_nei_d"] = geom.min_clearance_tiled(
             x["ego_traj"][:, None, :, 0:3], x["nei_discs"], cfg.ego_L,
             cfg.ego_W, cfg.refined_nL)[:, 0]
-    elif cfg.use_pallas_clearance and not need_full and cfg.refined_nW == 1:
+    elif route == "kernel":
         out["min_nei_d"] = clearance_kernel.min_neighbor_distance_fused(
             x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],
-            ego_L=cfg.ego_L, ego_W=cfg.ego_W, num_L=cfg.refined_nL)
+            ego_L=cfg.ego_L, ego_W=cfg.ego_W, num_L=cfg.refined_nL,
+            rows_per_scene=max(n // max(nei.shape[0], 1), 1))
     else:
         res = geom.min_neighbor_distance(
             x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],

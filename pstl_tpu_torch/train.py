@@ -107,10 +107,15 @@ def _mono_forward_and_loss(net: Net, batch, cfg: Config, formulas,
     ones = torch.ones((n,), device=dev)
     mul = lambda x: torch.repeat_interleave(x, M, 0)
 
+    # the clearance kernels read a scene's neighbors once for its M rows
+    nei = batch["neighbor_trajs_aug"]
+    if specs.clearance_route(cfg) != "kernel":
+        nei = mul(nei)
+
     def scores_of(controls):
         trajs = dyn.rollout(states_mul, controls, cfg.dt)
         sig = {"ego_traj": trajs[:, :-1],
-               "neighbors": mul(batch["neighbor_trajs_aug"]),
+               "neighbors": nei,
                "currlane_wpts": mul(batch["currlane_wpts"]),
                "leftlane_wpts": mul(batch["leftlane_wpts"]),
                "rightlane_wpts": mul(batch["rightlane_wpts"]),
@@ -180,7 +185,7 @@ def batch_forward_and_loss(params: Net, batch: Dict[str, Tensor],
     if not cfg.gt_data_training:
         raise NotImplementedError(
             "the dense (multi_check) training step is not ported "
-            "(ROADMAP.md §1 item 14); the port trains the mono presets")
+            "(ROADMAP.md §1 item 7); the port trains the mono presets")
     batch = attach_neighbors(batch, cfg)
     gt_trajs = batch["ego_traj"][..., :4]
     states = gt_trajs[:, 0, :4]
@@ -269,7 +274,7 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     if cfg.exp_name:
         raise NotImplementedError(
             "checkpoints and viz of an experiment directory are not ported "
-            "(ROADMAP.md §1 item 14): pass exp_name=None")
+            "(ROADMAP.md §1 items 7 and 12): pass exp_name=None")
     if cfg.net_pretrained_path:
         raise NotImplementedError("loading pretrained weights into training "
                                   "is not ported")

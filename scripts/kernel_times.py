@@ -1,12 +1,16 @@
-"""Times and ptxas reports of the guidance and superstep kernels of one
-checkout of the port, on one GPU.
+"""Times and ptxas reports of the guidance, superstep and clearance kernels
+of one checkout of the port, on one GPU.
 
 Imports ``pstl_tpu_torch`` and ``chip_smoke`` from ``--repo`` (default: this
 checkout), builds its kernel libraries, prints ptxas's registers, spills and
 stack frame per kernel, and times the fused guidance kernel, the
 frozen-payload kernel and the superstep kernel (guided and unguided) at the
 main path's shapes (16 scenes, R=192, T=20, K=8, hidden 256, bf16, e7_round5
-weights, t=60): the kernel's own time as a CUDA graph replays 20 launches,
+weights, t=60), and the clearance kernel pair on the ``e2_vae_mono`` step's
+own operands (128 scenes x 64 rows, K=8, T=20, nL=4, as ``--repo``'s step
+hands them to the kernels: one neighbor set per scene, or, in a checkout
+whose kernels take one per row, each scene's repeated 64 times; the values
+are the same): the kernel's own time as a CUDA graph replays 20 launches,
 and one eager call of its wrapper (median of 20, CUDA events).  The last
 line is one JSON object.  The timers and the report parser are this
 checkout's (``chip_smoke.kernel_ms``, ``_build.ptxas_summary``), loaded
@@ -26,7 +30,7 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIBS = ("guidance_fused", "guidance_frozen", "superstep")
+LIBS = ("guidance_fused", "guidance_frozen", "superstep", "min_clearance")
 
 
 def own_module(path, name):
@@ -42,14 +46,18 @@ def own_module(path, name):
 def main_path_calls(dev):
     """The kernels' calls at the main path's shapes, from the ``chip_smoke``
     and ``pstl_tpu_torch`` on ``sys.path``: name -> (wrapper call, plain
-    version's call, the controls the guided update starts from or None for
-    the unguided step); and beta_t of the step, t=60."""
+    version's call, check(got, ref, what) that raises where the two
+    disagree beyond ``chip_smoke.py``'s tolerances).  Each name starts with
+    its library's."""
+    import numpy as np
     import torch
     import chip_smoke as cs
     from pstl_tpu_torch import diffusion
-    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.config import bench_config, mono_config
+    from pstl_tpu_torch.data.dataset import SceneDataset
     from pstl_tpu_torch.models import convert
     from pstl_tpu_torch.models.net import Net
+    from pstl_tpu_torch.ops import clearance_kernel as ck
     from pstl_tpu_torch.ops import guidance_kernel as gk
     from pstl_tpu_torch.ops import superstep_kernel as sk
 
@@ -73,19 +81,52 @@ def main_path_calls(dev):
     j = cfg.diffusion_steps - 1 - 60
     ss = lambda guided: (x, z, te_all[j], gvec_all[j], mlp, gops, sp, guided)
     start = torch.stack([w, a])
+
+    def guided(start):
+        return lambda got, ref, what: cs.check_guided(got, ref, start,
+                                                      float(beta), what)
+
+    def unguided(got, ref, what):
+        if bool((~torch.isfinite(got) | ((got - ref).abs() > cs.SS_ATOL
+                                         + cs.SS_RTOL * ref.abs())).any()):
+            raise RuntimeError(f"{what}: disagrees with the plain version")
+
+    # the e2 step's clearance operands; ``rows`` is (rows a scene,), or ()
+    # where the step repeats the neighbors per row itself
+    mcfg = mono_config("e2_vae_mono")
+    ds = SceneDataset.from_synthetic(mcfg, seed=0, n_scenes=mcfg.batch_size)
+    ego, nei, *rows = cs.e2_clearance_inputs(
+        dev, mcfg, ds.gather(np.arange(mcfg.batch_size)))
+    geo = (mcfg.ego_L, mcfg.ego_W, mcfg.refined_nL, *rows)
+    cot = torch.randn(ego.shape[:2],
+                      generator=torch.Generator().manual_seed(2)).to(dev)
+    near = cs.clearance_near_ties(ego, nei, *geo[:3], cs.CLEAR_TIE_M, *rows)
     return {
         "guidance_fused": (
             lambda: torch.stack(gk.guidance_fused(*fused_args)),
-            lambda: torch.stack(gk.guidance_fused_plain(*fused_args)), start),
+            lambda: torch.stack(gk.guidance_fused_plain(*fused_args)),
+            guided(start)),
         "guidance_frozen": (
             lambda: torch.stack(gk.guidance_frozen(*frozen_args)),
             lambda: torch.stack(gk.guidance_frozen_plain(*frozen_args)),
-            start),
+            guided(start)),
         "superstep guided": (lambda: sk.superstep(*ss(True)),
-                             lambda: sk.superstep_plain(*ss(True)), x),
+                             lambda: sk.superstep_plain(*ss(True)),
+                             guided(x)),
         "superstep unguided": (lambda: sk.superstep(*ss(False)),
-                               lambda: sk.superstep_plain(*ss(False)), None),
-    }, float(beta)
+                               lambda: sk.superstep_plain(*ss(False)),
+                               unguided),
+        "min_clearance forward": (
+            lambda: ck.min_clearance_fwd(ego, nei, *geo),
+            lambda: ck.min_clearance_fwd_plain(ego, nei, *geo),
+            lambda got, ref, what: cs.clearance_check(
+                what, got, ref, cs.CLEAR_FWD_RTOL)),
+        "min_clearance backward": (
+            lambda: ck.min_clearance_bwd(ego, nei, cot, *geo),
+            lambda: ck.min_clearance_bwd_plain(ego, nei, cot, *geo),
+            lambda got, ref, what: cs.clearance_check(
+                what, got, ref, cs.CLEAR_BWD_RTOL, near)),
+    }
 
 
 def main():
@@ -111,7 +152,7 @@ def main():
         for ln in ptxas[name]:
             print(f"{repo}: ptxas {name}: {ln}", flush=True)
 
-    calls, _ = main_path_calls(torch.device("cuda", 0))
+    calls = main_path_calls(torch.device("cuda", 0))
     ms = {}
     with torch.no_grad():
         for what, (fn, _, _) in calls.items():

@@ -1,18 +1,27 @@
-"""Profile closed-loop replanning steps of the torch port on one GPU.
+"""Profile closed-loop replanning steps, or mono train steps, of the torch
+port on one GPU.
 
-Runs the heavy ``bench.py`` contract (e7_round5 weights, synthetic scenes
-from seed 0) with the guidance route that ``--gpallas`` picks, as
-``BENCH_GPALLAS`` does (2: the fused guidance kernel, the default; 3: the
-fold2 configuration; 4: the superstep kernel; 1 / 1f: the frozen-payload
-kernel; 2f: the folded fused kernel; 0: the XLA guidance loop), for
-``--warmup`` untimed steps, then ``--steps`` steps untraced and as many
-again under ``torch.profiler``, and writes to ``--out``: the untraced step
-times, the traced window's device busy time by kernel name, and the device
-busy share of the window (sum of kernel times over the window's wall time;
-one stream, so kernels do not overlap).
+Without ``--train``: the heavy ``bench.py`` contract (e7_round5 weights,
+synthetic scenes from seed 0) with the guidance route that ``--gpallas``
+picks, as ``BENCH_GPALLAS`` does (2: the fused guidance kernel, the default;
+3: the fold2 configuration; 4: the superstep kernel; 1 / 1f: the
+frozen-payload kernel; 2f: the folded fused kernel; 0: the XLA guidance
+loop).  With ``--train e2`` or ``--train e4``: train steps of
+``mono_config("e2_vae_mono")`` / ``("e4_ddpm_mono")`` at full width (128
+scenes x 64 rows a batch, random initialization from seed 1, synthetic scenes
+from seed 0), each on the next train batch.  Either way ``--warmup`` untimed
+steps, then ``--steps`` steps untraced and as many again under
+``torch.profiler``; written to ``--out``: the untraced step times, the traced
+window's device busy time by kernel name, the device busy share of the
+window (sum of kernel times over the window's wall time; one stream, so
+kernels do not overlap) and, for a train step, the device time in the
+clearance kernels and in everything else.  ``--repo`` profiles another
+checkout's package with this script (parent against change: unpack the
+parent under ``build/``).
 
     python scripts/profile_torch_step.py [--gpallas 0|1|1f|2f|2|3|4]
-        [--scenes 16] [--steps 3] [--out build/profile_step.json]
+        [--train e2|e4] [--scenes 16] [--steps 3] [--repo DIR]
+        [--out build/profile_step.json]
 """
 
 import argparse
@@ -22,34 +31,19 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, HERE)
-
-from pstl_tpu_torch.config import GPALLAS  # noqa: E402
+TRAIN_PRESETS = {"e2": "e2_vae_mono", "e4": "e4_ddpm_mono"}
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--gpallas", choices=GPALLAS, default="2")
-    ap.add_argument("--scenes", type=int, default=16)
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--out", default=os.path.join(HERE, "build",
-                                                  "profile_step.json"))
-    args = ap.parse_args()
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def closed_loop_step(args, dev):
+    """step() -> one closed-loop replanning step of the heavy contract."""
     from pstl_tpu_torch import diffusion, sim
-    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.config import GPALLAS, bench_config
     from pstl_tpu_torch.data import synthetic
     from pstl_tpu_torch.models import convert
     from pstl_tpu_torch.models.net import Net
 
-    if not torch.cuda.is_available():
-        sys.exit("profile_torch_step.py needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    if args.gpallas not in GPALLAS:
+        sys.exit(f"--gpallas must be one of {GPALLAS}")
     cfg = bench_config("heavy", gpallas=args.gpallas)
     data = synthetic.generate_dataset(0, args.scenes, cfg, scene_len=38)
     scenes = sim.scenes_from_dataset(data, device=dev)
@@ -57,15 +51,75 @@ def main():
     convert.load_weights(net, "e7_round5")
     init_carry, step = sim.make_closed_loop_step(
         scenes, cfg, net.to(dev).eval(), diffusion.get_coeffs(cfg, dev))
-    c = init_carry(0)
+    carry = [init_carry(0)]
+
+    def one():
+        carry[0] = step(carry[0])
+
+    return one
+
+
+def train_step(args, dev):
+    """step() -> one mono train step on the next train batch."""
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    from pstl_tpu_torch.config import mono_config
+    from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
+    from pstl_tpu_torch.models.net import Net, init_flax_like
+
+    cfg = mono_config(TRAIN_PRESETS[args.train])
+    n_steps = args.warmup + 2 * args.steps
+    ds = SceneDataset.from_synthetic(
+        cfg, seed=0,
+        n_scenes=int(n_steps * cfg.batch_size / cfg.train_ratio) + 1)
+    net = Net(cfg)
+    init_flax_like(net, torch.Generator().manual_seed(1))
+    net = net.to(dev)
+    step = train.make_train_step(cfg, net, specs.build_scorer(cfg),
+                                 diffusion.get_coeffs(cfg, device=dev),
+                                 train.make_optimizer(cfg, net))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    batches = batch_iterator(ds, "train", cfg.batch_size, shuffle=False)
+
+    def one():
+        step(train.to_device(next(batches), dev), generator=gen)
+
+    return one
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gpallas", default="2")
+    ap.add_argument("--train", choices=sorted(TRAIN_PRESETS))
+    ap.add_argument("--scenes", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--repo", default=HERE)
+    ap.add_argument("--out", default=os.path.join(HERE, "build",
+                                                  "profile_step.json"))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_step.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    step = train_step(args, dev) if args.train else closed_loop_step(args,
+                                                                    dev)
+    what = (f"{TRAIN_PRESETS[args.train]} train step" if args.train
+            else f"BENCH_GPALLAS={args.gpallas}")
     for _ in range(args.warmup):
-        c = step(c)
+        step()
     torch.cuda.synchronize()
 
     step_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        c = step(c)
+        step()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -73,7 +127,7 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            c = step(c)
+            step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -88,20 +142,33 @@ def main():
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
     launches = sum(r["calls"] for r in rows)
-    out = {"device": torch.cuda.get_device_name(0), "scenes": args.scenes,
-           "gpallas": args.gpallas,
+    out = {"device": torch.cuda.get_device_name(0), "what": what,
+           "repo": os.path.abspath(args.repo),
            "device_launches_per_step": launches / args.steps,
            "steps": args.steps, "untraced_step_ms": step_ms,
            "traced_window_ms": window_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / window_ms, "kernels": rows}
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    if args.train:
+        clear = [r for r in rows if "min_clearance" in r["name"]]
+        out["clearance_ms_per_step"] = {
+            r["name"]: r["device_ms"] / args.steps for r in clear}
+        out["other_device_ms_per_step"] = (
+            busy_ms - sum(r["device_ms"] for r in clear)) / args.steps
+    else:
+        out.update(scenes=args.scenes, gpallas=args.gpallas)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"BENCH_GPALLAS={args.gpallas}: untraced step ms: "
+    print(f"{what} ({out['repo']}): untraced step ms: "
           f"{[round(s, 3) for s in step_ms]}")
     print(f"traced window {window_ms:.3f} ms for {args.steps} steps, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.3f} of the window), "
           f"{launches / args.steps:.0f} device launches per step")
+    if args.train:
+        print("device ms per step: clearance kernels "
+              + ", ".join(f"{v:.4f}" for v in
+                          out["clearance_ms_per_step"].values())
+              + f"; everything else {out['other_device_ms_per_step']:.3f}")
     for r in rows[:15]:
         print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  "
               f"{r['name'][:90]}")

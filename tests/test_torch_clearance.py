@@ -7,7 +7,9 @@ inputs.
 Tolerances: the forward to 1e-5 (the same float32 ops in the same order,
 up to 1-ulp differences of cos / sin / sqrt between the libraries); the
 VJP to rtol 1e-4 (one routed cotangent per (row, t), the same chain of
-float32 products and quotients).
+float32 products and quotients).  Per-scene neighbors (``rows_per_scene``)
+against the repeated layout, and the backward kernel's two-pass routing
+(``bwd_twin``) against the plain version: exactly, bit for bit.
 """
 
 import jax
@@ -192,3 +194,164 @@ def test_card_gate_allows_only_near_ties():
     with pytest.raises(RuntimeError):
         chip_smoke.clearance_check("forward", bumped, out,
                                    chip_smoke.CLEAR_FWD_RTOL)
+
+
+# --------------------------------------------------------------------------
+# per-scene neighbors (rows_per_scene = m)
+# --------------------------------------------------------------------------
+
+def scene_inputs(m, scenes=5, K=4, seed=0):
+    """Ego rows for ``scenes`` scenes x m, per-scene neighbors placed around
+    each scene's first row, their copy repeated per row, and a cotangent."""
+    ego, rep = (torch.as_tensor(x) for x in make_inputs(
+        seed=seed + m, n=scenes * m, K=K, clip_region=True))
+    nei = rep[::m].contiguous()
+    g = torch.randn((scenes * m, 20),
+                    generator=torch.Generator().manual_seed(seed))
+    return ego, nei, torch.repeat_interleave(nei, m, 0), g
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_shared_neighbors_equal_repeated(m):
+    """Plain forward, plain backward and MinClearance: per-scene neighbors
+    with rows_per_scene = m give the repeated layout's bits."""
+    ego, nei, rep, g = scene_inputs(m)
+    out = ck.min_clearance_fwd(ego, nei, L, W, 4, m)
+    assert torch.equal(out, ck.min_clearance_fwd_plain(ego, rep, L, W, 4))
+    assert (out < 20).any()
+    d_rep = ck.min_clearance_bwd_plain(ego, rep, g, L, W, 4)
+    assert float(d_rep.abs().max()) > 0
+    assert torch.equal(ck.min_clearance_bwd(ego, nei, g, L, W, 4, m), d_rep)
+    e = ego.clone().requires_grad_(True)
+    auto = ck.min_clearance(e, nei, L, W, 4, m)
+    auto.backward(g)
+    assert torch.equal(auto.detach(), out) and torch.equal(e.grad, d_rep)
+    e4 = torch.cat([ego, torch.ones_like(ego[..., :1])], -1)
+    assert torch.equal(ck.min_neighbor_distance_fused(
+        e4, nei[..., 1:7], nei[..., 0], L, W, 4, m), out)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_shared_neighbors_match_pallas(m):
+    """Both layouts against the Pallas kernel and its VJP on the repeated
+    neighbors."""
+    ego, nei, rep, g = scene_inputs(m, seed=1)
+    want, vjp = jax.vjp(lambda e: pk.min_clearance(
+        e, jnp.asarray(rep.numpy()), L, W, 4, block_n=8, interpret=True),
+        jnp.asarray(ego.numpy()))
+    d_want, = vjp(jnp.asarray(g.numpy()))
+    for n_, m_ in ((nei, m), (rep, 1)):
+        np.testing.assert_allclose(
+            np_(ck.min_clearance_fwd_plain(ego, n_, L, W, 4, m_)),
+            np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            np_(ck.min_clearance_bwd_plain(ego, n_, g, L, W, 4, m_)),
+            np.asarray(d_want), rtol=1e-4, atol=1e-6)
+
+
+def test_wrapper_refuses_rows_and_shared_memory():
+    """By name: ego rows that are no multiple of rows_per_scene, a scene
+    count that does not match, and a scene whose discs exceed a block's
+    shared memory; the plain versions refuse the first two as well."""
+    ego, nei, _, g = scene_inputs(3)
+    assert ck._sizes(ego, nei, 4, 3) == (15, 20, 4)
+    with pytest.raises(ValueError, match="no multiple of rows_per_scene"):
+        ck._sizes(ego, nei, 4, 2)
+    with pytest.raises(ValueError, match="nei holds 5 scenes"):
+        ck._sizes(ego, nei, 4, 5)
+    with pytest.raises(ValueError, match="nei holds 5 scenes"):
+        ck._sizes(ego, nei, 4, 1)
+    with pytest.raises(ValueError, match="no multiple of rows_per_scene"):
+        ck.min_clearance_fwd(ego, nei, L, W, 4, 2)
+    with pytest.raises(ValueError, match="nei holds 5 scenes"):
+        ck.min_clearance_bwd(ego, nei, g, L, W, 4, 5)
+    # K = 64, nL = 8: 147,456 bytes at T = 32 fit, T = 64 does not
+    big = lambda T: (torch.zeros(2, T, 3), torch.zeros(2, 64, T, 7))
+    assert ck._sizes(*big(32), 8) == (2, 32, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck._sizes(*big(64), 8)
+
+
+def bwd_twin(ego, nei, g, nL, m):
+    """The backward kernel's routing as torch ops over (n, T), k by k as
+    its threads walk: pass 1 keeps the minimum over k, its tie count (a
+    smaller value resets it, an equal one adds one) and, among the ties,
+    the number whose gate is open and the first such k; pass 2 recomputes
+    each neighbor's masked clearance from that k on and routes the
+    cotangent where it equals the minimum and the gate is open, until all
+    of them are met.  Disc geometry from the plain version, per-scene
+    neighbors repeated.  Also returns the tie counts."""
+    _, (ex, ey, nx, ny, _, _, _, _, valid, ax, cth, sth) = ck._disc_geometry(
+        ego, torch.repeat_interleave(nei, m, 0), L, W, nL)
+    rn = torch.swapaxes(torch.repeat_interleave(nei, m, 0), 1, 2)[..., 6] / 2
+    re = W / 2.0
+    K = nx.shape[2]
+
+    def clearance(k):
+        d2 = [[(ex[..., i] - nx[:, :, k, j]) ** 2
+               + (ey[..., i] - ny[:, :, k, j]) ** 2 for j in range(nL)]
+              for i in range(nL)]
+        d2min = torch.stack([d for row in d2 for d in row]).amin(0)
+        dist = torch.sqrt(d2min + 1e-12)
+        per = dist - re - rn[:, :, k]
+        masked = (torch.clamp(per, -5.0, 20.0) * valid[:, :, k]
+                  + (1 - valid[:, :, k]) * 100.0)
+        gate = (per > -5.0) & (per < 20.0) & (valid[:, :, k] != 0)
+        return d2, d2min, dist, gate, masked
+
+    best = torch.full_like(g, float("inf"))
+    ties = torch.zeros_like(g, dtype=torch.int64)
+    routes, kroute = torch.zeros_like(ties), torch.zeros_like(ties)
+    for k in range(K):
+        *_, gate, masked = clearance(k)
+        less, same = masked < best, masked == best
+        ties = torch.where(less, 1, ties + same.long())
+        routes = torch.where(less, 0, routes)
+        best = torch.where(less, masked, best)
+        opens = (less | same) & gate
+        kroute = torch.where(opens & (routes == 0), k, kroute)
+        routes = routes + opens.long()
+    gk = g * (1.0 / ties.clamp(min=1).to(g.dtype))
+    g_ex = [torch.zeros_like(g) for _ in range(nL)]
+    g_ey = [torch.zeros_like(g) for _ in range(nL)]
+    for k in range(K):
+        d2, d2min, dist, gate, masked = clearance(k)
+        route = (k >= kroute) & (routes > 0) & (masked == best) & gate
+        routes = routes - route.long()
+        gate = gk * valid[:, :, k]
+        cnt = sum((d == d2min).long() for row in d2 for d in row)
+        gkn = gate / cnt.clamp(min=1).to(g.dtype) / dist
+        for i in range(nL):
+            sx, sy = torch.zeros_like(g), torch.zeros_like(g)
+            for j in range(nL):
+                hit = d2[i][j] == d2min
+                sx = torch.where(hit, sx + (ex[..., i] - nx[:, :, k, j]), sx)
+                sy = torch.where(hit, sy + (ey[..., i] - ny[:, :, k, j]), sy)
+            g_ex[i] = torch.where(route, g_ex[i] + sx * gkn, g_ex[i])
+            g_ey[i] = torch.where(route, g_ey[i] + sy * gkn, g_ey[i])
+    assert int(routes.abs().max()) == 0        # pass 2 met every open tie
+    gx, gy, gth = (torch.zeros_like(g) for _ in range(3))
+    for i in range(nL):
+        gx, gy = gx + g_ex[i], gy + g_ey[i]
+        gth = gth + (g_ex[i] * (-ax[i] * sth) + g_ey[i] * (ax[i] * cth))
+    return torch.stack([gx, gy, gth], -1), ties
+
+
+@pytest.mark.parametrize("m,nL", [(1, 4), (3, 4), (2, 3)])
+def test_two_pass_backward_twin_equals_plain(m, nL):
+    """Forced ties: neighbors 0 and 1 identical in every scene (a tie over
+    k wherever they are the closest), neighbor 2 a copy that is invalid,
+    and scene 0 without a valid neighbor (all K tied at 100, nothing
+    routed)."""
+    ego, nei, _, g = scene_inputs(m, scenes=6, seed=7)
+    nei[:, 1] = nei[:, 0]
+    nei[:, 2] = nei[:, 0]
+    nei[:, :2, :, 0] = 1.0
+    nei[:, 2, :, 0] = 0.0
+    nei[0, :, :, 0] = 0.0
+    got, n_ties = bwd_twin(ego, nei, g, nL, m)
+    want = ck.min_clearance_bwd_plain(ego, nei, g, L, W, nL, m)
+    routed = want.abs().sum(-1) > 0
+    assert (routed & (n_ties == 2)).any() and (routed & (n_ties == 1)).any()
+    assert (n_ties[:m] == 4).all() and not routed[:m].any()
+    assert torch.equal(got, want)

@@ -2,7 +2,8 @@
 guidance kernels, the superstep kernel and the clearance kernel pair),
 against their plain PyTorch versions on identical inputs, at the main
 path's widths and at the edges of the warp-per-column design (``EDGES``,
-``HIDDENS``).  Marked
+``HIDDENS``) and of the clearance kernels' block layout (``CLEAR_CASES``).
+Marked
 ``cuda``: skipped where ``torch.cuda.is_available()`` is false (a CUDA
 kernel has no CPU mode).
 This file imports no jax, so it also runs on a host without it:
@@ -268,50 +269,92 @@ def test_superstep_wrapper_launches_on_cuda(dev):
         sk.superstep_plain = real
 
 
-@pytest.mark.parametrize("n,clip_region", [(1000, False), (333, True)],
-                         ids=["random", "clip_region"])
-def test_clearance_kernels_match_plain(dev, n, clip_region):
-    ego, nei = chip_smoke.clearance_random_inputs(n, 8, 20, seed=n,
+#: the clearance kernels' edges: a neighbor set per row (the TPU layout) and
+#: per scene at 7, 20 and 64 rows a scene; a scene count that is no multiple
+#: of a block's scenes (33 at 2 a block), rows a scene that are no multiple
+#: of a block's rows (20 = 16 + 4, 40 = 16 + 16 + 8); a grid large enough to
+#: keep 64 rows a block (200 scenes x 20: three scenes a block, two turns a
+#: thread; 140 x 64: a scene a block); one neighbor and 16; short and
+#: warp-wide horizons; disc counts on the generic loop
+CLEAR_CASES = [dict(scenes=1000, clip_region=False), dict(scenes=333),
+               dict(scenes=33, m=7), dict(scenes=20, m=64),
+               dict(scenes=9, m=20), dict(scenes=200, m=20),
+               dict(scenes=140, m=64), dict(scenes=40, m=3, K=1, T=12),
+               dict(scenes=11, m=5, K=16, T=32), dict(scenes=50, m=2, nL=1),
+               dict(scenes=50, m=2, nL=2), dict(scenes=6, m=40, nL=8)]
+CLEAR_IDS = ["random", "clip_region", "m7_odd_scenes", "m64", "m20_ragged",
+             "m20_3_scenes_a_block", "m64_full_grid", "K1_T12", "K16_T32",
+             "nL1", "nL2", "nL8"]
+
+
+def _clearance_inputs(dev, scenes, m=1, K=8, T=20, clip_region=True):
+    """Ego rows for ``scenes`` x m, the neighbor sets of each scene's first
+    row, and a cotangent, on ``dev``."""
+    n = scenes * m
+    ego, nei = chip_smoke.clearance_random_inputs(n, K, T, seed=n,
                                                  clip_region=clip_region)
-    ego, nei = ego.to(dev), nei.to(dev)
-    g = torch.randn((n, 20), generator=torch.Generator().manual_seed(1)).to(
-        dev)
+    g = torch.randn((n, T), generator=torch.Generator().manual_seed(1))
+    return ego.to(dev), nei[::m].contiguous().to(dev), g.to(dev)
+
+
+@pytest.mark.parametrize("case", CLEAR_CASES, ids=CLEAR_IDS)
+def test_clearance_kernels_match_plain(dev, case):
+    case = dict(case)
+    m, nL = case.get("m", 1), case.pop("nL", 4)
+    ego, nei, g = _clearance_inputs(dev, **case)
     L, W = chip_smoke.EGO_L, chip_smoke.EGO_W
     before = (ck.fwd_launches, ck.bwd_launches)
-    out = ck.min_clearance_fwd(ego, nei, L, W, 4)
-    d = ck.min_clearance_bwd(ego, nei, g, L, W, 4)
+    out = ck.min_clearance_fwd(ego, nei, L, W, nL, m)
+    d = ck.min_clearance_bwd(ego, nei, g, L, W, nL, m)
     torch.cuda.synchronize()
     assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
                                                   before[1] + 1)
     chip_smoke.clearance_check(
-        "forward", out, ck.min_clearance_fwd_plain(ego, nei, L, W, 4),
+        "forward", out, ck.min_clearance_fwd_plain(ego, nei, L, W, nL, m),
         chip_smoke.CLEAR_FWD_RTOL)
     chip_smoke.clearance_check(
-        "backward", d, ck.min_clearance_bwd_plain(ego, nei, g, L, W, 4),
+        "backward", d, ck.min_clearance_bwd_plain(ego, nei, g, L, W, nL, m),
         chip_smoke.CLEAR_BWD_RTOL, chip_smoke.clearance_near_ties(
-            ego, nei, L, W, 4, chip_smoke.CLEAR_TIE_M))
+            ego, nei, L, W, nL, chip_smoke.CLEAR_TIE_M, m))
+    assert float(d.abs().max()) > 0
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_clearance_kernels_without_rows(dev, m):
+    """n = 0: empty outputs, nothing launched."""
+    ego = torch.zeros((0, 20, 3), device=dev)
+    nei = torch.zeros((0, 8, 20, 7), device=dev)
+    before = (ck.fwd_launches, ck.bwd_launches)
+    out = ck.min_clearance_fwd(ego, nei, 4.084, 1.73, 4, m)
+    d = ck.min_clearance_bwd(ego, nei, out, 4.084, 1.73, 4, m)
+    torch.cuda.synchronize()
+    assert out.shape == (0, 20) and d.shape == (0, 20, 3)
+    assert (ck.fwd_launches, ck.bwd_launches) == before
 
 
 def test_clearance_autograd_launches_both(dev):
-    """MinClearance on CUDA tensors: the forward kernel, then the backward
-    kernel as its VJP; no gradient to the neighbors; bad operands raise
-    without a launch."""
-    ego, nei = chip_smoke.clearance_random_inputs(64, 8, 20, seed=3,
-                                                 clip_region=True)
-    e = ego.to(dev).requires_grad_(True)
-    nt = nei.to(dev)
+    """MinClearance on CUDA tensors with 64 rows a scene: the forward
+    kernel, then the backward kernel as its VJP, once each; no gradient to
+    the neighbors; bad operands raise without a launch."""
+    ego, nt, _ = _clearance_inputs(dev, 2, m=64)
+    e = ego.clone().requires_grad_(True)
     before = (ck.fwd_launches, ck.bwd_launches)
-    ck.min_clearance(e, nt, 4.084, 1.73, 4).sum().backward()
+    ck.min_clearance(e, nt, 4.084, 1.73, 4, 64).sum().backward()
     torch.cuda.synchronize()
     assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
                                                   before[1] + 1)
-    ref = ck.min_clearance_bwd_plain(ego.to(dev), nt,
-                                     torch.ones(64, 20, device=dev),
-                                     4.084, 1.73, 4)
+    ref = ck.min_clearance_bwd_plain(ego, nt, torch.ones(128, 20, device=dev),
+                                     4.084, 1.73, 4, 64)
     assert float((e.grad - ref).abs().max()) <= 1e-3
     for bad in (nt.cpu(), nt.double(), nt[:, :, :-1].contiguous(),
-                nt.transpose(1, 2)):
+                nt.transpose(1, 2), nt[:1]):
         with pytest.raises((ValueError, TypeError)):
-            ck.min_clearance_fwd(ego.to(dev), bad, 4.084, 1.73, 4)
+            ck.min_clearance_fwd(ego, bad, 4.084, 1.73, 4, 64)
+    with pytest.raises(ValueError):
+        ck.min_clearance_fwd(ego, nt, 4.084, 1.73, 4, 3)
+    with pytest.raises(ValueError):     # K * T * (2 nL + 2) floats > 227 KB
+        ck.min_clearance_fwd(torch.zeros((2, 64, 3), device=dev),
+                             torch.zeros((2, 64, 64, 7), device=dev),
+                             4.084, 1.73, 8)
     assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
                                                   before[1] + 1)

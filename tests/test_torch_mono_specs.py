@@ -84,6 +84,37 @@ def test_prep_signals_routes_match(route):
                                    rtol=1e-5, atol=1e-5, err_msg=k)
 
 
+@pytest.mark.parametrize("route", ["pallas", "xla", "discs"])
+def test_prep_signals_per_scene_neighbors(route):
+    """One neighbor set per scene (the mono step's layout on the kernel
+    route): the kernel route gives the repeated call's bits, the other two
+    routes refuse it."""
+    cfg, sig, _ = mono_case(seed=2)
+    tcfg = TConfig(**cfg.with_(use_pallas_clearance=route == "pallas")
+                   .to_dict())
+    assert tspecs.clearance_route(tcfg) == {"pallas": "kernel"}.get(
+        route, "geometry")
+    tsig = to_t(sig)
+    shared = dict(tsig, neighbors=tsig["neighbors"][::4].contiguous())
+    if route == "discs":
+        for s in (tsig, shared):
+            s["nei_discs"] = tgeom.precompute_neighbor_discs(
+                s["neighbors"][..., 1:7], s["neighbors"][..., 0], 4)
+        assert tspecs.clearance_route(tcfg, shared) == "discs"
+    want = tspecs.prep_signals(tsig, tcfg)["min_nei_d"]
+    if route == "pallas":
+        got = tspecs.prep_signals(shared, tcfg)["min_nei_d"]
+        assert got.shape == want.shape and torch.equal(got, want)
+        bad = dict(tsig, neighbors=tsig["neighbors"][:5].contiguous())
+        with pytest.raises(ValueError, match="rows_per_scene"):
+            tspecs.prep_signals(bad, tcfg)
+    else:
+        with pytest.raises(ValueError, match="per-scene neighbors"):
+            tspecs.prep_signals(shared, tcfg)
+    assert tspecs.clearance_route(tcfg, shared,
+                                  with_collision=True) == "geometry"
+
+
 @pytest.mark.parametrize("norm_stl,hard", [(False, False), (True, False),
                                            (False, True)])
 def test_compute_scores_match(norm_stl, hard):
