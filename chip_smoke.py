@@ -74,6 +74,20 @@ and no result line is printed:
    and the backward once per train batch; 8 train steps with stl_weight 1;
    4 train steps of ``e4_ddpm_mono`` (the 99-step sampler), forward only.
    Every loss and metric must be finite.
+16. card vs CPU for one dense train step: ``e5_ddpm`` (random weights) and
+   ``e7_ours`` with stl_weight 1 (warm-started from the committed
+   e5b_round5 base, a fresh RefineNet head), fp32, 8 scenes x 64 x 3 rows,
+   full layer widths, the same seeded draws; every metric and gradient.
+   The dense step reaches no kernel, and none may launch.
+17. dense training at full width (128 scenes x 64 x 3 = 24,576 rows, phase
+   15's scenes with the GT controls in seed 0): 4 ``e5_ddpm`` train steps
+   from a seed, then ``e7_ours`` warm-started from e5b_round5, 4 train
+   steps and an eval step.  Finite metrics; e7 moves the RefineNet head
+   only, every other parameter bit for bit as loaded; median step times
+   beside the card's name and power limit.
+18. a checkpoint on the card: two e7 steps, ``train.save_checkpoint``, a
+   fresh net and Adam loaded by ``train.load_checkpoint`` (parameters,
+   moments and step count bit for bit), one more step from each.
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's launches, error, times (``ms`` one eager call
@@ -105,6 +119,10 @@ EGO_L, EGO_W = 4.084, 1.730
 TRAIN_SCENES = 1500
 E2_EXTRA_STEPS = 8
 E4_STEPS = 4
+#: scenes of the dense card-vs-CPU step, and the dense presets' train steps
+DENSE_REF_SCENES = 8
+E5_STEPS = 4
+E7_STEPS = 4
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM,
 #: and operations per second by operand type (bf16 / fp16 on the tensor
 #: cores, float32 outside them)
@@ -142,6 +160,16 @@ CLEAR_MAX_OFF_SHARE = 1e-3
 # at near-ties, may route their cotangent elsewhere
 MONO_RTOL, MONO_GRAD_TOL = 1e-4, 1e-3
 MONO_TIE_M, MONO_MAX_OFF_SHARE = 1e-3, 1e-2
+# card vs CPU for one fp32 dense train step (phase 16): the mono step's
+# tolerances.  The card sums its matmuls and reductions in another order,
+# and the e7 step carries that through 99 denoise steps, the argmax over
+# the last 5 decodings, the RefineNet's violation gate and the hinge of the
+# tau = 100 soft-mins; on the CPU a one-ulp perturbation of every weight
+# moves the metrics by 2.8e-7 and the gradients by 1.3e-5 of their
+# tensors' largest entries.  After a checkpoint (phase 18) the next step of
+# the saved and of the loaded state must agree to DENSE_RESUME_TOL
+DENSE_RTOL, DENSE_GRAD_TOL = MONO_RTOL, MONO_GRAD_TOL
+DENSE_RESUME_TOL = 1e-6
 # unguided superstep vs plain, elementwise on x_next: the MLP sums in fp32
 # in another order than the library matmul, so a bf16 activation can round
 # one step (2^-8 relative) the other way; that moves eps by about that step
@@ -1102,6 +1130,13 @@ def clearance_phase(dev):
     return {k: (worst[k],) + v for k, v in res.items()}
 
 
+def grad_err(ga, gb):
+    """The largest gradient difference, each tensor's over its largest
+    entry."""
+    return max(float((ga[k] - gb[k]).abs().max())
+               / max(float(gb[k].abs().max()), 1e-30) for k in gb)
+
+
 def mono_reference_phase(dev):
     """Phase 14: one fp32 e2 train step with stl_weight 1 on the card
     (kernels) against the CPU (plain versions), same parameters, batch and
@@ -1163,10 +1198,6 @@ def mono_reference_phase(dev):
         return ({k: float(v) for k, v in rd.items()},
                 {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
                 seen[0])
-
-    def grad_err(ga, gb):
-        return max(float((ga[k] - gb[k]).abs().max())
-                   / max(float(gb[k].abs().max()), 1e-30) for k in gb)
 
     m_cpu, g_cpu, (ego, nei, cot, d_cpu, rows) = run("cpu")
     m_dev, g_dev, (ego_dev, _, cot_dev, d_dev, _) = run(dev)
@@ -1241,7 +1272,7 @@ def step_loop(dev, cfg, ds, steps, what):
 def mono_train_phase(dev):
     """Phase 15: one e2 epoch through ``train.train``, then train steps of
     the stl_weight 1 variant and of e4; returns the e2 epoch's clearance
-    launches (the main path's)."""
+    launches (the main path's) and the dataset."""
     import torch
     from pstl_tpu_torch import train
     from pstl_tpu_torch.config import mono_config
@@ -1283,7 +1314,261 @@ def mono_train_phase(dev):
     check_counts(c4, {"min_clearance_fwd": E4_STEPS}, "e4 train steps")
     log(f"mono training: median train step e2 {e2_step * 1e3:.1f} ms, e4 "
         f"{e4_step * 1e3:.1f} ms; phase wall {time.time() - t0:.1f} s")
-    return main_counts
+    return main_counts, ds
+
+
+# --------------------------------------------------------------------------
+# the dense training step (phases 16-18)
+# --------------------------------------------------------------------------
+
+def dense_config(preset, **kw):
+    """A dense preset as this script runs it: no experiment directory."""
+    from pstl_tpu_torch.config import PRESETS
+    return PRESETS[preset].with_(exp_name=None, **kw)
+
+
+def dense_net(cfg, dev, seed=0, warm=False):
+    """A flax-like initialised net of ``cfg``; with ``warm`` the committed
+    e5b_round5 base loaded over it (``train.load_params_only``), the
+    RefineNet head left as initialised."""
+    from pstl_tpu_torch import train
+    from pstl_tpu_torch.models import convert
+    net = mono_net(cfg, "cpu", seed)
+    if warm:
+        train.load_params_only(
+            os.path.join(convert.WEIGHTS_DIR, "e5b_round5.npz"),
+            train.TrainState(net, None, 0))
+    return net.to(dev)
+
+
+def with_gt_seed(batch, cfg):
+    """A numpy batch whose control seed 0 holds the GT controls (finite
+    differences of the GT speed and heading) for every maneuver: the
+    labelled maneuver's row then satisfies its calibrated spec, as a
+    trajopt target does, and the eps-MSE (``stl_bc_mask``) keeps it."""
+    import numpy as np
+    b = dict(batch)
+    ego = b["ego_traj"]
+    u = (ego[:, 1:, 2:4] - ego[:, :-1, 2:4]) / cfg.dt
+    b["params"] = b["params"].copy()
+    b["params"][:, 0] = np.concatenate([u, u[:, -1:]], 1)[:, None]
+    return b
+
+
+def dense_draws(cfg, bs, seed):
+    """Every draw of one dense train step of ``bs`` scenes, seeded, on the
+    CPU: the flex uniforms, prep's noise and steps, the sampler's chain."""
+    import torch
+    from pstl_tpu_torch import specs
+    g = torch.Generator().manual_seed(seed)
+    n = bs * cfg.n_randoms * 3
+    return {"flex": specs.flex_uniforms(bs, g),
+            "prep_noise": torch.randn((n, cfg.nt * 2), generator=g),
+            "prep_t": torch.randint(1, cfg.diffusion_steps, (n,),
+                                    generator=g),
+            "sample_noise": torch.randn(
+                (cfg.diffusion_steps, n, cfg.nt * 2), generator=g)}
+
+
+def dense_step(cfg, net, batch, draws, dev):
+    """One train step of a copy of ``net`` on ``dev``: (metrics, every
+    parameter's gradient on the CPU, zero where the loss does not reach
+    it)."""
+    import copy
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    net = copy.deepcopy(net).to(dev)
+    step = train.make_train_step(cfg, net, specs.build_scorer(cfg),
+                                 diffusion.get_coeffs(cfg, device=dev),
+                                 train.make_optimizer(cfg, net))
+    rd = step(train.to_device(batch, dev),
+              draws={k: v.to(dev) for k, v in draws.items()})
+    return ({k: float(v) for k, v in rd.items()},
+            {k: (torch.zeros_like(p) if p.grad is None else p.grad
+                 ).detach().cpu() for k, p in net.named_parameters()})
+
+
+def dense_reference_phase(dev):
+    """Phase 16: one fp32 train step of e5_ddpm (random weights) and of
+    e7_ours (warm-started from e5b_round5) on the card against the same
+    step on the CPU, same weights, batch and draws, DENSE_REF_SCENES scenes
+    x 64 x 3 rows: every metric, every gradient; no kernel launches."""
+    import numpy as np
+    import torch
+    from pstl_tpu_torch.data.dataset import SceneDataset
+
+    t0 = time.time()
+    # e7 with the STL hinge on: at a fresh RefineNet head no row turns from
+    # violating to satisfying, so the DPP loss alone reaches no parameter
+    for preset, kw in (("e5_ddpm", {}), ("e7_ours", {"stl_weight": 1.0})):
+        cfg = dense_config(preset, compute_dtype="float32",
+                           batch_size=DENSE_REF_SCENES, **kw)
+        ds = SceneDataset.from_synthetic(cfg, seed=5, n_scenes=cfg.batch_size)
+        ds.ensure_random_params(cfg.seed)
+        batch = with_gt_seed(ds.gather(np.arange(cfg.batch_size)), cfg)
+        net = dense_net(cfg, "cpu", seed=2, warm=cfg.rect_head)
+        draws = dense_draws(cfg, cfg.batch_size, seed=6)
+        m_cpu, g_cpu = dense_step(cfg, net, batch, draws, "cpu")
+        torch.cuda.synchronize()
+        reset_counts()
+        m_dev, g_dev = dense_step(cfg, net, batch, draws, dev)
+        torch.cuda.synchronize()
+        check_counts(read_counts(), {}, f"{preset} reference step")
+        m_err = max(abs(m_dev[k] - m_cpu[k]) / (abs(m_cpu[k]) + 1e-6)
+                    for k in m_cpu)
+        g_err = grad_err(g_dev, g_cpu)
+        log(f"dense reference step ({preset}, fp32, {cfg.batch_size} scenes "
+            f"x {cfg.n_randoms * 3} rows): card loss {m_dev['loss']:.6f} vs "
+            f"cpu {m_cpu['loss']:.6f}; worst metric rel err {m_err:.3e} "
+            f"(tolerance {DENSE_RTOL}); worst gradient err {g_err:.3e} of "
+            f"its tensor's largest entry (tolerance {DENSE_GRAD_TOL}); "
+            + " ".join(f"{k}={v:.5f}" for k, v in sorted(m_dev.items())))
+        if not (m_err <= DENSE_RTOL and g_err <= DENSE_GRAD_TOL):
+            raise RuntimeError(f"card and cpu {preset} train steps disagree")
+    log(f"dense reference: phase wall {time.time() - t0:.1f} s")
+
+
+def dense_loop(dev, cfg, net, ds, steps, what):
+    """``steps`` train steps of ``net`` on ``ds``'s first train batches and
+    an eval step on its first val batch, every draw from a generator seeded
+    with ``cfg.seed``; no kernel may launch.  Returns the median step s."""
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    from pstl_tpu_torch.data.dataset import batch_iterator
+
+    formulas = specs.build_scorer(cfg)
+    coeffs = diffusion.get_coeffs(cfg, device=dev)
+    step = train.make_train_step(cfg, net, formulas, coeffs,
+                                 train.make_optimizer(cfg, net))
+    eval_step = train.make_eval_step(cfg, net, formulas, coeffs)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    batches = batch_iterator(ds, "train", cfg.batch_size, shuffle=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    step_s = []
+    for _ in range(steps):
+        batch = train.to_device(next(batches), dev)
+        t0 = time.time()
+        vals = {k: float(v) for k, v in step(batch, generator=gen).items()}
+        step_s.append(time.time() - t0)
+        check_finite(vals, what)
+    ev = {k: float(v) for k, v in eval_step(train.to_device(next(
+        batch_iterator(ds, "val", cfg.batch_size, shuffle=False)), dev),
+        generator=gen).items()}
+    check_finite(ev, what + " eval")
+    check_counts(read_counts(), {}, what)
+    log(f"{what}: {steps} steps of {cfg.batch_size} scenes x "
+        f"{cfg.n_randoms * 3} rows, last "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(vals.items()))
+        + "; eval " + " ".join(f"{k}={v:.4f}" for k, v in sorted(ev.items()))
+        + f" (median step {median(step_s) * 1e3:.1f} ms, first "
+        f"{step_s[0] * 1e3:.1f} ms); stl_bc_mask keeps {vals['tj_acc']:.4f} "
+        f"of the valid rows")
+    return median(step_s)
+
+
+def dense_train_phase(dev, ds, name_power):
+    """Phase 17: e5_ddpm train steps at full width from a seed, then
+    e7_ours warm-started from e5b_round5: train steps and an eval step;
+    every parameter outside the RefineNet head must stay as it was, bit
+    for bit.  ``ds``: phase 15's 1,500 synthetic scenes."""
+    import torch
+    from pstl_tpu_torch import train
+
+    t0 = time.time()
+    cfg5 = dense_config("e5_ddpm")
+    # GT controls in seed 0, so the eps-MSE has rows to keep (the JAX
+    # package's trajopt sidecars are not ported)
+    ds.attach("params", with_gt_seed(ds.data, cfg5)["params"])
+    e5 = dense_loop(dev, cfg5, dense_net(cfg5, dev, seed=1), ds, E5_STEPS,
+                    "e5 train steps")
+    cfg7 = dense_config("e7_ours")
+    net = dense_net(cfg7, dev, seed=1, warm=True)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    e7 = dense_loop(dev, cfg7, net, ds, E7_STEPS, "e7 train steps")
+    moved = sorted({k.split(".")[0] for k, v in net.state_dict().items()
+                    if not torch.equal(v, before[k])})
+    if any(m not in train.RECT_MODULES for m in moved):
+        raise RuntimeError(f"e7 steps moved {moved}, expected the "
+                           f"RefineNet head only")
+    # the DPP loss reaches the head only through rows it turns from
+    # violating to satisfying; at a fresh head there may be none
+    head_grad = max(float(p.grad.abs().max()) for k, p in
+                    net.named_parameters()
+                    if k.split(".")[0] in train.RECT_MODULES
+                    and p.grad is not None)
+    log(f"dense training: median train step e5 {e5 * 1e3:.1f} ms, e7 "
+        f"{e7 * 1e3:.1f} ms ({cfg7.batch_size} scenes x "
+        f"{cfg7.n_randoms * 3} rows, {cfg7.diffusion_steps - 1} denoise "
+        f"steps; {name_power}); modules moved by e7: {moved}, the head's "
+        f"largest gradient in its last step {head_grad:.3e}; phase wall "
+        f"{time.time() - t0:.1f} s")
+
+
+def dense_checkpoint_phase(dev, ds):
+    """Phase 18: two e7 train steps, a checkpoint, a fresh net and Adam
+    loaded from it (parameters, moments and step count equal bit for bit),
+    then one more step from each on the same batch and draws."""
+    import shutil
+    import torch
+    from pstl_tpu_torch import diffusion, specs, train
+    from pstl_tpu_torch.data.dataset import batch_iterator
+
+    t0 = time.time()
+    cfg = dense_config("e7_ours")
+    formulas = specs.build_scorer(cfg)
+    coeffs = diffusion.get_coeffs(cfg, device=dev)
+
+    def state_of(net):
+        return train.TrainState(net, train.make_optimizer(cfg, net), 0)
+
+    state = state_of(dense_net(cfg, dev, seed=3, warm=True))
+    batches = [train.to_device(b, dev) for _, b in zip(
+        range(3), batch_iterator(ds, "train", cfg.batch_size, shuffle=False))]
+    step = train.make_train_step(cfg, state.net, formulas, coeffs, state.opt)
+    for i in range(2):
+        step(batches[i], draws={k: v.to(dev) for k, v in dense_draws(
+            cfg, cfg.batch_size, 10 + i).items()})
+    state = state._replace(step=2)
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    path = train.save_checkpoint(ckpt_dir, state, 0)
+    loaded = train.load_checkpoint(ckpt_dir, state_of(dense_net(
+        cfg, dev, seed=4)))
+    if loaded.step != 2:
+        raise RuntimeError(f"checkpoint step {loaded.step}, expected 2")
+    for (k, a), b in zip(state.net.state_dict().items(),
+                         loaded.net.state_dict().values()):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"checkpoint parameter {k} differs")
+    n_moments = 0
+    for pa, pb in zip(state.opt.param_groups[0]["params"],
+                      loaded.opt.param_groups[0]["params"]):
+        sa, sb = state.opt.state[pa], loaded.opt.state[pb]
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(sa[key].cpu(), sb[key].cpu()):
+                raise RuntimeError(f"checkpoint Adam {key} differs")
+        n_moments += 2
+    draws = {k: v.to(dev) for k, v in dense_draws(cfg, cfg.batch_size,
+                                                  12).items()}
+    out = []
+    for st in (state, loaded):
+        rd = train.make_train_step(cfg, st.net, formulas, coeffs, st.opt)(
+            batches[2], draws=draws)
+        out.append({k: float(v) for k, v in rd.items()})
+        check_finite(out[-1], "step after the checkpoint")
+    p_diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        state.net.parameters(), loaded.net.parameters()))
+    m_diff = max(abs(out[0][k] - out[1][k]) for k in out[0])
+    log(f"dense checkpoint: {os.path.getsize(path)} bytes, parameters, "
+        f"{n_moments} Adam moments and the step count equal bit for bit "
+        f"after loading into a fresh net; the next step from both: metrics "
+        f"differ by {m_diff:.3e}, parameters by {p_diff:.3e} (tolerance "
+        f"{DENSE_RESUME_TOL}); phase wall {time.time() - t0:.1f} s")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not (m_diff <= DENSE_RESUME_TOL and p_diff <= DENSE_RESUME_TOL):
+        raise RuntimeError("the step after the checkpoint differs")
 
 
 def main():
@@ -1357,7 +1642,10 @@ def main():
 
     clear = clearance_phase(dev)
     mono_reference_phase(dev)
-    mono_counts = mono_train_phase(dev)
+    mono_counts, ds = mono_train_phase(dev)
+    dense_reference_phase(dev)
+    dense_train_phase(dev, ds, name_power)
+    dense_checkpoint_phase(dev, ds)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there

@@ -23,10 +23,12 @@ instead: one launch of the superstep kernel (``ops/superstep_kernel.py``:
 eps MLP, posterior, guidance, noise) per denoise step.
 
 For training, :func:`prep` noises controls and :func:`sample` runs the
-unguided row-major pass on the per-scene (mono) rows.
+unguided row-major pass, on the per-scene (mono) rows or on the dense
+multi-candidate rows.
 
 Not ported yet: the DDIM and DPM++ samplers, and guidance on the row-major
-path (``cm_sampler=False`` or the row-major guidance loss).
+path (``cm_sampler=False`` or the row-major guidance loss), which is also
+what a guided training sampler would take.
 """
 
 from __future__ import annotations
@@ -288,18 +290,22 @@ def sample(apply_fn: Callable, highlevel: Tensor, cfg: Config,
            coeffs: Coeffs, n: int, mono: bool = False,
            tmp_stlp: Optional[Tensor] = None,
            noise: Optional[Tensor] = None,
-           generator: Optional[torch.Generator] = None):
+           generator: Optional[torch.Generator] = None,
+           stlp_dense: Optional[Tensor] = None):
     """The unguided row-major DDPM pass with eps from the network
     (``pstl_tpu/diffusion.py:sample`` without guidance): ``apply_fn(ext)``
     is the network's diffusion forward on ext = {timestep (n, 1),
-    highlevel, noise (n, nt*2), stlp [, gt_stlp]}; with ``mono`` the ext
+    highlevel, noise (n, nt*2), stlp [, gt_stlp]}.  With ``mono`` the ext
     carries ``tmp_stlp`` as both ``stlp`` and ``gt_stlp`` (the per-scene
-    pSTL parameters).  ``noise`` / ``generator`` as in
-    :func:`reverse_sample`.  Returns (controls (n, nt, 2), all_steps)."""
-    if not mono:
-        raise NotImplementedError("the port samples the multi-candidate "
-                                  "rows through sim.make_planner")
-    extra = {"stlp": tmp_stlp, "gt_stlp": tmp_stlp}
+    pSTL parameters); otherwise the n dense rows' ``stlp_dense`` as
+    ``stlp``.  ``noise`` / ``generator`` as in :func:`reverse_sample`.
+    Returns (controls (n, nt, 2), all_steps)."""
+    if mono:
+        extra = {"stlp": tmp_stlp, "gt_stlp": tmp_stlp}
+    else:
+        if stlp_dense is None:
+            raise ValueError("the dense pass needs the rows' stlp_dense")
+        extra = {"stlp": stlp_dense}
     dev = coeffs.beta.device
 
     def eps_fn(x, t):

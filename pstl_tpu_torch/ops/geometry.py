@@ -3,11 +3,12 @@ point-to-polyline distance, anchor-disc car clearance, and the tiled
 minimum clearance of candidate rollouts against a scene's neighbor discs.
 
 The JAX package selects polyline segments with a one-hot einsum because
-TPU gathers are slow; here it is an argmin plus ``gather``.  The custom VJP
-of ``min_clearance_tiled`` is not ported: autograd through the forward
-below is used instead (it differs only in how exact ties split).  The fused
-kernel that replaces ``min_neighbor_distance`` under
-``cfg.use_pallas_clearance`` is ``ops/clearance_kernel.py``.
+TPU gathers are slow; here it is an argmin plus ``gather``.
+``min_clearance_tiled`` has the JAX package's recompute-based VJP
+(:class:`MinClearanceTiled`): it saves only the ego states and the discs,
+never the (bs, R, K, T, nL, nL) pair tensors.  The fused kernel that
+replaces ``min_neighbor_distance`` under ``cfg.use_pallas_clearance`` is
+``ops/clearance_kernel.py``.
 """
 
 from __future__ import annotations
@@ -154,22 +155,95 @@ def precompute_neighbor_discs(nei_traj: Tensor, nei_valid: Tensor,
     return NeighborDiscs(nx, ny, r, nei_valid)
 
 
+def _ego_axes(ego_L: float, ego_W: float, num_L: int, device):
+    re = ego_W / 2.0
+    return re, torch.linspace(-ego_L / 2 + re, ego_L / 2 - re, num_L,
+                              device=device)
+
+
+def _pairs(ego_xyth: Tensor, nx: Tensor, ny: Tensor, axe: Tensor):
+    """Ego disc centres against the scene's neighbor discs: (dx, dy) of
+    shape (bs, R, K, T, nLe, nLn), and the ego's cos / sin (bs, R, T)."""
+    x, y, th = ego_xyth[..., 0], ego_xyth[..., 1], ego_xyth[..., 2]
+    cth, sth = torch.cos(th), torch.sin(th)
+    ex = x[..., None] + axe * cth[..., None]               # (bs, R, T, nLe)
+    ey = y[..., None] + axe * sth[..., None]
+    dx = ex[:, :, None, :, :, None] - nx[:, None, :, :, None, :]
+    dy = ey[:, :, None, :, :, None] - ny[:, None, :, :, None, :]
+    return dx, dy, cth, sth
+
+
+def _masked_clearance(d2: Tensor, re: float, r: Tensor, valid: Tensor):
+    """Per-neighbor clearance from the pair minimum d2 (bs, R, K, T):
+    (per, masked) with ``masked`` clipped to [-5, 20] and 100 where the
+    neighbor is invalid."""
+    per = torch.sqrt(d2 + 1e-12) - re - r[:, None]
+    v = valid[:, None]
+    return per, torch.clamp(per, -5.0, 20.0) * v + (1.0 - v) * 100.0
+
+
+class MinClearanceTiled(torch.autograd.Function):
+    """``min_clearance_tiled`` with the JAX package's custom VJP
+    (``pstl_tpu/ops/geometry.py:_min_clearance_tiled_bwd``): the forward
+    saves the ego states and the discs only; the backward recomputes the
+    pairs and routes the cotangent through the min over K (ties split
+    evenly), a strict (-5, 20) gate times the validity (``torch.clamp``'s
+    own gradient passes at the bounds), the min over disc pairs (ties split
+    evenly) and d sqrt(d2) = dx / dist.  The discs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ego_xyth, nx, ny, r, valid, ego_L, ego_W, num_L):
+        ctx.save_for_backward(ego_xyth, nx, ny, r, valid)
+        ctx.consts = (ego_L, ego_W, num_L)
+        re, axe = _ego_axes(ego_L, ego_W, num_L, ego_xyth.device)
+        dx, dy, _, _ = _pairs(ego_xyth, nx, ny, axe)
+        d2 = torch.amin(dx * dx + dy * dy, dim=(-2, -1))   # (bs, R, K, T)
+        _, masked = _masked_clearance(d2, re, r, valid)
+        return torch.amin(masked, dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        ego_xyth, nx, ny, r, valid = ctx.saved_tensors
+        ego_L, ego_W, num_L = ctx.consts
+        re, axe = _ego_axes(ego_L, ego_W, num_L, ego_xyth.device)
+        dx, dy, cth, sth = _pairs(ego_xyth, nx, ny, axe)
+        d2p = dx * dx + dy * dy                          # (bs,R,K,T,nLe,nLn)
+        d2 = torch.amin(d2p, dim=(-2, -1))
+        dist = torch.sqrt(d2 + 1e-12)
+        per, masked = _masked_clearance(d2, re, r, valid)
+        out = torch.amin(masked, dim=-2, keepdim=True)     # (bs, R, 1, T)
+        eqK = (masked == out).to(g.dtype)
+        wK = eqK / torch.clamp(eqK.sum(-2, keepdim=True), min=1.0)
+        gate = ((per > -5.0) & (per < 20.0)).to(g.dtype) * valid[:, None]
+        gK = g[:, :, None] * wK * gate                     # (bs, R, K, T)
+        eqP = (d2p == d2[..., None, None]).to(g.dtype)
+        wP = eqP / torch.clamp(eqP.sum((-2, -1), keepdim=True), min=1.0)
+        coef = (gK / dist)[..., None, None] * wP
+        g_ex = torch.sum(coef * dx, dim=(-4, -1))          # (bs, R, T, nLe)
+        g_ey = torch.sum(coef * dy, dim=(-4, -1))
+        gth = torch.sum(g_ex * (-axe * sth[..., None])
+                        + g_ey * (axe * cth[..., None]), dim=-1)
+        g_ego = torch.stack([g_ex.sum(-1), g_ey.sum(-1), gth], dim=-1)
+        if ego_xyth.shape[-1] > 3:
+            g_ego = torch.cat([g_ego, g_ego.new_zeros(
+                ego_xyth.shape[:-1] + (ego_xyth.shape[-1] - 3,))], dim=-1)
+        return g_ego, None, None, None, None, None, None, None
+
+
 def min_clearance_tiled(ego_xyth: Tensor, discs: NeighborDiscs,
                         ego_L: float, ego_W: float, num_L: int = 4) -> Tensor:
     """Masked min clearance of R candidate rollouts per scene against the
     scene's neighbor discs.  ego_xyth: (bs, R, T, >=3); discs fields
     (bs, K, T, ...).  Clearance clipped to [-5, 20], invalid neighbors 100,
-    min over K.  Returns (bs, R, T)."""
-    re = ego_W / 2.0
-    axe = torch.linspace(-ego_L / 2 + re, ego_L / 2 - re, num_L,
-                         device=ego_xyth.device)
-    x, y, th = ego_xyth[..., 0], ego_xyth[..., 1], ego_xyth[..., 2]
-    ex = x[..., None] + axe * torch.cos(th)[..., None]      # (bs, R, T, nLe)
-    ey = y[..., None] + axe * torch.sin(th)[..., None]
-    dx = ex[:, :, None, :, :, None] - discs.nx[:, None, :, :, None, :]
-    dy = ey[:, :, None, :, :, None] - discs.ny[:, None, :, :, None, :]
-    d2 = torch.amin(dx * dx + dy * dy, dim=(-2, -1))         # (bs, R, K, T)
-    per = torch.sqrt(d2 + 1e-12) - re - discs.r[:, None]
-    valid = discs.valid[:, None]
-    masked = torch.clamp(per, -5.0, 20.0) * valid + (1.0 - valid) * 100.0
-    return torch.amin(masked, dim=-2)
+    min over K.  Returns (bs, R, T); differentiable w.r.t. the ego states
+    only, through :class:`MinClearanceTiled`."""
+    return MinClearanceTiled.apply(ego_xyth, discs.nx, discs.ny, discs.r,
+                                   discs.valid, ego_L, ego_W, num_L)
+
+
+def min_clearance_pre(ego_xyth: Tensor, discs: NeighborDiscs, ego_L: float,
+                      ego_W: float, num_L: int = 4) -> Tensor:
+    """Per-row variant: ego_xyth (n, T, >=3) against per-row discs
+    (n, K, T, ...); returns (n, T).  ``min_clearance_tiled`` with R = 1."""
+    return min_clearance_tiled(ego_xyth[:, None], discs, ego_L, ego_W,
+                               num_L)[:, 0]

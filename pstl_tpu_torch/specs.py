@@ -1,15 +1,17 @@
-"""Driving pSTL specifications (port of ``pstl_tpu/specs.py``): for the
-planner, dense batching with a given ``stlp_dense`` and the ``TiledScorer``
-robustness of (bs x n_randoms x 3) candidate rows; for the mono training
-step, the signal cache ``prep_signals`` (whose neighbor clearance runs the
-clearance kernels under ``cfg.use_pallas_clearance``), the fused
-``ClauseBank`` scorer, ``compute_scores`` and the pSTL calibration
-``calibrate_stlp``.
+"""Driving pSTL specifications (port of ``pstl_tpu/specs.py``): the signal
+cache ``prep_signals`` (whose neighbor clearance runs the clearance kernels
+under ``cfg.use_pallas_clearance``), the fused ``ClauseBank`` scorer,
+``compute_scores``, the pSTL calibration ``calibrate_stlp``, the flex pSTL
+draws (``generate_flex_pstl``, ``get_dense_stlp``), dense batching
+(``densify_batch``) with its hoisted signal dict (``dense_signal_input``),
+and the ``TiledScorer`` robustness of (bs x n_randoms x 3) candidate rows.
 
 The 6-dim pSTL parameter vector is
-``stlp = (v_min, v_max, d_min, d_max, d_safe, th_max)``.  Not ported yet:
-the formula tree (``build_formulas``), ``dense_signal_input`` and the flex
-``get_dense_stlp`` draws (ROADMAP.md).
+``stlp = (v_min, v_max, d_min, d_max, d_safe, th_max)``.  The flex draws
+are injectable: :func:`flex_uniforms` makes the (3, 6, bs, 1) tensor of
+uniforms the JAX package draws per maneuver and parameter (in each draw's
+own range), and every function that draws takes it as ``flex=``.  Not
+ported yet: the formula tree (``build_formulas``, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -86,9 +88,9 @@ def prep_signals(x: Dict[str, Tensor], cfg: Config,
             f"prep_signals: neighbors for {nei.shape[0]} rows, ego_traj has "
             f"{n}; only the clearance kernels take per-scene neighbors")
     if route == "discs":
-        out["min_nei_d"] = geom.min_clearance_tiled(
-            x["ego_traj"][:, None, :, 0:3], x["nei_discs"], cfg.ego_L,
-            cfg.ego_W, cfg.refined_nL)[:, 0]
+        out["min_nei_d"] = geom.min_clearance_pre(
+            x["ego_traj"][..., 0:3], x["nei_discs"], cfg.ego_L, cfg.ego_W,
+            cfg.refined_nL)
     elif route == "kernel":
         out["min_nei_d"] = clearance_kernel.min_neighbor_distance_fused(
             x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],
@@ -276,8 +278,94 @@ def calibrate_stlp(batch: Dict[str, Tensor], gt_trajs: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# dense batching and the tiled scorer (the planner's path)
+# flex pSTL draws, dense batching and the tiled scorer
 # ---------------------------------------------------------------------------
+
+#: the range of each of the six uniforms of ``generate_flex_pstl``, for the
+#: lane keep (maneuver 0) and for a lane change (1, 2): the speed-band
+#: widenings, the d-band blend (keep) or bounds (change), the d_safe and
+#: th_max blends
+FLEX_RANGES = {
+    "keep": ((1.3, 3.0), (1.3, 3.0), (0.0, 1.0), (0.0, 1.0), (0.0, 1.0),
+             (0.0, 1.0)),
+    "change": ((1.3, 3.0), (1.3, 3.0), (-2.5, -0.5), (0.5, 2.5), (0.0, 1.0),
+               (0.0, 1.0)),
+}
+
+
+def flex_uniforms(bs: int, generator: Optional[torch.Generator] = None,
+                  device=None) -> Tensor:
+    """The uniforms of ``get_dense_stlp``'s three ``generate_flex_pstl``
+    calls: (3, 6, bs, 1), entry [j, i] in the range ``FLEX_RANGES`` gives
+    maneuver j's i-th draw."""
+    u = torch.rand((3, 6, bs, 1), generator=generator, device=device)
+    lo = torch.tensor([[r[0] for r in FLEX_RANGES["keep" if j == 0
+                                                   else "change"]]
+                       for j in range(3)], device=u.device)
+    hi = torch.tensor([[r[1] for r in FLEX_RANGES["keep" if j == 0
+                                                   else "change"]]
+                       for j in range(3)], device=u.device)
+    return u * (hi - lo)[..., None, None] + lo[..., None, None]
+
+
+def generate_flex_pstl(stlp_mid: Tensor, the_high_level: int, n_randoms: int,
+                       u: Tensor) -> Tensor:
+    """Randomized relaxation of calibrated params for an off-label
+    maneuver (``pstl_tpu.specs.generate_flex_pstl``).  stlp_mid:
+    (bs, n_randoms, 6); ``u``: the maneuver's six (bs, 1) uniforms, each in
+    its ``FLEX_RANGES`` range.  Returns (bs, n_randoms, 6)."""
+    bs = stlp_mid.shape[0]
+    rep = lambda v: v.expand(bs, n_randoms)
+    new_vmin = torch.clamp(stlp_mid[:, :, 0] - rep(u[0]), min=-0.3)
+    new_vmax = torch.clamp(stlp_mid[:, :, 1] + rep(u[1]), min=-0.3)
+    if the_high_level == 0:
+        lamb0, lamb1 = rep(u[2]), rep(u[3])
+        new_dmin = (lamb0 * stlp_mid[:, :, 2]
+                    + (1 - lamb0) * (stlp_mid[:, :, 2] - 2.5))
+        new_dmax = (lamb1 * stlp_mid[:, :, 2]
+                    + (1 - lamb1) * (stlp_mid[:, :, 2] + 2.5))
+    else:
+        new_dmin, new_dmax = rep(u[2]), rep(u[3])
+    lamb2 = rep(u[4])
+    new_dsafe = torch.clamp(lamb2 * stlp_mid[:, :, 4]
+                            + (1 - lamb2) * (stlp_mid[:, :, 4] - 1.5), min=0)
+    lamb3 = rep(u[5])
+    new_thmax = (lamb3 * stlp_mid[:, :, 5]
+                 + (1 - lamb3) * (stlp_mid[:, :, 5] + 0.3))
+    return torch.stack([new_vmin, new_vmax, new_dmin, new_dmax, new_dsafe,
+                        new_thmax], dim=-1)
+
+
+def get_dense_stlp(gt_high_level: Tensor, the_stlp: Tensor, cfg: Config,
+                   n_randoms: Optional[int] = None,
+                   flex: Optional[Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> Tensor:
+    """Dense (bs * n_randoms * 3, 1, 6) pSTL parameters: the calibrated
+    params on the labeled maneuver, flex draws (``cfg.flex``; ``flex`` the
+    (3, 6, bs, 1) uniforms, else drawn from ``generator``) or defaults
+    elsewhere (``pstl_tpu.specs.get_dense_stlp``)."""
+    if n_randoms is None:
+        n_randoms = cfg.n_randoms
+    bs = the_stlp.shape[0]
+    hl = gt_high_level.reshape(bs, 1, 1)
+    stlp_mid = the_stlp[:, None, :].expand(bs, n_randoms, 6)
+    dt = stlp_mid.dtype
+    if cfg.flex:
+        if flex is None:
+            flex = flex_uniforms(bs, generator, the_stlp.device)
+        d = [generate_flex_pstl(stlp_mid, j, n_randoms, flex[j])
+             for j in range(3)]
+        hlf = hl.to(dt)
+        ins = [(hlf * (3 - hlf) == 0).to(dt),             # keep or outlier
+               (hl == 1).to(dt), (hl == 2).to(dt)]
+    else:
+        default = torch.tensor([0.0, 20.0, -2.5, 2.5, 0.1, 0.5], dtype=dt,
+                               device=the_stlp.device)
+        d = [default.expand(bs, n_randoms, 6)] * 3
+        ins = [(hl == j).to(dt) for j in range(3)]
+    stlp_mul = torch.stack([m * stlp_mid + (1 - m) * dj
+                            for m, dj in zip(ins, d)], dim=-2)
+    return stlp_mul.reshape(bs * n_randoms * 3, 1, 6)
 
 
 def dup(x: Tensor, m: int) -> Tensor:
@@ -286,11 +374,16 @@ def dup(x: Tensor, m: int) -> Tensor:
 
 
 def densify_batch(batch: Dict[str, Tensor], the_stlp: Tensor, cfg: Config,
-                  stlp_dense: Tensor,
-                  n_randoms: Optional[int] = None) -> Dict[str, Tensor]:
-    """Expand a per-scene batch to the (bs * n_randoms * 3) dense layout,
-    with the caller's dense pSTL parameters (the planner's path — no random
-    draw is made)."""
+                  stlp_dense: Optional[Tensor] = None,
+                  n_randoms: Optional[int] = None,
+                  flex: Optional[Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Dict[str, Tensor]:
+    """Expand a per-scene batch to the (bs * n_randoms * 3) dense layout
+    (``pstl_tpu.specs.densify_batch``).  The dense pSTL parameters are the
+    caller's ``stlp_dense`` (the planner), else the batch's ``pre_stlp``
+    column under ``cfg.load_stlp``, else :func:`get_dense_stlp`'s draws
+    (``flex`` / ``generator``)."""
     if n_randoms is None:
         n_randoms = cfg.n_randoms
     m = n_randoms * 3
@@ -300,12 +393,69 @@ def densify_batch(batch: Dict[str, Tensor], the_stlp: Tensor, cfg: Config,
     for k in ("currlane_wpts", "leftlane_wpts", "rightlane_wpts"):
         out[f"{k}_dense"] = dup(batch[k], m)
     out["stlp"] = the_stlp[:, None, :]
-    out["stlp_dense"] = stlp_dense
+    if stlp_dense is not None:
+        out["stlp_dense"] = stlp_dense
+    elif cfg.load_stlp and "pre_stlp" in batch:
+        out["stlp_dense"] = batch["pre_stlp"].reshape(bs * m, 1, 6)
+    else:
+        out["stlp_dense"] = get_dense_stlp(batch["gt_high_level"], the_stlp,
+                                           cfg, n_randoms, flex, generator)
     valids = torch.cat([batch["curr_id"], batch["left_id"],
                         batch["right_id"]], dim=-1)              # (bs, 3)
     out["valids_dense"] = dup(valids, n_randoms).reshape(bs * n_randoms, 3)
     hl = torch.tensor([0.0, 1.0, 2.0], device=valids.device)
     out["highlevel_dense"] = hl.repeat(bs * n_randoms).reshape(bs * m, 1)
+    return out
+
+
+def _map_signals(out: Dict, fn) -> Dict:
+    """``fn`` on every tensor of a signal dict, the disc fields included."""
+    return {k: (geom.NeighborDiscs(*(fn(t) for t in v))
+                if isinstance(v, geom.NeighborDiscs) else fn(v))
+            for k, v in out.items()}
+
+
+def dense_signal_input(batch: Dict[str, Tensor],
+                       dense_trajs: Optional[Tensor] = None,
+                       repeat_n: Optional[int] = None,
+                       detach: bool = False,
+                       cfg: Optional[Config] = None) -> Dict[str, Tensor]:
+    """The signal dict the formulas read, from a densified batch
+    (``pstl_tpu.specs.dense_signal_input``).  With ``cfg`` it also hoists
+    what stays constant across evaluations on the batch: the neighbor discs
+    (``nei_discs``, when ``refined_nW`` is 1 and there is no collision
+    loss; ``prep_signals`` then takes its "discs" route) and the norm_stl
+    factors.  ``detach`` cuts every entry from autograd; ``repeat_n`` tiles
+    every entry ``repeat_n`` times along its first axis; ``dense_trajs``
+    becomes ``ego_traj``."""
+    out = {
+        "neighbors": batch["neighbors_dense"],
+        "currlane_wpts": batch["currlane_wpts_dense"],
+        "leftlane_wpts": batch["leftlane_wpts_dense"],
+        "rightlane_wpts": batch["rightlane_wpts_dense"],
+        "stlp": batch["stlp_dense"],
+        "dense_valids": batch["valids_dense"],
+        "gt_high_level": batch["gt_high_level"],
+    }
+    if cfg is not None:
+        if cfg.refined_nW == 1 and cfg.collision_loss is None:
+            nei = out["neighbors"]
+            out["nei_discs"] = geom.precompute_neighbor_discs(
+                nei[..., 1:7], nei[..., I_VAL], cfg.refined_nL)
+        if cfg.norm_stl:
+            stlp = out["stlp"]
+            out["v_factor"] = torch.clamp(
+                stlp[..., I_VMAX] - stlp[..., I_VMIN], min=0.3)
+            out["d_factor"] = torch.clamp(
+                (stlp[..., I_DMAX] - stlp[..., I_DMIN]) * 5, min=0.3)
+            out["safe_factor"] = torch.clamp(stlp[..., I_DSAFE], min=0.3)
+    if detach:
+        out = _map_signals(out, lambda v: v.detach())
+    if repeat_n is not None:
+        out = _map_signals(out, lambda v: v.repeat(
+            (repeat_n,) + (1,) * (v.ndim - 1)))
+    if dense_trajs is not None:
+        out["ego_traj"] = dense_trajs
     return out
 
 
@@ -412,11 +562,23 @@ class TiledScorer:
 
 
 def make_score_rows(batch: Dict[str, Tensor], dense: Dict[str, Tensor],
-                    cfg: Config, n_randoms: Optional[int] = None):
+                    cfg: Config, n_randoms: Optional[int] = None,
+                    formulas: Optional[ClauseBank] = None):
     """Per-row robustness function for the canonical dense layout:
-    ``score_rows(ego_states (N, T, >=4)) -> (N,)``."""
-    if not cfg.tiled_scorer:
-        raise NotImplementedError(
-            "tiled_scorer=False (the ClauseBank over pre-tiled dense "
-            "signals, dense_signal_input) is not ported")
-    return TiledScorer(batch, dense["stlp_dense"], cfg, n_randoms)
+    ``score_rows(ego_states (N, T, >=4)) -> (N,)``.  ``TiledScorer`` by
+    default; ``cfg.tiled_scorer=False`` scores with the ``ClauseBank`` over
+    the pre-tiled signals of ``dense_signal_input`` (the same numbers)."""
+    if cfg.tiled_scorer:
+        return TiledScorer(batch, dense["stlp_dense"], cfg, n_randoms)
+    if formulas is None:
+        formulas = build_scorer(cfg)
+    signal_base = dense_signal_input(dense, cfg=cfg)
+    hl = dense["highlevel_dense"]
+    valid = dense["valids_dense"].reshape(-1)
+
+    def score_rows(ego):
+        _, s, _ = compute_scores(dict(signal_base, ego_traj=ego), formulas,
+                                 hl, valid, cfg)
+        return s
+
+    return score_rows

@@ -1,32 +1,57 @@
-"""Training engine for the mono (``gt_data_training``) step — port of
-``pstl_tpu/train.py`` for the presets ``e2_vae_mono`` and ``e4_ddpm_mono``.
+"""Training engine — port of ``pstl_tpu/train.py``.
 
-One train step is everything between the data loader and the optimizer:
-neighbor attachment, pSTL calibration from the GT trajectory, the policy
-forward on n = batch_size * n_randoms rows, the rollout of its controls,
-their STL robustness (``specs.compute_scores``, whose neighbor clearance is
-the clearance kernel pair under ``cfg.use_pallas_clearance``), the losses,
-autograd and Adam.  The VAE branch differentiates through the rollout, so
-each train step launches the forward clearance kernel once and its
-backward once; the diffusion branch scores controls sampled without
-gradient (unless ``grad_rollout``), so it launches the forward kernel only.
+One train step is everything between the data loader and the optimizer,
+for two kinds of preset:
+
+- **mono** (``gt_data_training``: ``e2_vae_mono``, ``e4_ddpm_mono``): the
+  policy on n = batch_size * n_randoms rows under the pSTL parameters
+  calibrated from the GT trajectory; the rollout of its controls is scored
+  by ``specs.compute_scores``, whose neighbor clearance is the clearance
+  kernel pair under ``cfg.use_pallas_clearance``.  The VAE branch
+  differentiates through the rollout (the forward and the backward kernel
+  once a step); the diffusion branch scores controls sampled without
+  gradient (unless ``grad_rollout``), the forward kernel only.
+- **dense** (``multi_check``: ``e5_ddpm``, ``e7_ours``, ``e8_stl``): the
+  batch densified to n = batch_size * n_randoms * 3 rows (flex pSTL draws,
+  or the ``pre_stlp`` column), the hoisted signal dict
+  (``specs.dense_signal_input``), the trajopt targets' scores (the
+  ``tj_scores_prior`` column, else the rollout of ``params`` scored on the
+  "discs" route) and the epsilon-MSE of the noised targets, masked to the
+  satisfying rows (``stl_bc_mask``).  Plain DDPM (e5) stops there.  With
+  ``rect_head`` (e7 / e8) the step also runs the full unguided sampler
+  without gradient, picks the best of the last ``multi_cands`` decodings
+  under the ``TiledScorer``, rectifies them with ``Net.rect`` and scores the
+  result with gradient (``geometry.min_clearance_tiled``'s recompute VJP):
+  the STL hinge, the DPP diversity and the stay-close regularizer, or,
+  without ``diverse_loss``, the normalized regularizer and the collision
+  loss.  No custom kernel runs on this path, as none does in the JAX
+  package's.
+
+With ``rect_head`` and not ``joint``, Adam updates the RefineNet head
+(``rect_net``, ``merge_net``) only, and every other parameter stays as it
+was to the bit (``optax.multi_transform`` with ``set_to_zero``).
 
 Randomness is injectable: ``draws`` maps "vae_noise" (n, vae_dim),
-"prep_noise" (n, nt*2), "prep_t" (n,) and "sample_noise"
-(diffusion_steps, n, nt*2) to the values the step uses; what is not given
-is drawn from ``generator``.  The parameters live in the ``Net``; a train
-step updates them in place.
+"prep_noise" (n, nt*2), "prep_t" (n,), "sample_noise" (diffusion_steps, n,
+nt*2) and, on the dense step, "flex" (the (3, 6, batch_size, 1) uniforms of
+``specs.flex_uniforms``) to the values the step uses; what is not given is
+drawn from ``generator``.  The parameters live in the ``Net``; a train step
+updates them in place.  Checkpoints (``save_checkpoint``,
+``load_checkpoint``, ``load_params_only``) are torch files under
+``exps/<exp_name>/torch_models``.
 
-Not ported (each raises): the dense (``multi_check``) step with RefineNet
-parameter groups, DPP and collision losses; checkpoints and viz of an
-experiment directory (``cfg.exp_name``); pretrained weights
-(``net_pretrained_path``); the constant-velocity neighbor prediction; the
-shard store and the device-side chunking of the JAX package, which is a
-TPU dispatch device and exact by construction.
+Not ported (each raises, by name): ``grad_rollout`` on the dense step,
+guidance in the training sampler, the dense VAE and BC heads, the init
+hint (both in ``Net``), the constant-velocity neighbor prediction
+(``gt_nei=False``), and the viz of an experiment directory (``exp_name``
+with ``no_viz`` False; ROADMAP.md §1 item 12).  The JAX package's
+device-side chunking (``train_chunk``) is exact by construction, so the port
+steps once per batch; its shard store is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -37,14 +62,19 @@ from pstl_tpu_torch import diffusion, losses, specs
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
 from pstl_tpu_torch.device import resolve_device
+from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.models.net import Net, init_flax_like
 from pstl_tpu_torch.ops import dynamics as dyn
+from pstl_tpu_torch.utils.exp import MODELS_DIR, setup_exp_dir
+from pstl_tpu_torch.utils.meters import EtaEstimator, MeterDict
 
 Tensor = torch.Tensor
 
 #: batch columns a step reads (the JAX package's filter)
 COLS = ("ego", "neighbors", "curr", "left", "right", "gt_", "params",
         "tj_scores", "pre_stlp")
+#: the RefineNet head: what Adam updates with rect_head and not joint
+RECT_MODULES = ("rect_net", "merge_net")
 METRIC_KEYS = ("loss", "loss_stl", "loss_diffusion", "loss_reg",
                "loss_diversity", "loss_vae_bc", "loss_vae_kl", "loss_bc",
                "acc", "tj_acc")
@@ -59,10 +89,13 @@ class TrainState(NamedTuple):
 
 
 def make_optimizer(cfg: Config, params: Net) -> torch.optim.Adam:
-    """Adam at ``cfg.lr`` over every parameter (optax.adam's update)."""
+    """Adam at ``cfg.lr`` (optax.adam's update) over every parameter, or,
+    with ``rect_head`` and not ``joint``, over the RefineNet head only: the
+    other parameters are not in the optimizer and never move."""
     if cfg.rect_head and not cfg.joint:
-        raise NotImplementedError("RefineNet-only training (the optax "
-                                  "multi_transform mask) is not ported")
+        return torch.optim.Adam(
+            [p for k, p in params.named_parameters()
+             if k.split(".")[0] in RECT_MODULES], lr=cfg.lr)
     return torch.optim.Adam(params.parameters(), lr=cfg.lr)
 
 
@@ -173,6 +206,114 @@ def _mono_forward_and_loss(net: Net, batch, cfg: Config, formulas,
     return rd["loss"], rd
 
 
+def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
+                            coeffs: diffusion.Coeffs, gt_stlp: Tensor,
+                            states: Tensor, draws: Dict[str, Tensor],
+                            generator: Optional[torch.Generator]):
+    """The dense (``multi_check``) branch: plain DDPM, or with ``rect_head``
+    the sampler, the multi-candidate selection and the RefineNet
+    (``pstl_tpu/train.py:batch_forward_and_loss``)."""
+    if not cfg.diffusion:
+        raise NotImplementedError("the dense VAE and BC steps are not ported "
+                                  "(nor are their heads, models/net.py)")
+    if cfg.grad_rollout and not cfg.rect_head:
+        raise NotImplementedError("grad_rollout (training through the dense "
+                                  "sampler) is not ported")
+    if cfg.rect_head and cfg.guidance:
+        raise NotImplementedError(
+            "guidance in the training sampler (the row-major guided sampler, "
+            "ROADMAP.md §1 item 6) is not ported")
+    bs = states.shape[0]
+    n = bs * cfg.n_randoms * 3
+    rd: Dict[str, Tensor] = {}
+    dense = specs.densify_batch(batch, gt_stlp, cfg, flex=draws.get("flex"),
+                                generator=generator)
+    states_flat = torch.repeat_interleave(states, cfg.n_randoms * 3, 0)
+    highlevel = dense["highlevel_dense"]
+    signal_base = specs.dense_signal_input(dense, cfg=cfg)
+    valid = dense["valids_dense"].reshape(-1)
+
+    # the trajopt targets and their scores (offline sidecars, else scored)
+    dense_controls = batch["params"].reshape(n, cfg.nt, 2)
+    if "tj_scores_prior" in batch:
+        dense_scores = batch["tj_scores_prior"].reshape(-1)
+    else:
+        tj_trajs = dyn.rollout(states_flat, dense_controls, cfg.dt)
+        _, dense_scores, _ = specs.compute_scores(
+            dict(signal_base, ego_traj=tj_trajs[:, :-1]), formulas,
+            highlevel, valid, cfg)
+    score_rows = specs.make_score_rows(batch, dense, cfg, formulas=formulas)
+
+    def score_controls(controls):
+        s = score_rows(dyn.rollout(states_flat, controls, cfg.dt)[:, :-1])
+        return s, specs.mask_mean((s > 0).float(), valid)
+
+    def coll_loss(controls):
+        """TrafficSim collision loss on the rollouts (``collision_loss``)."""
+        if cfg.collision_loss is None:
+            return controls.new_zeros(())
+        trajs = dyn.rollout(states_flat, controls, cfg.dt)
+        sig = specs.prep_signals(dict(signal_base, ego_traj=trajs[:, :-1]),
+                                 cfg, with_collision=True)
+        return losses.collision(sig["min_centroid_d"], sig["radius_sum"],
+                                cfg)
+
+    noise, steps, noised = diffusion.prep(
+        batch["params"], cfg, coeffs, noise=draws.get("prep_noise"),
+        t=draws.get("prep_t"), generator=generator)
+    ext = {"timestep": steps.float(), "highlevel": highlevel,
+           "noise": noised}
+    eps_hat, feature = net(dense, ext, get_feature=True)
+    rd["loss_diffusion"] = losses.diffusion_eps_mse(
+        noise, eps_hat.reshape(n, cfg.nt * 2), dense_scores, valid, cfg)
+
+    if cfg.rect_head:
+        # the sampler and the selection carry no gradient (stop_gradient in
+        # the JAX step)
+        with torch.no_grad():
+            feat = feature.detach()
+            nn_controls, all_steps = diffusion.sample(
+                lambda e: net(dense, e, prev_feature=feat), highlevel, cfg,
+                coeffs, n, noise=draws.get("sample_noise"),
+                generator=generator, stlp_dense=dense["stlp_dense"])
+            if cfg.multi_cands is not None:
+                nn_controls, prev_scores = diffusion.select_multi_cands(
+                    all_steps, cfg.multi_cands, states_flat, score_rows, cfg)
+            else:
+                prev_scores, _ = score_controls(nn_controls)
+        rect_controls = net.rect(feature, highlevel,
+                                 dense["stlp_dense"][:, 0], nn_controls,
+                                 prev_scores)
+        scores, acc = score_controls(rect_controls)
+        rd["loss_stl"] = losses.stl_hinge(scores, valid, cfg.stl_nn_thres,
+                                          cfg.stl_weight)
+        if cfg.diverse_loss:
+            rd["loss_diversity"] = losses.dpp_diversity(rect_controls, scores,
+                                                        cfg)
+            # the stay-close mask reads the post-rect scores
+            rd["loss_reg"], _ = losses.rect_reg(rect_controls, nn_controls,
+                                                scores, cfg)
+            rd["loss"] = (rd["loss_stl"] + rd["loss_reg"] * cfg.rect_reg_loss
+                          + rd["loss_diversity"])
+        else:
+            rd["loss_reg"], rd["extra_loss_reg"] = losses.rect_reg(
+                rect_controls, nn_controls, prev_scores, cfg)
+            rd["loss_coll"] = coll_loss(rect_controls)
+            rd["loss"] = (rd["loss_stl"] + rd["loss_reg"]
+                          + rd["extra_loss_reg"] + rd["loss_coll"])
+    else:
+        # plain DDPM: the STL hinge of the targets' scores is a metric only
+        acc = specs.mask_mean((dense_scores > 0).float(), valid)
+        rd["loss_stl"] = losses.stl_hinge(dense_scores, valid,
+                                          cfg.stl_nn_thres,
+                                          cfg.stl_weight) * 0.0
+        rd["loss_coll"] = coll_loss(dense_controls)
+        rd["loss"] = rd["loss_stl"] + rd["loss_diffusion"] + rd["loss_coll"]
+    rd["acc"] = acc
+    rd["tj_acc"] = specs.mask_mean((dense_scores > 0).float(), valid)
+    return rd["loss"], rd
+
+
 def batch_forward_and_loss(params: Net, batch: Dict[str, Tensor],
                            cfg: Config, formulas, coeffs: diffusion.Coeffs,
                            train: bool,
@@ -180,30 +321,28 @@ def batch_forward_and_loss(params: Net, batch: Dict[str, Tensor],
                            generator: Optional[torch.Generator] = None
                            ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Everything between data loader and optimizer for one batch; returns
-    (loss, metrics).  ``train`` is the JAX signature's flag: the mono step
+    (loss, metrics).  ``train`` is the JAX signature's flag: the step
     computes the same either way."""
-    if not cfg.gt_data_training:
-        raise NotImplementedError(
-            "the dense (multi_check) training step is not ported "
-            "(ROADMAP.md §1 item 7); the port trains the mono presets")
     batch = attach_neighbors(batch, cfg)
     gt_trajs = batch["ego_traj"][..., :4]
     states = gt_trajs[:, 0, :4]
     gt_stlp = specs.calibrate_stlp(batch, gt_trajs, cfg)
-    return _mono_forward_and_loss(params, batch, cfg, formulas, coeffs,
-                                  gt_stlp, states, draws or {}, generator)
+    branch = (_mono_forward_and_loss if cfg.gt_data_training
+              else _dense_forward_and_loss)
+    return branch(params, batch, cfg, formulas, coeffs, gt_stlp, states,
+                  draws or {}, generator)
 
 
 def make_train_step(cfg: Config, net: Net, formulas,
                     coeffs: diffusion.Coeffs, opt: torch.optim.Optimizer):
     """``train_step(batch, draws=None, generator=None) -> metrics``: loss,
-    gradients (left in the parameters' ``.grad``) and one Adam update of
-    ``net`` by ``opt``, in place."""
+    gradients of every parameter (left in their ``.grad``) and one Adam
+    update by ``opt`` of the parameters it holds, in place."""
 
     def train_step(batch: Dict[str, Tensor],
                    draws: Optional[Dict[str, Tensor]] = None,
                    generator: Optional[torch.Generator] = None):
-        opt.zero_grad(set_to_none=True)
+        net.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, rd = batch_forward_and_loss(net, batch, cfg, formulas,
                                               coeffs, True, draws, generator)
@@ -230,25 +369,6 @@ def make_eval_step(cfg: Config, net: Net, formulas,
     return eval_step
 
 
-class MeterDict:
-    """Last value and running mean per metric."""
-
-    def __init__(self):
-        self.cur: Dict[str, float] = {}
-        self.sum: Dict[str, float] = {}
-        self.count: Dict[str, int] = {}
-
-    def update(self, key: str, val: float):
-        self.cur[key] = val
-        self.sum[key] = self.sum.get(key, 0.0) + val
-        self.count[key] = self.count.get(key, 0) + 1
-
-    def summary(self) -> str:
-        avg = {k: self.sum[k] / self.count[k] for k in self.cur}
-        return " ".join(f"{k}:{self.cur[k]:.3f}({avg[k]:.3f})"
-                        for k in sorted(self.cur))
-
-
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Tensor]:
     """A step's columns on ``device`` (float64 arrays as float32)."""
     out = {}
@@ -261,23 +381,101 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Tensor]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# checkpoints (torch files)
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, step: int) -> str:
+    """Write the parameters, the optimizer state and the step count to
+    ``<ckpt_dir>/step_<step>.pt`` and point ``<ckpt_dir>/LAST`` at it;
+    returns the file."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}.pt"))
+    # written beside and renamed: an interrupted save leaves no half file
+    torch.save({"params": state.net.state_dict(),
+                "opt_state": state.opt.state_dict(), "step": state.step},
+               path + ".tmp")
+    os.replace(path + ".tmp", path)
+    with open(os.path.join(ckpt_dir, "LAST"), "w") as f:
+        f.write(path)
+    return path
+
+
+def _resolve_ckpt(ckpt_dir: str) -> str:
+    """The file ``LAST`` points at (looked up beside it when the directory
+    moved), or ``ckpt_dir`` itself without a pointer."""
+    last = os.path.join(ckpt_dir, "LAST")
+    if not os.path.exists(last):
+        return os.path.abspath(ckpt_dir)
+    with open(last) as f:
+        path = f.read().strip()
+    if not os.path.exists(path):
+        path = os.path.join(ckpt_dir, os.path.basename(path))
+    return os.path.abspath(path)
+
+
+def _read_checkpoint(path: str, device) -> dict:
+    return torch.load(_resolve_ckpt(path), map_location=device,
+                      weights_only=True)
+
+
+def load_checkpoint(ckpt_dir: str, state: TrainState) -> TrainState:
+    """Resume: the checkpoint's parameters and optimizer state into
+    ``state``'s net and optimizer (made as the saved ones were), and its
+    step count."""
+    ck = _read_checkpoint(ckpt_dir, next(state.net.parameters()).device)
+    state.net.load_state_dict(ck["params"])
+    state.opt.load_state_dict(ck["opt_state"])
+    return TrainState(state.net, state.opt, int(ck["step"]))
+
+
+def load_params_only(path: str, state: TrainState) -> TrainState:
+    """Pretrained weights into ``state``'s net, from a port checkpoint (a
+    directory with ``LAST``, or a file) or a flat flax ``.npz``
+    (``models/convert.py``).  Each top-level module the source holds is
+    loaded whole; a module it lacks keeps its parameters (the RefineNet head
+    of a plain DDPM source stays as initialized); modules of the source that
+    the net lacks are ignored."""
+    if path.endswith(".npz"):
+        src = convert.load_npz(path)
+    else:
+        src = _read_checkpoint(path, "cpu")["params"]
+    have = {k.split(".")[0] for k in src}
+    with torch.no_grad():
+        for k, p in state.net.state_dict().items():
+            if k.split(".")[0] not in have:
+                continue
+            if k not in src:
+                raise KeyError(f"{path}: module {k.split('.')[0]} lacks {k}")
+            p.copy_(src[k])
+    return state
+
+
+# ---------------------------------------------------------------------------
+# training loop
+# ---------------------------------------------------------------------------
+
 def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
           device=None, log: Callable = print,
-          history: Optional[list] = None) -> TrainState:
+          history: Optional[list] = None, epoch_cb=None) -> TrainState:
     """The epoch loop over {train, val} with one step per batch
     (``pstl_tpu/train.py:train``): flax-like initialization from
-    ``cfg.seed``, random control seeds for the dataset, shuffled train
-    batches and unshuffled val batches (the ragged tail dropped), metrics
-    logged per ``print_freq`` batches and per pass.  Every draw comes from
-    one generator on ``device`` seeded with ``cfg.seed``.  ``history``, when
-    given, receives (epoch, mode, {metric: value}) for every batch."""
-    if cfg.exp_name:
+    ``cfg.seed``, then ``cfg.net_pretrained_path``'s weights
+    (``load_params_only``) and a fresh optimizer; random control seeds for
+    the dataset where it has no trajopt ``params``; shuffled train batches
+    and unshuffled val batches (the ragged tail dropped); metrics logged per
+    ``print_freq`` batches and per pass with the time left.  Every draw
+    comes from one generator on ``device`` seeded with ``cfg.seed``.
+    ``history``, when given, receives (epoch, mode, {metric: value}) for
+    every batch; ``epoch_cb(epoch, state)`` runs after each epoch's val
+    pass.  With ``cfg.exp_name`` the experiment directory is made
+    (``utils.exp.setup_exp_dir``, no tee) and a checkpoint is written under
+    ``exps/<exp_name>/torch_models`` every ``save_freq`` epochs and after
+    the last."""
+    if cfg.exp_name and not cfg.no_viz:
         raise NotImplementedError(
-            "checkpoints and viz of an experiment directory are not ported "
-            "(ROADMAP.md §1 items 7 and 12): pass exp_name=None")
-    if cfg.net_pretrained_path:
-        raise NotImplementedError("loading pretrained weights into training "
-                                  "is not ported")
+            "the viz of an experiment directory is not ported (ROADMAP.md "
+            "§1 item 12): pass no_viz=True, or exp_name=None")
     dev = resolve_device(device)
     formulas = specs.build_scorer(cfg)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
@@ -286,13 +484,21 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed)
     state = init_state(cfg, net, gen)
+    if cfg.net_pretrained_path:
+        state = load_params_only(cfg.net_pretrained_path, state)
+    state = TrainState(net, make_optimizer(cfg, net), 0)
     train_step = make_train_step(cfg, net, formulas, coeffs, state.opt)
     eval_step = make_eval_step(cfg, net, formulas, coeffs)
+    if cfg.exp_name:
+        ckpt_dir = os.path.join(setup_exp_dir(cfg, tee=False), MODELS_DIR)
     n_epochs = epochs if epochs is not None else cfg.epochs
+    eta = EtaEstimator(n_epochs, ds.split_len("train") // cfg.batch_size,
+                       ds.split_len("val") // cfg.batch_size, cfg.viz_freq)
     for epi in range(n_epochs):
         for mode in ("train", "val"):
             md = MeterDict()
             t0 = time.time()
+            bi = -1
             for bi, b in enumerate(batch_iterator(
                     ds, mode, cfg.batch_size, shuffle=(mode == "train"),
                     seed=cfg.seed, epoch=epi)):
@@ -310,6 +516,14 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
                 if (mode == "train" and cfg.print_freq > 0
                         and bi % cfg.print_freq == 0):
                     log(f"{mode:5s}[{epi:03d}|{bi:04d}] " + md.summary())
+            dur = time.time() - t0
+            eta.update(mode, dur, n=max(bi + 1, 1))
+            if mode == "val":
+                eta.epoch_done()
             log(f"{mode:5s}[{epi:03d}] " + md.summary()
-                + f" T:{time.time() - t0:.1f}s")
+                + f" T:{dur:.1f}s ETA:{eta.eta_str()}")
+        if epoch_cb is not None:
+            epoch_cb(epi, state)
+        if cfg.exp_name and (epi % cfg.save_freq == 0 or epi == n_epochs - 1):
+            save_checkpoint(ckpt_dir, state, epi)
     return state

@@ -9,7 +9,10 @@ frozen-payload kernel; 2f: the folded fused kernel; 0: the XLA guidance
 loop).  With ``--train e2`` or ``--train e4``: train steps of
 ``mono_config("e2_vae_mono")`` / ``("e4_ddpm_mono")`` at full width (128
 scenes x 64 rows a batch, random initialization from seed 1, synthetic scenes
-from seed 0), each on the next train batch.  Either way ``--warmup`` untimed
+from seed 0), each on the next train batch; with ``--train e5`` or ``--train
+e7``: dense train steps of ``e5_ddpm`` / ``e7_ours`` (128 scenes x 64 x 3 =
+24,576 rows; e7 warm-started from the committed e5b_round5 base, its
+RefineNet head from seed 1).  Either way ``--warmup`` untimed
 steps, then ``--steps`` steps untraced and as many again under
 ``torch.profiler``; written to ``--out``: the untraced step times, the traced
 window's device busy time by kernel name, the device busy share of the
@@ -31,7 +34,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TRAIN_PRESETS = {"e2": "e2_vae_mono", "e4": "e4_ddpm_mono"}
+TRAIN_PRESETS = {"e2": "e2_vae_mono", "e4": "e4_ddpm_mono", "e5": "e5_ddpm",
+                 "e7": "e7_ours"}
 
 
 def closed_loop_step(args, dev):
@@ -60,20 +64,28 @@ def closed_loop_step(args, dev):
 
 
 def train_step(args, dev):
-    """step() -> one mono train step on the next train batch."""
+    """step() -> one train step on the next train batch."""
     import torch
     from pstl_tpu_torch import diffusion, specs, train
-    from pstl_tpu_torch.config import mono_config
+    from pstl_tpu_torch.config import PRESETS, mono_config
     from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
+    from pstl_tpu_torch.models import convert
     from pstl_tpu_torch.models.net import Net, init_flax_like
 
-    cfg = mono_config(TRAIN_PRESETS[args.train])
+    preset = TRAIN_PRESETS[args.train]
+    cfg = (mono_config(preset) if PRESETS[preset].gt_data_training
+           else PRESETS[preset].with_(exp_name=None))
     n_steps = args.warmup + 2 * args.steps
     ds = SceneDataset.from_synthetic(
         cfg, seed=0,
         n_scenes=int(n_steps * cfg.batch_size / cfg.train_ratio) + 1)
+    ds.ensure_random_params(cfg.seed)
     net = Net(cfg)
     init_flax_like(net, torch.Generator().manual_seed(1))
+    if cfg.rect_head:
+        train.load_params_only(
+            os.path.join(convert.WEIGHTS_DIR, "e5b_round5.npz"),
+            train.TrainState(net, None, 0))
     net = net.to(dev)
     step = train.make_train_step(cfg, net, specs.build_scorer(cfg),
                                  diffusion.get_coeffs(cfg, device=dev),

@@ -1,7 +1,8 @@
 """The port's training loop (``pstl_tpu_torch.train.train``) on the CPU at a
 small size: one epoch of each mono preset, the clearance calls it makes
 (what the launch counts must show on the card), determinism under the
-seed, the flax-like initialization, and what the port refuses."""
+seed, the flax-like initialization, and what the port refuses (the dense
+presets' loop: ``tests/test_torch_checkpoint.py``)."""
 
 import numpy as np
 import pytest
@@ -9,9 +10,9 @@ import torch
 
 from pstl_tpu.config import Config as JConfig
 from pstl_tpu.models import Net as JNet
-from pstl_tpu_torch import sim, train
+from pstl_tpu_torch import diffusion, sim, specs, train
 from pstl_tpu_torch.config import PRESETS, mono_config
-from pstl_tpu_torch.data.dataset import SceneDataset
+from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
 from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.models.net import Net, init_flax_like
 from pstl_tpu_torch.ops import clearance_kernel as ck
@@ -118,18 +119,28 @@ def test_refusals():
         train.resolve_device(None)
     cfg = mono_config("e2_vae_mono", **SMALL)
     ds = SceneDataset.from_synthetic(cfg, n_scenes=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 12"):
         train.train(PRESETS["e2_vae_mono"], ds, device="cpu")
-    with pytest.raises(NotImplementedError):
-        train.train(cfg.with_(net_pretrained_path="x"), ds, device="cpu")
     with pytest.raises(NotImplementedError):
         train.attach_neighbors({"neighbors_traj": torch.zeros(1, 1, 2, 7)},
                                cfg.with_(gt_nei=False))
-    dense = PRESETS["e7_ours"].with_(exp_name=None)
-    with pytest.raises(NotImplementedError):
-        train.make_optimizer(dense, Net(dense))
-    with pytest.raises(NotImplementedError):
-        train.batch_forward_and_loss(None, {}, dense, None, None, True)
+    # the dense step: training through the sampler, guidance in it
+    dense = PRESETS["e5_ddpm"].with_(
+        exp_name=None, hiddens=(8,), rect_hiddens=(8,), n_randoms=2,
+        n_shards=1, diffusion_steps=4, n_neighbors=3)
+    dds = SceneDataset.from_synthetic(dense, n_scenes=8)
+    dds.ensure_random_params(0)
+    batch = train.to_device(next(batch_iterator(dds, "train", 2,
+                                                shuffle=False)), "cpu")
+    e7 = PRESETS["e7_ours"].with_(**{k: getattr(dense, k) for k in (
+        "exp_name", "hiddens", "rect_hiddens", "n_randoms", "n_shards",
+        "diffusion_steps", "n_neighbors")})
+    for bad, what in ((dense.with_(grad_rollout=True), "grad_rollout"),
+                      (e7.with_(guidance=True), "guidance")):
+        with pytest.raises(NotImplementedError, match=what):
+            train.batch_forward_and_loss(
+                Net(bad), batch, bad, specs.build_scorer(bad),
+                diffusion.get_coeffs(bad), True)
     with pytest.raises(NotImplementedError):
         Net(PRESETS["e3_vae"].with_(use_init_hint=False))
     with pytest.raises(NotImplementedError):

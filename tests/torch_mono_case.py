@@ -115,7 +115,7 @@ def jax_grad_fn(cfg, net):
     return grads
 
 
-def check_close(got, want, bf16, what, rtol=1e-5, bf16_steps=1):
+def check_close(got, want, bf16, what, rtol=1e-5, bf16_steps=1, floor=1e-6):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     scale = max(float(np.abs(want).max()), 1e-30)
     if bf16:
@@ -123,7 +123,7 @@ def check_close(got, want, bf16, what, rtol=1e-5, bf16_steps=1):
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=bf16_steps * step, err_msg=what)
     else:
-        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * scale,
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=floor * scale,
                                    err_msg=what)
 
 
