@@ -88,9 +88,27 @@ and no result line is printed:
 18. a checkpoint on the card: two e7 steps, ``train.save_checkpoint``, a
    fresh net and Adam loaded by ``train.load_checkpoint`` (parameters,
    moments and step count bit for bit), one more step from each.
+19. card vs CPU for trajopt: one ``trajopt_loss`` gradient and 20 Adam
+   steps of ``trajopt.optimize`` (``e1_trajopt``, 8 scenes x 64 x 3 rows,
+   K = 4, fp32, the GT controls in seed 0), the same draws; no kernel.
+20. the augmentation at full width: ``trajopt.augment_dataset`` over phase
+   15's 1,500 scenes (batches of 1,024 scenes x 64 x 3 = 196,608 rows, the
+   second padded), 200 of the preset's 2,000 iterations: median iteration,
+   launches and device time of an iteration, peak memory, the oracle's
+   satisfaction against the random seeds'; the store saved and loaded, and
+   4 ``e5_ddpm`` steps on it (the share of rows ``stl_bc_mask`` keeps).
+21. card vs CPU for the open-loop evaluation: the oracle row, the timed
+   region and the metric tail on 8 val scenes of that store, fp32, guided
+   (``ours_guidance`` + ``guidance_pallas_fuse_freeze``), pinned noise.
+22. Table I at full width: ``eval_openloop.run`` on the store's val split
+   with the e7_round5 weights, guided (kernel 1 once per guided denoise
+   step of every batch and of the warm-up) and unguided (e7, no kernel);
+   kernel 1 against its plain version on the first guided step's inputs
+   (bs 128, one Adam iteration, the hinge threshold ``stl_nn_thres``).
 
 The line before the last is the card's ``name, power.limit``; before it a
-JSON line with each kernel's launches, error, times (``ms`` one eager call
+JSON line with each kernel's (kernel 1 on the closed loop's path and, the
+ninth entry, on the evaluation's) launches, error, times (``ms`` one eager call
 of its wrapper, ``graph_ms`` the kernel alone in a graph replay, see
 ``kernel_ms``; ``plain_ms`` the plain version) and its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -123,6 +141,15 @@ E4_STEPS = 4
 DENSE_REF_SCENES = 8
 E5_STEPS = 4
 E7_STEPS = 4
+#: the trajopt card-vs-CPU phase's scenes and iterations, and the e1
+#: phase's iterations (the preset runs traj_opt_iters = 2000)
+TRAJOPT_REF_SCENES = 8
+TRAJOPT_REF_ITERS = 20
+E1_ITERS = 200
+#: scenes of the evaluation's card-vs-CPU phase
+EVAL_REF_SCENES = 8
+#: kernels of a trajopt iteration's device-time breakdown
+TOP_KERNELS = 8
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM,
 #: and operations per second by operand type (bf16 / fp16 on the tensor
 #: cores, float32 outside them)
@@ -170,6 +197,19 @@ MONO_TIE_M, MONO_MAX_OFF_SHARE = 1e-3, 1e-2
 # the saved and of the loaded state must agree to DENSE_RESUME_TOL
 DENSE_RTOL, DENSE_GRAD_TOL = MONO_RTOL, MONO_GRAD_TOL
 DENSE_RESUME_TOL = 1e-6
+# card vs CPU for trajopt (phase 19): controls within TJ_PARAM_ATOL after
+# 20 Adam steps and final scores within TJ_SCORE_ATOL (tests/
+# test_torch_trajopt.py's bounds against JAX), on all but TJ_MAX_OFF_SHARE of
+# the elements / rows: a near-tie of a lane-segment or disc-pair argmin
+# sends a row's gradient elsewhere, and Adam then moves it apart by up to
+# its step size
+TJ_PARAM_ATOL, TJ_SCORE_ATOL, TJ_MAX_OFF_SHARE = 1e-4, 1e-3, 1e-2
+# card vs CPU for the evaluation (phase 21): the reverse pass agrees to 1e-3
+# in the controls (phase 5); a 2 s rollout and the tau = 100 clauses carry
+# that to about 1e-2 in a score.  The multi-cands argmax, the RefineNet's
+# violation gate and the guidance's in-kernel argmins are discrete, so a
+# row at a near-tie may go another way: at most EVAL_MAX_OFF_SHARE of them
+EVAL_SCORE_ATOL, EVAL_MAX_OFF_SHARE = 1e-2, 1e-2
 # unguided superstep vs plain, elementwise on x_next: the MLP sums in fp32
 # in another order than the library matmul, so a bf16 activation can round
 # one step (2^-8 relative) the other way; that moves eps by about that step
@@ -1431,7 +1471,8 @@ def dense_reference_phase(dev):
 def dense_loop(dev, cfg, net, ds, steps, what):
     """``steps`` train steps of ``net`` on ``ds``'s first train batches and
     an eval step on its first val batch, every draw from a generator seeded
-    with ``cfg.seed``; no kernel may launch.  Returns the median step s."""
+    with ``cfg.seed``; no kernel may launch.  Returns the median step s and
+    the last step's metrics."""
     import torch
     from pstl_tpu_torch import diffusion, specs, train
     from pstl_tpu_torch.data.dataset import batch_iterator
@@ -1465,7 +1506,7 @@ def dense_loop(dev, cfg, net, ds, steps, what):
         + f" (median step {median(step_s) * 1e3:.1f} ms, first "
         f"{step_s[0] * 1e3:.1f} ms); stl_bc_mask keeps {vals['tj_acc']:.4f} "
         f"of the valid rows")
-    return median(step_s)
+    return median(step_s), vals
 
 
 def dense_train_phase(dev, ds, name_power):
@@ -1481,12 +1522,12 @@ def dense_train_phase(dev, ds, name_power):
     # GT controls in seed 0, so the eps-MSE has rows to keep (the JAX
     # package's trajopt sidecars are not ported)
     ds.attach("params", with_gt_seed(ds.data, cfg5)["params"])
-    e5 = dense_loop(dev, cfg5, dense_net(cfg5, dev, seed=1), ds, E5_STEPS,
-                    "e5 train steps")
+    e5, _ = dense_loop(dev, cfg5, dense_net(cfg5, dev, seed=1), ds,
+                       E5_STEPS, "e5 train steps")
     cfg7 = dense_config("e7_ours")
     net = dense_net(cfg7, dev, seed=1, warm=True)
     before = {k: v.clone() for k, v in net.state_dict().items()}
-    e7 = dense_loop(dev, cfg7, net, ds, E7_STEPS, "e7 train steps")
+    e7, _ = dense_loop(dev, cfg7, net, ds, E7_STEPS, "e7 train steps")
     moved = sorted({k.split(".")[0] for k, v in net.state_dict().items()
                     if not torch.equal(v, before[k])})
     if any(m not in train.RECT_MODULES for m in moved):
@@ -1571,6 +1612,429 @@ def dense_checkpoint_phase(dev, ds):
         raise RuntimeError("the step after the checkpoint differs")
 
 
+# --------------------------------------------------------------------------
+# the augmentation and the open-loop evaluation (phases 19-22)
+# --------------------------------------------------------------------------
+
+def e1_config(**kw):
+    """``e1_trajopt`` as this script runs it: no experiment directory."""
+    from pstl_tpu_torch.config import PRESETS
+    return PRESETS["e1_trajopt"].with_(exp_name=None, **kw)
+
+
+def e1_batches(n, batch_size):
+    """The sample indices of ``trajopt.augment_dataset``'s batches, the last
+    padded as it pads it."""
+    import numpy as np
+    out = []
+    for i0 in range(0, n, batch_size):
+        idx = np.arange(i0, min(i0 + batch_size, n))
+        if len(idx) < batch_size:
+            idx = np.concatenate([idx, idx[:batch_size - len(idx)]])
+        out.append(idx)
+    return out
+
+
+def trajopt_inputs(cfg, batch, draws, dev):
+    """``optimize``'s inputs for a numpy batch as ``augment_dataset`` makes
+    them from one batch's ``draws`` (``trajopt.batch_draws``): (params0,
+    states, signal_base, highlevel, stlp_draws, valid) on ``dev``."""
+    import torch
+    from pstl_tpu_torch import specs, train
+    b = train.to_device(batch, dev)
+    b["neighbor_trajs_aug"] = b["neighbors_traj"]
+    gt = b["ego_traj"][..., :4]
+    cflex = cfg.with_(flex=True)
+    with torch.no_grad():
+        stlp = specs.calibrate_stlp(b, gt, cflex)
+        dense = specs.densify_batch(b, stlp, cflex,
+                                    flex=draws["densify"].to(dev))
+        sb = specs.dense_signal_input(dense, cfg=cfg)
+        stack = torch.stack([dense["stlp_dense"]] + [
+            specs.get_dense_stlp(b["gt_high_level"], stlp, cflex,
+                                 flex=f.to(dev)) for f in draws["extra"]])
+    return (b["params"], gt[:, 0], sb, dense["highlevel_dense"], stack,
+            dense["valids_dense"].reshape(-1))
+
+
+def valid_rate(scores, valid):
+    """The valid-masked satisfaction of ``augment_dataset``'s stats."""
+    sat = (scores.reshape(-1) > 0).float() * valid
+    return float(sat.sum() / max(float(valid.sum()), 1.0))
+
+
+def share_beyond(got, ref, atol, what):
+    """Share of elements of ``got`` beyond ``atol`` of ``ref``, and the max
+    error (both logged)."""
+    err = (got - ref).abs()
+    share = float((err > atol).float().mean())
+    log(f"{what}: max_abs_err={float(err.max()):.3e}, beyond {atol}: "
+        f"{int((err > atol).sum())} of {err.numel()} (share {share:.2e})")
+    return share, float(err.max())
+
+
+def trajopt_reference_phase(dev, ds):
+    """Phase 19: ``optimize`` on the card against the CPU, same seeds and
+    draws: TRAJOPT_REF_SCENES scenes x 64 x 3 rows, K = 4, 20 iterations,
+    fp32, the GT controls in seed 0; one ``trajopt_loss`` gradient first.
+    No kernel may launch (the loss's clearance is the "discs" route)."""
+    import torch
+    from pstl_tpu_torch import specs, trajopt
+
+    t0 = time.time()
+    cfg = e1_config()
+    K, M, nt = cfg.trajopt_robust_draws, cfg.n_randoms, cfg.nt
+    batch = with_gt_seed(ds.gather(list(range(TRAJOPT_REF_SCENES))), cfg)
+    draws = trajopt.batch_draws(TRAJOPT_REF_SCENES, K,
+                                torch.Generator().manual_seed(7))
+    form = specs.build_scorer(cfg)
+    out = {}
+    for d in ("cpu", dev):
+        p0, st, sb, hl, stack, valid = trajopt_inputs(cfg, batch, draws, d)
+        x = p0.reshape(-1, nt, 2).clone().requires_grad_(True)
+        loss, _ = trajopt.trajopt_loss(
+            x, torch.repeat_interleave(st, M * 3, 0), sb, hl, form, cfg,
+            tau=30.0, stlp_draws=stack)
+        g, = torch.autograd.grad(loss, x)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            reset_counts()
+        p, sc, _ = trajopt.optimize(p0, st, sb, hl, form, cfg,
+                                    iters=TRAJOPT_REF_ITERS,
+                                    stlp_draws=stack)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            check_counts(read_counts(), {}, "trajopt reference")
+        out[str(d)] = (float(loss.detach()), g.cpu(), p.cpu(), sc.cpu(),
+                       valid.cpu(),
+                       p0.cpu())
+    (l_c, g_c, p_c, s_c, v_c, p0), (l_d, g_d, p_d, s_d, _, _) = (
+        out["cpu"], out[str(dev)])
+    l_err = abs(l_d - l_c) / abs(l_c)
+    g_err = grad_err({"g": g_d}, {"g": g_c})
+    log(f"trajopt reference (e1, fp32, {TRAJOPT_REF_SCENES} scenes x {M} x "
+        f"3, K={K}): loss card {l_d:.6f} vs cpu {l_c:.6f} (rel err "
+        f"{l_err:.3e}, tolerance {MONO_RTOL}); gradient err {g_err:.3e} of "
+        f"its largest entry (tolerance {DENSE_GRAD_TOL})")
+    p_share, _ = share_beyond(p_d, p_c, TJ_PARAM_ATOL,
+                              f"trajopt reference params after "
+                              f"{TRAJOPT_REF_ITERS} iterations")
+    s_share, _ = share_beyond(s_d, s_c, TJ_SCORE_ATOL,
+                              "trajopt reference final scores")
+    moved = float((p_c - p0).abs().max())
+    log(f"trajopt reference: controls moved up to {moved:.3f}; valid-masked "
+        f"satisfaction card {valid_rate(s_d, v_c):.4f}, cpu "
+        f"{valid_rate(s_c, v_c):.4f}; phase wall {time.time() - t0:.1f} s")
+    if not (l_err <= MONO_RTOL and g_err <= DENSE_GRAD_TOL
+            and p_share <= TJ_MAX_OFF_SHARE and s_share <= TJ_MAX_OFF_SHARE
+            and moved > 0):
+        raise RuntimeError("card and cpu trajopt disagree")
+
+
+def profile_calls(fn, n):
+    """Device launches, device ms, wall ms and {kernel: device ms} a call of
+    ``fn``, over ``n`` calls under ``torch.profiler`` (kernels as
+    ``scripts/profile_torch_step.py`` counts them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = busy_us = 0
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            launches += e.count
+            busy_us += us
+            by_name[e.key] = us / 1e3 / n
+    return launches / n, busy_us / 1e3 / n, wall / n, by_name
+
+
+def e1_phase(dev, ds, name_power):
+    """Phase 20: ``augment_dataset`` at the preset's full width over phase
+    15's scenes (their own random seeds), E1_ITERS iterations; the seeds'
+    satisfaction before, the launches and device time of an iteration
+    (profiled apart), peak memory; then the store's save / load round trip
+    and E5_STEPS ``e5_ddpm`` steps on it.  Returns the loaded store."""
+    import numpy as np
+    import torch
+    from pstl_tpu_torch import specs, trajopt
+    from pstl_tpu_torch.data.dataset import SceneDataset
+
+    t0 = time.time()
+    cfg = e1_config()
+    K, M, nt = cfg.trajopt_robust_draws, cfg.n_randoms, cfg.nt
+    store = SceneDataset(
+        {**{k: v for k, v in ds.data.items()
+            if k not in SceneDataset.TRAJOPT_COLUMNS}, **ds.scene_data}, cfg)
+    n = len(store)
+    batches = e1_batches(n, cfg.batch_size)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    draws = [trajopt.batch_draws(len(idx), K, gen, dev) for idx in batches]
+    iter_s, mark = [], [None]
+
+    def on_iter(i):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if i > 0:
+            iter_s.append(now - mark[0])
+        mark[0] = now
+
+    form = specs.build_scorer(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    trajopt.augment_dataset(store, cfg, form, batch_size=cfg.batch_size,
+                            iters=E1_ITERS, seed=cfg.seed, draws=draws,
+                            device=dev, log=log, on_iter=on_iter)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_counts(read_counts(), {}, "e1 augmentation")
+    cols = {"params": (n, M, 3, nt, 2), "tj_scores_prior": (n, M, 3),
+            "pre_stlp": (n, M, 3, 1, 6)}
+    for k, shape in cols.items():
+        v = store.data[k]
+        if v.shape != shape or not np.isfinite(v).all():
+            raise RuntimeError(f"e1 column {k}: shape {v.shape} (expected "
+                               f"{shape}) or not finite")
+    # the seeds' own satisfaction: params_init under the same draws
+    accs0, first = [], None
+    for idx, d in zip(batches, draws):
+        b = store.gather(idx)
+        b["params"] = b["params_init"]
+        p0, st, sb, hl, stack, valid = trajopt_inputs(cfg, b, d, dev)
+        with torch.no_grad():
+            _, aux = trajopt.trajopt_loss(
+                p0.reshape(-1, nt, 2), torch.repeat_interleave(st, M * 3, 0),
+                sb, hl, form, cfg)
+        accs0.append(valid_rate(aux["scores"], valid))
+        first = first or (p0, st, sb, hl, stack)
+    acc0 = float(np.mean(accs0))
+    stats = store.trajopt_stats
+    one = lambda iters: lambda: trajopt.optimize(
+        *first[:4], form, cfg, iters=iters, stlp_draws=first[4])
+    prof = {k: profile_calls(one(k), 2) for k in (1, 4)}
+    launches = (prof[4][0] - prof[1][0]) / 3
+    dev_ms = (prof[4][1] - prof[1][1]) / 3
+    top = sorted(((prof[4][3].get(k, 0.0) - prof[1][3].get(k, 0.0)) / 3, k)
+                 for k in prof[4][3])[::-1][:TOP_KERNELS]
+    med = median(iter_s) * 1e3
+    log(f"e1 augmentation ({n} scenes in {len(batches)} batches of "
+        f"{cfg.batch_size} x {M} x 3 = {cfg.batch_size * M * 3} rows, the "
+        f"last padded to {len(batches[-1])} scenes; K={K}; {E1_ITERS} of "
+        f"the preset's {cfg.traj_opt_iters} iterations): median iteration "
+        f"{med:.2f} ms (host clock + sync, {len(iter_s)} iterations; first "
+        f"{iter_s[0] * 1e3:.2f} ms), {launches:.0f} device launches and "
+        f"{dev_ms:.2f} device ms an iteration (profiled apart, busy "
+        f"{dev_ms / ((prof[4][2] - prof[1][2]) / 3):.3f} of its "
+        f"wall); peak device memory {peak:.2f} GiB; wall {wall:.1f} s; "
+        f"{cfg.traj_opt_iters} iterations would take "
+        f"{med * cfg.traj_opt_iters / 1e3:.1f} s a batch; {name_power}")
+    log("e1 iteration's device time by kernel (ms): " + "; ".join(
+        f"{ms:.2f} {name[:70]}" for ms, name in top))
+    log(f"e1 oracle after {E1_ITERS} iterations: acc_seen "
+        f"{stats['acc_seen']:.4f}, acc_fresh {stats['acc_fresh']:.4f}; the "
+        f"random seeds before optimizing {acc0:.4f} (same draws)")
+    if not stats["acc_seen"] > acc0:
+        raise RuntimeError("the augmentation did not raise satisfaction")
+
+    path = os.path.join(HERE, "build", "chip_smoke_store", "e1.npz")
+    t2 = time.time()
+    store.save(path)
+    cfg5 = dense_config("e5_ddpm")
+    loaded = SceneDataset.load(path, cfg5)
+    for k in SceneDataset.TRAJOPT_COLUMNS:
+        if not np.array_equal(loaded.data[k], store.data[k]):
+            raise RuntimeError(f"store round trip: column {k} differs")
+    for k in store.splits:
+        if not np.array_equal(loaded.splits[k], store.splits[k]):
+            raise RuntimeError(f"store round trip: split {k} differs")
+    log(f"e1 store: saved and loaded in {time.time() - t2:.1f} s "
+        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB), columns and split "
+        f"equal to the bit")
+    _, vals = dense_loop(dev, cfg5, dense_net(cfg5, dev, seed=1), loaded,
+                         E5_STEPS, "e5 train steps on the augmented store")
+    log(f"e5 on the augmented store: stl_bc_mask keeps {vals['tj_acc']:.4f} "
+        f"of the valid rows (0.0064 with one GT seed a scene, PR 7's "
+        f"phase 17); phase wall {time.time() - t0:.1f} s")
+    return loaded
+
+
+def eval_config(preset, **kw):
+    """An evaluation preset as ``eval_openloop.run`` finalizes it."""
+    from pstl_tpu_torch.config import PRESETS
+    return PRESETS[preset].with_(exp_name=None, **kw).with_(
+        run_sampling_test=True).finalize()
+
+
+def e7_net(cfg, dev):
+    """The e7_round5 weights (strict) in a net of ``cfg`` on ``dev``."""
+    from pstl_tpu_torch.models import convert
+    from pstl_tpu_torch.models.net import Net
+    net = Net(cfg)
+    convert.load_weights(net, "e7_round5")
+    return net.to(dev).eval()
+
+
+def eval_reference_phase(dev, store):
+    """Phase 21: the oracle row, the timed region and the metric tail of
+    EVAL_REF_SCENES val scenes on the card against the CPU, fp32, guided
+    (``ours_guidance`` + ``guidance_pallas_fuse_freeze``), the same draws
+    and pinned sampler noise: scores within EVAL_SCORE_ATOL on all but
+    EVAL_MAX_OFF_SHARE of the rows; the counts of satisfying rows may differ
+    only by the rows off or within the tolerance of 0."""
+    import torch
+    from pstl_tpu_torch import diffusion, eval_openloop, specs, train
+
+    t0 = time.time()
+    cfg = eval_config("ours_guidance", guidance_pallas_fuse_freeze=True,
+                      compute_dtype="float32", batch_size=EVAL_REF_SCENES)
+    batch = store.gather(store.splits["val"][:EVAL_REF_SCENES])
+    g = torch.Generator().manual_seed(9)
+    tj_flex = specs.flex_uniforms(EVAL_REF_SCENES, g)
+    flex = specs.flex_uniforms(EVAL_REF_SCENES, g)
+    noise = torch.randn((cfg.diffusion_steps,) + eval_openloop.sampler_shape(
+        cfg, EVAL_REF_SCENES), generator=g)
+    guided = int(diffusion._trigger_schedule(cfg).sum())
+    res = {}
+    for d in ("cpu", dev):
+        net = e7_net(cfg, d)
+        b = train.to_device(batch, d)
+        form = specs.build_scorer(cfg)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            reset_counts()
+        with torch.no_grad():
+            tj = eval_openloop._trajopt_row(net, b, cfg, form,
+                                            flex=tj_flex.to(d))
+            nn = eval_openloop._sample_and_score(
+                net, b, cfg, form, diffusion.get_coeffs(cfg, device=d),
+                flex=flex.to(d), noise=noise.to(d))
+            m = eval_openloop._nn_metrics(*nn, b, cfg)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            check_counts(read_counts(), {"guidance_fused": guided},
+                         "eval reference")
+        res[str(d)] = {"tj": tj, "nn": m, "valid": nn[3].cpu()}
+    cpu, card = res["cpu"], res[str(dev)]
+    ok = True
+    for row in ("tj", "nn"):
+        s_c = cpu[row]["scores"].cpu()
+        s_d = card[row]["scores"].cpu()
+        valid = cpu["valid"] > 0
+        share, err = share_beyond(s_d, s_c, EVAL_SCORE_ATOL,
+                                  f"eval reference {row} scores")
+        off = (s_d - s_c).abs() > EVAL_SCORE_ATOL
+        near = s_c.abs() <= EVAL_SCORE_ATOL
+        n_c = int(((s_c > 0) & valid).sum())
+        n_d = int(((s_d > 0) & valid).sum())
+        slack = int(((off | near) & valid).sum())
+        log(f"eval reference {row}: satisfying valid rows card {n_d}, cpu "
+            f"{n_c} of {int(valid.sum())} ({slack} rows off or within "
+            f"{EVAL_SCORE_ATOL} of 0); acc card "
+            f"{float(card[row]['acc']):.4f} cpu {float(cpu[row]['acc']):.4f}, "
+            f"scene_acc card {float(card[row]['scene_acc']):.4f} cpu "
+            f"{float(cpu[row]['scene_acc']):.4f}")
+        ok &= share <= EVAL_MAX_OFF_SHARE and abs(n_c - n_d) <= slack
+    for k in sorted(cpu["nn"]):
+        if k != "scores":
+            log(f"eval reference metric {k}: card "
+                f"{float(card['nn'][k]):.6f}, cpu {float(cpu['nn'][k]):.6f}")
+    log(f"eval reference: phase wall {time.time() - t0:.1f} s")
+    if not ok:
+        raise RuntimeError("card and cpu evaluations disagree")
+
+
+def table1_phase(dev, store, name_power):
+    """Phase 22: ``eval_openloop.run`` on the augmented store's val split at
+    full width: the guided row (kernel 1 must launch once per guided
+    denoise step of every batch and of the warm-up), kernel 1 against its
+    plain version on the first guided step's inputs, then the unguided e7
+    row (no kernel).  Returns kernel 1's record numbers."""
+    import math
+    import torch
+    from pstl_tpu_torch import diffusion, eval_openloop
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    t0 = time.time()
+    rows = {}
+    for what, preset, kw in (("guided", "ours_guidance",
+                              {"guidance_pallas_fuse_freeze": True}),
+                             ("unguided e7", "e7_ours", {})):
+        cfg = eval_config(preset, **kw)
+        n_batches = min(math.ceil(store.split_len("val") / cfg.batch_size),
+                        cfg.n_trials + 1)
+        want = int(diffusion._trigger_schedule(cfg).sum()) * (n_batches + 1)
+        net = e7_net(cfg, dev)
+        seen, times = [], []
+        real = gk.guidance_fused
+
+        def record(*a):
+            if not seen:
+                seen.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a))
+            return real(*a)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        gk.guidance_fused = record
+        try:
+            out = eval_openloop.run(cfg, store, net, log=log, device=dev,
+                                    times=times)
+        finally:
+            gk.guidance_fused = real
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, {"guidance_fused": want} if want else {},
+                     f"Table I {what}")
+        check_finite(out, f"Table I {what}")
+        log(f"Table I {what} ({preset}, e7_round5 weights, {n_batches} val "
+            f"batches of {cfg.batch_size} scenes x {cfg.sampling_size} x 3): "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(out.items())))
+        log(f"Table I {what}: timed sampling region per batch "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times)
+            + f" ms (median {median(times) * 1e3:.1f}); launches {counts}; "
+            f"{name_power}")
+        rows[what] = (counts["guidance_fused"], seen, cfg)
+    launches, seen, cfg = rows["guided"]
+    args = seen[0]
+    gvec, p = args[-2], args[-1]
+    if abs(float(gvec[1]) - cfg.stl_nn_thres) > 1e-9:
+        raise RuntimeError(f"the eval path's hinge threshold is "
+                           f"{float(gvec[1])}, expected {cfg.stl_nn_thres}")
+    ow, oa = gk.guidance_fused(*args)
+    pw, pa = gk.guidance_fused_plain(*args)
+    torch.cuda.synchronize()
+    start = torch.stack([args[0], args[1]])
+    got = torch.stack([ow, oa])
+    err = check_guided(got, torch.stack([pw, pa]), start, float(gvec[0]),
+                       "kernel 1 on the eval path (first guided step)")
+    moved = float(((got - start).abs().amax(dim=(0, 2)) > 0).float().mean())
+    bs, R = args[0].shape[0], args[0].shape[-1]
+    ms = kernel_ms(lambda: gk.guidance_fused(*args))
+    plain_ms = time_cuda(lambda: gk.guidance_fused_plain(*args))
+    bnd = bound(nbytes(args[:-1], ow, oa), guidance_ops(p, bs, R, True))
+    log(f"kernel 1 on the eval path (bs={bs}, R={R}, niters={p.niters}, "
+        f"threshold {float(gvec[1]):.6g}, the first guided step's beta_t "
+        f"{float(gvec[0]):.6g}): "
+        f"{moved:.3f} of the candidate columns moved; kernel "
+        f"{ms['graph_ms']:.4f} ms (graph replay), one eager call "
+        f"{ms['ms']:.4f} ms, plain {plain_ms:.4f} ms (median of 20); bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]}); launches {launches}; phase wall "
+        f"{time.time() - t0:.1f} s")
+    return launches, err, ms, plain_ms, bnd
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "pstl_tpu_torch")):
         print("chip_smoke.py: the pstl_tpu_torch package is not beside this "
@@ -1646,6 +2110,19 @@ def main():
     dense_reference_phase(dev)
     dense_train_phase(dev, ds, name_power)
     dense_checkpoint_phase(dev, ds)
+    t_ph = time.time()
+    trajopt_reference_phase(dev, ds)
+    log(f"phase 19 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    store = e1_phase(dev, ds, name_power)
+    log(f"phase 20 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    eval_reference_phase(dev, store)
+    log(f"phase 21 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    ev_launches, ev_err, ev_ms, ev_plain_ms, ev_bound = table1_phase(
+        dev, store, name_power)
+    log(f"phase 22 wall {time.time() - t_ph:.1f} s")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there
@@ -1675,7 +2152,9 @@ def main():
         entry("min_clearance_fwd", "min_clearance.cu", pk + "167",
               mono_counts["min_clearance_fwd"], *clear["fwd"]),
         entry("min_clearance_bwd", "min_clearance.cu", pk + "193",
-              mono_counts["min_clearance_bwd"], *clear["bwd"])]}),
+              mono_counts["min_clearance_bwd"], *clear["bwd"]),
+        entry(fused, "guidance_fused.cu", at + "396", ev_launches, ev_err,
+              ev_ms, ev_plain_ms, ev_bound)]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

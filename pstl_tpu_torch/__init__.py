@@ -7,7 +7,10 @@ env step), ``train`` (the ``gt_data_training`` step of ``e2_vae_mono`` /
 with fused STL guidance, training-time noising), ``models`` (policy net
 with diffusion and VAE heads, RefineNet), ``specs`` (tiled robustness
 scorer, clause bank, pSTL calibration), ``losses``, ``ops`` (rollout,
-geometry, soft STL, the guidance loss, and the kernels in ``csrc/``).
+geometry, soft STL, the guidance loss, and the kernels in ``csrc/``),
+and the offline pipeline's two ends: ``trajopt`` (the augmentation that
+writes the training targets into the scene store) and ``eval_openloop``
+with ``metrics`` (the open-loop Table-I evaluation).
 
 The package imports torch and numpy only — never jax or ``pstl_tpu``; the
 flag table and presets (``config``), the synthetic scene generator and the

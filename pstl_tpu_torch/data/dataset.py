@@ -1,15 +1,21 @@
 """Fixed-shape scene dataset and batch iterator — a numpy mirror of
-``pstl_tpu/data/dataset.py`` (``SceneDataset`` without its npz / shard-store
-persistence, and ``batch_iterator``).
+``pstl_tpu/data/dataset.py`` (``SceneDataset`` with its npz store and
+train/val split file, and ``batch_iterator``; the shard store is not
+ported).
 
 Everything lives in one dict of stacked arrays; a batch is an index
-shuffle plus a gather.  The same ``np.random.RandomState`` draws in the
-same order give the JAX package's splits, shuffles and random control
-seeds bit for bit (``tests/test_torch_mono_specs.py``).
+shuffle plus a gather.  The trajopt sidecars (``params``, ``params_init``,
+``pre_stlp``, ``tj_scores_prior``) are columns of the same store, keyed by
+sample.  The same ``np.random.RandomState`` draws in the same order give
+the JAX package's splits, shuffles and random control seeds bit for bit
+(``tests/test_torch_mono_specs.py``), and a store written by either
+package loads in the other bit for bit (``tests/test_torch_store.py``).
 """
 
 from __future__ import annotations
 
+import collections
+import os
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -18,7 +24,8 @@ from pstl_tpu_torch.config import Config
 
 
 class SceneDataset:
-    """Dict-of-arrays dataset with a train/val split."""
+    """Dict-of-arrays dataset with a train/val split and the trajopt
+    columns."""
 
     def __init__(self, data: Dict[str, np.ndarray], cfg: Config,
                  split_seed: int = 1007):
@@ -47,6 +54,48 @@ class SceneDataset:
             seed if seed is not None else cfg.seed, n_scenes, cfg,
             scene_len=scene_len), cfg)
 
+    @classmethod
+    def load(cls, path: str, cfg: Config) -> "SceneDataset":
+        """A store written by :meth:`save`; its ``.split.txt`` split is
+        authoritative unless ``cfg.generate_split_on_the_fly``."""
+        with np.load(path, allow_pickle=False) as f:
+            data = {k: f[k] for k in f.files}
+        ds = cls(data, cfg)
+        split_path = path + ".split.txt"
+        if not cfg.generate_split_on_the_fly and os.path.exists(split_path):
+            ds.load_split(split_path)
+        return ds
+
+    def save(self, path: str):
+        """The per-sample and per-scene columns as one compressed npz, and
+        the split beside it (``<path>.split.txt``)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(path, **self.data, **self.scene_data)
+        self.save_split(path + ".split.txt")
+
+    TRAJOPT_COLUMNS = ("params", "params_init", "pre_stlp",
+                       "tj_scores_prior")
+
+    def load_trajopt_sidecar(self, path: str):
+        """Attach the trajopt columns of another store (an augmentation
+        run's params / stlp / scores for a dataset that lacks them).  A seed
+        axis of M != n_randoms is resampled to n_randoms seeds drawn with
+        ``RandomState(0)``."""
+        with np.load(path, allow_pickle=False) as f:
+            for k in self.TRAJOPT_COLUMNS:
+                if k not in f.files:
+                    continue
+                v = f[k]
+                if v.shape[0] != self.n:
+                    raise ValueError(f"{path}: {k} has {v.shape[0]} rows, "
+                                     f"expected {self.n}")
+                M = v.shape[1]
+                if M != self.cfg.n_randoms:
+                    idx = np.random.RandomState(0).randint(
+                        0, M, self.cfg.n_randoms)
+                    v = v[:, idx]
+                self.data[k] = v
+
     def __len__(self):
         return self.n
 
@@ -60,8 +109,27 @@ class SceneDataset:
                              f"{self.n}")
         self.data[key] = values
 
+    def has(self, key: str) -> bool:
+        return key in self.data
+
     def gather(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         return {k: v[idx] for k, v in self.data.items()}
+
+    def save_split(self, path: str):
+        """The train/val split as text, one ``split index`` line per
+        sample."""
+        with open(path, "w") as f:
+            for split, idx in self.splits.items():
+                for i in idx:
+                    f.write(f"{split} {int(i)}\n")
+
+    def load_split(self, path: str):
+        d = collections.defaultdict(list)
+        with open(path) as f:
+            for line in f:
+                split, i = line.split()
+                d[split].append(int(i))
+        self.splits = {k: np.asarray(v) for k, v in d.items()}
 
     def ensure_random_params(self, seed: int = 0):
         """Random control seeds when no trajopt params exist:

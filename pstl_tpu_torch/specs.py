@@ -203,12 +203,16 @@ def select_scores(scores_list: Sequence[Tensor], stl_idx: Tensor) -> Tensor:
 
 def compute_scores(signals: Dict[str, Tensor], formulas: ClauseBank,
                    stl_idx: Tensor, mask: Tensor, cfg: Config,
-                   tau: Optional[float] = None, hard: bool = False):
+                   tau: Optional[float] = None, hard: bool = False,
+                   scene: bool = False):
     """Evaluate the three formulas, select per row (label 3: +1), masked
     accuracy.  ``signals`` are prepared here when the lane distances are
     missing.  stl_idx (n,) or (n, 1); mask (n,).  Returns (scores_list,
-    scores (n,), acc).  (The JAX function's ``scene`` / ``oracle_filter``
-    options are not ported.)"""
+    scores (n,), acc), and with ``scene`` a fourth value, ``scene_acc``: the
+    share of (scene, maneuver) pairs, masked by their first row, whose best
+    score over the n_randoms rows of the pair is positive.  (The JAX
+    function's ``oracle_filter`` and ``n_group`` options are not
+    ported.)"""
     if not isinstance(formulas, ClauseBank):
         raise NotImplementedError("the formula tree (build_formulas) is not "
                                   "ported; score with build_scorer(cfg)")
@@ -220,6 +224,12 @@ def compute_scores(signals: Dict[str, Tensor], formulas: ClauseBank,
     scores_list = scores_list + [scores_list[-1].detach() * 0.0 + 1.0]
     scores = select_scores(scores_list, stl_idx.reshape(-1))
     acc = mask_mean((scores > 0).to(scores.dtype), mask.reshape(-1))
+    if scene:
+        sc = scores.reshape(-1, cfg.n_randoms, 3)
+        mc = mask.reshape(-1, cfg.n_randoms, 3)
+        scene_acc = mask_mean(
+            (torch.amax(sc, dim=1) > 0).to(scores.dtype), mc[:, 0, :])
+        return scores_list, scores, acc, scene_acc
     return scores_list, scores, acc
 
 

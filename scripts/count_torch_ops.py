@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Count the eager PyTorch ops of the port's offline paths on the CPU: a
+proxy for the device launches a step makes on the card (each non-view aten
+op is about one launch there).
+
+    python scripts/count_torch_ops.py
+
+Counts, under a ``TorchDispatchMode`` that skips views and metadata ops:
+
+- one ``trajopt.optimize`` iteration of ``e1_trajopt`` (K = 4 draws;
+  forward, autograd backward and the Adam update);
+- the open-loop evaluation's timed region (``eval_openloop._sample_and_score``)
+  under ``ours_guidance`` with ``guidance_pallas_fuse_freeze`` (99 denoise
+  steps, 10 guided; each guided step's kernel call counts as one op, as it
+  launches once on the card), and unguided under ``e7_ours``;
+- the untimed rows of one eval batch (``_trajopt_row``, ``_nn_metrics``).
+
+Widths are cut (2 scenes, 4 seeds, hidden 32): the op count of these paths
+does not depend on the widths, except the hull area's chunk loop, which
+runs one chunk here and ``ceil(bs * 3 * nt * m^3 / 2^25)`` at full width
+(60 for 128 scenes, m = 64), about 15 ops each.
+"""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+
+def main():
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pstl_tpu_torch import diffusion, eval_openloop, specs, trajopt
+    from pstl_tpu_torch.config import PRESETS
+    from pstl_tpu_torch.data.dataset import SceneDataset
+    from pstl_tpu_torch.models.net import Net, init_flax_like
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+    from pstl_tpu_torch.train import attach_neighbors, to_device
+
+    torch.set_num_threads(1)
+    skip = {"view", "_unsafe_view", "alias", "detach", "t", "transpose",
+            "permute", "expand", "unsqueeze", "squeeze", "slice", "select",
+            "as_strided", "reshape", "split", "unbind", "_reshape_alias",
+            "lift_fresh", "empty", "empty_like", "empty_strided", "_to_copy"}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+            self.paused = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if not self.paused and name not in skip:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def count(fn):
+        with Count() as c:
+            fn()
+        return c.n
+
+    # one trajopt iteration: optimize(iters=2) - optimize(iters=1)
+    cfg = PRESETS["e1_trajopt"].with_(exp_name=None, n_randoms=4)
+    ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=2)
+    ds.ensure_random_params(0)
+    b = to_device(ds.gather([0, 1]), "cpu")
+    b["neighbor_trajs_aug"] = b["neighbors_traj"]
+    gt = b["ego_traj"][..., :4]
+    K = cfg.trajopt_robust_draws
+    d = trajopt.batch_draws(2, K, torch.Generator().manual_seed(0))
+    stlp = specs.calibrate_stlp(b, gt, cfg)
+    dense = specs.densify_batch(b, stlp, cfg, flex=d["densify"])
+    sb = specs.dense_signal_input(dense, cfg=cfg)
+    draws = torch.stack([dense["stlp_dense"]] + [
+        specs.get_dense_stlp(b["gt_high_level"], stlp, cfg, flex=f)
+        for f in d["extra"]])
+    form = specs.build_scorer(cfg)
+
+    def opt(iters):
+        return lambda: trajopt.optimize(b["params"], gt[:, 0], sb,
+                                        dense["highlevel_dense"], form, cfg,
+                                        iters=iters, stlp_draws=draws)
+
+    per_iter = count(opt(2)) - count(opt(1))
+    print(f"trajopt iteration (e1_trajopt, K={K}): {per_iter} ops")
+
+    # the evaluation's regions
+    real = gk.guidance_fused_plain
+    for preset, kw in (("ours_guidance",
+                        {"guidance_pallas_fuse_freeze": True}),
+                       ("e7_ours", {})):
+        ecfg = PRESETS[preset].with_(
+            exp_name=None, n_randoms=4, sampling_size=4, n_shards=2,
+            hiddens=(32, 32), rect_hiddens=(32, 32), batch_size=2,
+            **kw).with_(run_sampling_test=True).finalize()
+        net = Net(ecfg)
+        init_flax_like(net, torch.Generator().manual_seed(0))
+        eds = SceneDataset.from_synthetic(ecfg, seed=0, n_scenes=2)
+        eds.ensure_random_params(0)
+        batch = to_device(eds.gather([0, 1]), "cpu")
+        coeffs = diffusion.get_coeffs(ecfg)
+        c = Count()
+
+        def one_launch(*a):
+            c.paused += 1
+            try:
+                return real(*a)
+            finally:
+                c.paused -= 1
+                c.n += 1
+
+        gk.guidance_fused_plain = one_launch
+        try:
+            with torch.no_grad(), c:
+                out = eval_openloop._sample_and_score(
+                    net, batch, ecfg, form, coeffs,
+                    generator=torch.Generator().manual_seed(0))
+            timed = c.n
+            with torch.no_grad():
+                rows = count(lambda: eval_openloop._trajopt_row(
+                    net, batch, ecfg, form,
+                    generator=torch.Generator().manual_seed(1)))
+                tail = count(lambda: eval_openloop._nn_metrics(
+                    *out, attach_neighbors(batch, ecfg), ecfg))
+        finally:
+            gk.guidance_fused_plain = real
+        print(f"eval batch ({preset}{', fused kernel' if kw else ''}, "
+              f"{ecfg.diffusion_steps - 1} denoise steps, "
+              f"{int(diffusion._trigger_schedule(ecfg).sum())} guided): "
+              f"timed region {timed} ops, trajopt row {rows}, metric tail "
+              f"{tail}")
+
+
+if __name__ == "__main__":
+    main()

@@ -358,3 +358,86 @@ def test_clearance_autograd_launches_both(dev):
                              4.084, 1.73, 8)
     assert (ck.fwd_launches, ck.bwd_launches) == (before[0] + 1,
                                                   before[1] + 1)
+
+
+# --------------------------------------------------------------------------
+# the evaluation's path and the augmentation (chip_smoke.py phases 19-22)
+# --------------------------------------------------------------------------
+
+def test_kernel_matches_plain_eval_regime(dev):
+    """Kernel 1 as the open-loop evaluation runs it (``ours_guidance``: one
+    Adam iteration, all disc pairs, fp32 cumsum) at the minimizing hinge
+    threshold ``stl_nn_thres``, where satisfied columns have a zero
+    gradient and stay put."""
+    cfg = chip_smoke.eval_config("ours_guidance",
+                                 guidance_pallas_fuse_freeze=True)
+    scenes = chip_smoke.scene_batch(cfg, dev, n_scenes=4)
+    _, fused, mu = chip_smoke.plan_inputs(cfg, scenes)
+    ops = gk.kernel_operands(fused, cfg)
+    beta = diffusion.get_coeffs(cfg, device=dev).beta[10]
+    gvec = torch.stack([beta, torch.tensor(cfg.stl_nn_thres, device=dev),
+                        ops.gscale])
+    args = (mu[:, :, 0].contiguous(), mu[:, :, 1].contiguous(), *ops[:-1],
+            gvec, gk.kernel_params(cfg, fused))
+    assert args[-1].niters == 1
+    got = torch.stack(gk.guidance_fused(*args))
+    ref = torch.stack(gk.guidance_fused_plain(*args))
+    torch.cuda.synchronize()
+    _assert_guided(got, ref, float(beta))
+
+
+def test_trajopt_card_matches_cpu(dev):
+    """10 Adam steps of ``trajopt.optimize`` at a small size (2 scenes x 4
+    x 3, K = 2) on the card against the CPU, the same draws: controls within
+    chip_smoke's TJ_PARAM_ATOL, no kernel launched."""
+    from pstl_tpu_torch import specs, trajopt
+    from pstl_tpu_torch.data.dataset import SceneDataset
+    cfg = chip_smoke.e1_config(n_randoms=4, trajopt_robust_draws=2)
+    ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=2)
+    ds.ensure_random_params(0)
+    batch = chip_smoke.with_gt_seed(ds.gather([0, 1]), cfg)
+    draws = trajopt.batch_draws(2, 2, torch.Generator().manual_seed(1))
+    out = []
+    before = gk.launches, ck.fwd_launches
+    for d in ("cpu", dev):
+        p0, st, sb, hl, stack, _ = chip_smoke.trajopt_inputs(cfg, batch,
+                                                             draws, d)
+        p, _, _ = trajopt.optimize(p0, st, sb, hl, specs.build_scorer(cfg),
+                                   cfg, iters=10, stlp_draws=stack)
+        out.append(p.cpu())
+    assert (gk.launches, ck.fwd_launches) == before
+    assert float((out[1] - out[0]).abs().max()) <= chip_smoke.TJ_PARAM_ATOL
+
+
+def test_eval_region_card_matches_cpu(dev):
+    """The evaluation's timed region at a small size (width-32 random net,
+    2 scenes x 4 x 3, 10 denoise steps, guided with kernel 1) on the card
+    against the CPU with pinned noise: scores within chip_smoke's
+    EVAL_SCORE_ATOL, one kernel launch per guided denoise step."""
+    from pstl_tpu_torch import eval_openloop, specs, train
+    from pstl_tpu_torch.data.dataset import SceneDataset
+    from pstl_tpu_torch.models.net import init_flax_like
+    cfg = chip_smoke.eval_config(
+        "ours_guidance", guidance_pallas_fuse_freeze=True, n_randoms=4,
+        sampling_size=4, hiddens=(32, 32), rect_hiddens=(32, 32),
+        diffusion_steps=10, compute_dtype="float32")
+    ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=2)
+    ds.ensure_random_params(0)
+    batch = ds.gather([0, 1])
+    g = torch.Generator().manual_seed(2)
+    flex = specs.flex_uniforms(2, g)
+    noise = torch.randn((cfg.diffusion_steps,)
+                        + eval_openloop.sampler_shape(cfg, 2), generator=g)
+    net = Net(cfg)
+    init_flax_like(net, torch.Generator().manual_seed(0))
+    out = []
+    for d in ("cpu", dev):
+        before = gk.launches
+        with torch.no_grad():
+            nn, *_ = eval_openloop._sample_and_score(
+                net.to(d), train.to_device(batch, d), cfg,
+                specs.build_scorer(cfg), diffusion.get_coeffs(cfg, device=d),
+                flex=flex.to(d), noise=noise.to(d))
+        out.append(nn["scores"].cpu())
+    assert gk.launches == before + int(diffusion._trigger_schedule(cfg).sum())
+    assert float((out[1] - out[0]).abs().max()) <= chip_smoke.EVAL_SCORE_ATOL

@@ -55,6 +55,8 @@ def test_package_import_loads_no_jax():
     indirectly."""
     code = ("import pstl_tpu_torch, pstl_tpu_torch.sim, "
             "pstl_tpu_torch.train, pstl_tpu_torch.losses, "
+            "pstl_tpu_torch.trajopt, pstl_tpu_torch.metrics, "
+            "pstl_tpu_torch.eval_openloop, "
             "pstl_tpu_torch.data.dataset, "
             "pstl_tpu_torch.ops.clearance_kernel, "
             "pstl_tpu_torch.models.convert; import sys; "

@@ -71,6 +71,14 @@ from torch_parity import jax_cm_noise
 #: compiler options of the JAX reference (see the module docstring)
 JAX_OPTS = {"xla_backend_optimization_level": 0}
 
+
+def jit_fast(fn, *args):
+    """``fn(*args)`` compiled at ``JAX_OPTS``: the function's own arithmetic
+    (see the module docstring), in a fraction of the default level's
+    compile time."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=JAX_OPTS)(*args)
+
+
 SMALL = dict(exp_name=None, hiddens=(32, 32), rect_hiddens=(32, 32),
              n_randoms=4, n_shards=2, diffusion_steps=8, batch_size=3,
              n_neighbors=3)
