@@ -106,9 +106,27 @@ and no result line is printed:
    kernel 1 against its plain version on the first guided step's inputs
    (bs 128, one Adam iteration, the hinge threshold ``stl_nn_thres``).
 
+23. card vs CPU for the Table-II step: 5 held-out scenes (2 with
+   ``closed_loop_eval.py``'s unsafe fixture) x 16 seeds, fp32, route "2"
+   with the backup controller (its solve cut to 50 Adam steps) and the
+   convex refinement, 3 pinned-noise steps, each started on both devices
+   from the CPU's carry (gates: ``table2_reference_phase``); then the
+   full-length backup solve and refinement on the first step's inputs,
+   their differences printed.
+24. Table II at full width (``closed_loop_eval.py``'s protocol: seed 777,
+   the first 25 scenes that pass the pre-check, scene_len 38,
+   ``run_closed_loop_host(record=True)``, e7_round5 weights, the heavy
+   contract's width and route "2"): the guided row and the
+   ``ref_parity(open_loop=False)`` row (36 steps), the backup row on the
+   unsafe fixture, the refinement + lite_refine and raw_refinement rows (8
+   steps), the ``--test_aggressive`` presets on the first scene (36 steps);
+   kernel 1 against its plain version on the ref_parity row's first guided
+   step (bs 25, one Adam iteration, lr 0.04, the offset quirk on).
+
 The line before the last is the card's ``name, power.limit``; before it a
-JSON line with each kernel's (kernel 1 on the closed loop's path and, the
-ninth entry, on the evaluation's) launches, error, times (``ms`` one eager call
+JSON line with each kernel's (kernel 1 on the closed loop's path, the
+ninth entry on the evaluation's and the tenth on the ref_parity Table-II
+row's) launches, error, times (``ms`` one eager call
 of its wrapper, ``graph_ms`` the kernel alone in a graph replay, see
 ``kernel_ms``; ``plain_ms`` the plain version) and its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -148,6 +166,23 @@ TRAJOPT_REF_ITERS = 20
 E1_ITERS = 200
 #: scenes of the evaluation's card-vs-CPU phase
 EVAL_REF_SCENES = 8
+#: the closed-loop Table-II protocol of scripts/closed_loop_eval.py: the
+#: held-out synthetic seed, the scenes kept after the pre-check, the steps
+#: of its rows and of the short rows (backup, refinement)
+TABLE2_SEED = 777
+TABLE2_SCENES = 25
+TABLE2_STEPS = 36
+TABLE2_SHORT_STEPS = 8
+#: the Table-II card-vs-CPU phase: scenes (an odd batch for kernel 1's G = 2
+#: packing), the unsafe ones among them, seeds a scene, steps, and the Adam
+#: steps its closed loop cuts the backup solve to (at the full 500 the
+#: solve circles its optimum within ~lr = 1e-2, which an Euler step of
+#: 0.5 s carries to 5e-3 in the ego state, beyond TABLE2_REF_TOL)
+TABLE2_REF_SCENES = 5
+TABLE2_REF_UNSAFE = 2
+TABLE2_REF_M = 16
+TABLE2_REF_STEPS = 3
+TABLE2_REF_BACKUP_ITERS = 50
 #: kernels of a trajopt iteration's device-time breakdown
 TOP_KERNELS = 8
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM,
@@ -216,6 +251,18 @@ EVAL_SCORE_ATOL, EVAL_MAX_OFF_SHARE = 1e-2, 1e-2
 # times an output weight (~1e-4 per flip at the e7 weights) and x_next by
 # c1/c2 of it (0.019 at t=60, 0.013 at t=5)
 SS_RTOL, SS_ATOL = 1e-4, 1e-4
+# card vs CPU for the Table-II step (phase 23): phase 5's reverse-pass
+# tolerance on the chosen plan's first states and on the ego state after
+# the step (an Euler step of 0.5 s moves it by dt times the first control's
+# difference)
+TABLE2_REF_TOL = 1e-3
+# ... and the share of candidate rows whose score may differ by more than
+# EVAL_SCORE_ATOL: phase 21's near-tie argument, on a path with guidance on
+# every denoise step (3 Adam iterations, the hinge always active) and the
+# refinement's violation gate, which each decide more rows at a near tie:
+# up to 12 of 240 rows a step measured on an H100 80GB HBM3 at 700 W,
+# bounded at twice that share
+TABLE2_MAX_OFF_SHARE = 0.1
 
 
 def log(msg):
@@ -1976,23 +2023,12 @@ def table1_phase(dev, store, name_power):
                         cfg.n_trials + 1)
         want = int(diffusion._trigger_schedule(cfg).sum()) * (n_batches + 1)
         net = e7_net(cfg, dev)
-        seen, times = [], []
-        real = gk.guidance_fused
-
-        def record(*a):
-            if not seen:
-                seen.append(tuple(x.clone() if torch.is_tensor(x) else x
-                                  for x in a))
-            return real(*a)
-
+        times = []
         torch.cuda.synchronize()
         reset_counts()
-        gk.guidance_fused = record
-        try:
+        with Recorder(gk, "guidance_fused") as rec:
             out = eval_openloop.run(cfg, store, net, log=log, device=dev,
                                     times=times)
-        finally:
-            gk.guidance_fused = real
         torch.cuda.synchronize()
         counts = read_counts()
         check_counts(counts, {"guidance_fused": want} if want else {},
@@ -2005,32 +2041,399 @@ def table1_phase(dev, store, name_power):
             + ", ".join(f"{t * 1e3:.1f}" for t in times)
             + f" ms (median {median(times) * 1e3:.1f}); launches {counts}; "
             f"{name_power}")
-        rows[what] = (counts["guidance_fused"], seen, cfg)
-    launches, seen, cfg = rows["guided"]
-    args = seen[0]
-    gvec, p = args[-2], args[-1]
-    if abs(float(gvec[1]) - cfg.stl_nn_thres) > 1e-9:
+        rows[what] = (counts["guidance_fused"], rec.calls, cfg)
+    launches, calls, cfg = rows["guided"]
+    args = calls[0][0]
+    if abs(float(args[-2][1]) - cfg.stl_nn_thres) > 1e-9:
         raise RuntimeError(f"the eval path's hinge threshold is "
-                           f"{float(gvec[1])}, expected {cfg.stl_nn_thres}")
+                           f"{float(args[-2][1])}, expected {cfg.stl_nn_thres}")
+    err, ms, plain_ms, bnd = recorded_kernel1(args, "the eval path")
+    log(f"kernel 1 on the eval path: launches {launches}; phase wall "
+        f"{time.time() - t0:.1f} s")
+    return launches, err, ms, plain_ms, bnd
+
+
+def recorded_kernel1(args, where):
+    """Kernel 1 against its plain version on a launch's recorded ``args``:
+    the guided tolerance, both times and the bound, printed.  Returns
+    (max error, times, plain ms, bound)."""
+    import torch
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+    gvec, p = args[-2], args[-1]
     ow, oa = gk.guidance_fused(*args)
     pw, pa = gk.guidance_fused_plain(*args)
     torch.cuda.synchronize()
     start = torch.stack([args[0], args[1]])
     got = torch.stack([ow, oa])
     err = check_guided(got, torch.stack([pw, pa]), start, float(gvec[0]),
-                       "kernel 1 on the eval path (first guided step)")
+                       f"kernel 1 on {where} (first guided step)")
     moved = float(((got - start).abs().amax(dim=(0, 2)) > 0).float().mean())
     bs, R = args[0].shape[0], args[0].shape[-1]
     ms = kernel_ms(lambda: gk.guidance_fused(*args))
     plain_ms = time_cuda(lambda: gk.guidance_fused_plain(*args))
     bnd = bound(nbytes(args[:-1], ow, oa), guidance_ops(p, bs, R, True))
-    log(f"kernel 1 on the eval path (bs={bs}, R={R}, niters={p.niters}, "
-        f"threshold {float(gvec[1]):.6g}, the first guided step's beta_t "
-        f"{float(gvec[0]):.6g}): "
+    log(f"kernel 1 on {where} (bs={bs}, R={R}, niters={p.niters}, lr "
+        f"{p.lr:g}, quirk {int(p.quirk)}, threshold {float(gvec[1]):.6g}, "
+        f"the first guided step's beta_t {float(gvec[0]):.6g}): "
         f"{moved:.3f} of the candidate columns moved; kernel "
         f"{ms['graph_ms']:.4f} ms (graph replay), one eager call "
         f"{ms['ms']:.4f} ms, plain {plain_ms:.4f} ms (median of 20); bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]}); launches {launches}; phase wall "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    return err, ms, plain_ms, bnd
+
+
+# --------------------------------------------------------------------------
+# the closed-loop Table-II evaluation (phases 23-24)
+# --------------------------------------------------------------------------
+
+def table2_data(cfg, n_keep=TABLE2_SCENES):
+    """``scripts/closed_loop_eval.py``'s held-out scenes as a numpy dataset:
+    synthetic seed 777, 2 x 25 scenes at scene_len 38, the pre-check (mean
+    GT speed >= 1 m/s), the first ``n_keep`` kept, with their drivable
+    rasters made once (``sim.scenes_from_dataset`` rasterizes a synthetic
+    scene's corridor, ~0.5 s a scene on the host)."""
+    import numpy as np
+    from pstl_tpu_torch import sim
+    from pstl_tpu_torch.data import synthetic
+    data = synthetic.generate_dataset(TABLE2_SEED, 2 * TABLE2_SCENES, cfg,
+                                      scene_len=38)
+    keep = np.where(data["scene_ego_full"][:, :, 3].mean(-1)
+                    >= 1.0)[0][:n_keep]
+    data = {k: (v[keep] if k.startswith("scene_") else v)
+            for k, v in data.items()}
+    sc = sim.scenes_from_dataset(data, device="cpu")
+    data.update(scene_drivable=sc.drivable.numpy(),
+                scene_drivable_origin=sc.drivable_origin.numpy(),
+                scene_drivable_res=sc.drivable_res.numpy())
+    return data
+
+
+def table2_scenes(data, dev, unsafe=0, repeat=None):
+    """The scenes of ``table2_data`` on ``dev``: with
+    ``closed_loop_eval.py``'s unsafe fixture (a 6 m x 6 m neighbor box
+    riding the GT corridor two frames ahead) on the first ``unsafe`` of
+    them, or ``repeat`` copies of the first scene (the ``--test_aggressive``
+    presets' batch)."""
+    import numpy as np
+    from pstl_tpu_torch import sim
+    data = dict(data)
+    if repeat is not None:
+        data = {k: (np.repeat(v[:1], repeat, axis=0)
+                    if k.startswith("scene_") else v)
+                for k, v in data.items()}
+    if unsafe:
+        nei = np.array(data["scene_nei_full"])
+        ego = data["scene_ego_full"]
+        T = ego.shape[1]
+        ahead = ego[:unsafe, np.minimum(np.arange(T) + 2, T - 1)]
+        nei[:unsafe, 0, :, 0] = 1.0
+        nei[:unsafe, 0, :, 1:5] = ahead
+        nei[:unsafe, 0, :, 5] = 6.0
+        nei[:unsafe, 0, :, 6] = 6.0
+        data["scene_nei_full"] = nei
+    return sim.scenes_from_dataset(data, device=dev)
+
+
+def keep_scores(info, cfg):
+    """The planner's lane-keep scores (bs, M) after the forward shield, as
+    ``sim.make_planner`` ranks them: their argmax is the chosen plan and
+    their share above 0 the step's compliance."""
+    import torch
+    s = info["scores"].reshape(-1, cfg.n_randoms, 3)
+    if cfg.forward_shield:
+        min_v = torch.amin(info["trajs"][..., 3], dim=-1).reshape(s.shape)
+        s = s - torch.clamp(-min_v, min=0.0) * 1e3
+    return s[:, :, 0]
+
+
+class Recorder:
+    """Records the arguments of the first ``n`` calls of a module's
+    function while it runs (``with Recorder(module, name) as rec``)."""
+
+    def __init__(self, module, name, n=1):
+        self.module, self.name, self.n, self.calls = module, name, n, []
+
+    def __enter__(self):
+        import torch
+        self.real = real = getattr(self.module, self.name)
+
+        def record(*a, **kw):
+            if len(self.calls) < self.n:
+                self.calls.append((tuple(x.clone() if torch.is_tensor(x)
+                                         else x for x in a), dict(kw)))
+            return real(*a, **kw)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def scorer_to(scorer, dev):
+    """A copy of a ``specs.TiledScorer`` with its tensors on ``dev``."""
+    import copy
+    import torch
+    out = copy.copy(scorer)
+    for k, v in vars(scorer).items():
+        if torch.is_tensor(v):
+            setattr(out, k, v.to(dev))
+        elif isinstance(v, tuple) and hasattr(v, "_fields"):
+            setattr(out, k, type(v)(*(x.to(dev) for x in v)))
+    return out
+
+
+def table2_reference_phase(dev):
+    """Phase 23: the Table-II step on the card against the CPU.  5 held-out
+    scenes (an odd batch for kernel 1's G = 2 packing), the unsafe fixture
+    on 2 of them, TABLE2_REF_M seeds a scene, fp32, route "2" with the
+    backup controller (its solve cut to TABLE2_REF_BACKUP_ITERS Adam steps,
+    see below) and the convex refinement (K = 6), TABLE2_REF_STEPS steps of
+    pinned noise.  Each step starts both devices from the CPU's carry, so a
+    difference does not compound.  The planner's discrete choices (the
+    multi-cands argmax, the in-kernel argmins, the refinement's violation
+    gate, the lane-keep argmax) may go another way at a near tie, after
+    which a row or a scene's plan differs by any amount; so the gates are:
+    kernel 1 launched once per denoise step; per step, the same plan (its
+    first states within TABLE2_REF_TOL) in most scenes, and on those the
+    ego state within TABLE2_REF_TOL, the chosen scores within
+    EVAL_SCORE_ATOL and the repair, flags, time and done equal; the counts
+    of compliant lane-keep rows equal up to the rows off by more than
+    EVAL_SCORE_ATOL or within it of 0; the candidates' scores within
+    EVAL_SCORE_ATOL on all but TABLE2_MAX_OFF_SHARE of the rows; the backup
+    fired.  Then the full-length backup solve (500 Adam steps) and convex
+    refinement (50) on the first step's recorded inputs, card against CPU,
+    their largest differences printed: near its optimum the solve circles
+    within ~lr, and the refinement is chaotic in its inputs
+    (tests/test_torch_closed_loop.py), so neither has a card-vs-CPU
+    tolerance."""
+    import torch
+    from pstl_tpu_torch import diffusion, refine, sim
+    from pstl_tpu_torch.config import bench_config
+
+    t0 = time.time()
+    cfg = bench_config("heavy").with_(
+        n_randoms=TABLE2_REF_M, compute_dtype="float32", backup=True,
+        backup_niters=TABLE2_REF_BACKUP_ITERS, refinement=True,
+        lite_refine=False)
+    bs, M = TABLE2_REF_SCENES, TABLE2_REF_M
+    g = torch.Generator().manual_seed(23)
+    noise = [torch.randn((cfg.diffusion_steps, bs, cfg.nt, 2, 3 * M),
+                         generator=g) for _ in range(TABLE2_REF_STEPS)]
+    steps = {}
+    data = table2_data(cfg, n_keep=bs)
+    for d in ("cpu", dev):
+        sc = table2_scenes(data, d, unsafe=TABLE2_REF_UNSAFE)
+        steps[str(d)] = sim.make_closed_loop_step(
+            sc, cfg, e7_net(cfg, d), diffusion.get_coeffs(cfg, device=d),
+            with_info=True)
+    init_cpu, step_cpu = steps["cpu"]
+    _, step_dev = steps[str(dev)]
+    c = init_cpu(0)
+    gen_dev = torch.Generator(device=dev)
+    apart = repairs = off_rows = 0
+    worst_ego = 0.0
+    for si in range(TABLE2_REF_STEPS):
+        with Recorder(refine, "solve_backup") as rb, \
+                Recorder(refine, "convex_refinement") as rc:
+            c_cpu, info_c = step_cpu(c, noise[si])
+        if si == 0:
+            first = (rb.calls, rc.calls)
+        c_in = sim.Carry(*(x.to(dev) for x in c[:-1]), generator=gen_dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        c_dev, info_d = step_dev(c_in, noise[si].to(dev))
+        torch.cuda.synchronize()
+        check_counts(read_counts(),
+                     {"guidance_fused": cfg.diffusion_steps - 1},
+                     f"Table-II reference step {si}")
+        info_d = {k: v.cpu() for k, v in info_d.items()}
+        c_dev = sim.Carry(*(x.cpu() for x in c_dev[:-1]),
+                          generator=c.generator)
+        what = f"Table-II reference step {si}"
+        same = (info_c["plan_traj"][:, :3] - info_d["plan_traj"][:, :3]
+                ).abs().amax(dim=(1, 2)) <= TABLE2_REF_TOL
+        if not int(same.sum()) * 2 > bs:
+            raise RuntimeError(f"{what}: the devices chose apart in "
+                               f"{int((~same).sum())} of {bs} scenes")
+        apart += int((~same).sum())
+        ks_c, ks_d = keep_scores(info_c, cfg), keep_scores(info_d, cfg)
+        d_best = (ks_c.amax(-1) - ks_d.amax(-1)).abs()[same]
+        d_ego = (c_cpu.ego - c_dev.ego).abs().amax(-1)[same]
+        worst_ego = max(worst_ego, float(d_ego.max()))
+        if not (float(d_ego.max()) <= TABLE2_REF_TOL
+                and float(d_best.max()) <= EVAL_SCORE_ATOL):
+            raise RuntimeError(f"{what}: on the same plans the ego differs "
+                               f"by {float(d_ego.max()):.3e}, the chosen "
+                               f"score by {float(d_best.max()):.3e}")
+        for k in ("collide", "out_of_lane", "repairs", "t", "done"):
+            a, b = getattr(c_cpu, k)[same], getattr(c_dev, k)[same]
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{what}: {k} {a.tolist()} (cpu) vs "
+                                   f"{b.tolist()} (card)")
+        s_c = info_c["scores"].reshape(bs, M, 3)
+        s_d = info_d["scores"].reshape(bs, M, 3)
+        off = (s_c - s_d).abs() > EVAL_SCORE_ATOL
+        off_rows += int(off.sum())
+        slack = (off | (s_c.abs() <= EVAL_SCORE_ATOL))[:, :, 0].sum(-1)
+        n_c, n_d = (ks_c > 0).sum(-1), (ks_d > 0).sum(-1)
+        if not bool(((n_c - n_d).abs() <= slack).all()):
+            raise RuntimeError(f"{what}: compliant lane-keep rows "
+                               f"{n_c.tolist()} (cpu) vs {n_d.tolist()} "
+                               f"(card), slack {slack.tolist()}")
+        repairs = int(c_cpu.repairs.sum())
+        log(f"{what}: the same plan in {int(same.sum())} of {bs} scenes, "
+            f"ego within {float(d_ego.max()):.3e} there; rows off "
+            f"{int(off.sum())} of {off.numel()} (max "
+            f"{float((s_c - s_d).abs().max()):.3e}); compliance cpu "
+            f"{float(info_c['stl_acc'].mean()):.4f} card "
+            f"{float(info_d['stl_acc'].mean()):.4f}; repairs so far "
+            f"{repairs}")
+        c = c_cpu
+    n_rows = TABLE2_REF_STEPS * bs * M * 3
+    if not off_rows <= TABLE2_MAX_OFF_SHARE * n_rows:
+        raise RuntimeError(f"Table-II reference: {off_rows} of {n_rows} "
+                           f"rows' scores beyond {EVAL_SCORE_ATOL}")
+    if not repairs > 0:
+        raise RuntimeError("Table-II reference: the backup never fired")
+
+    (bk_args, _), = first[0]
+    (cv_args, cv_kw), = first[1]
+    out = {}
+    for d in ("cpu", dev):
+        mv = lambda a: tuple(x.to(d) for x in a)
+        res = refine.solve_backup(*mv(bk_args[:3]), cfg, n_iters=500)
+        u = refine.convex_refinement(*mv(cv_args[:3]),
+                                     scorer_to(cv_args[3], d),
+                                     *mv(cv_args[4:5]), cfg, **cv_kw)
+        out[str(d)] = (res.cpu(), u.cpu())
+    errs = [float((a - b).abs().max())
+            for a, b in zip(out["cpu"], out[str(dev)])]
+    if not all(bool(torch.isfinite(v).all()) for v in out[str(dev)]):
+        raise RuntimeError("Table-II reference: a full-length loop on the "
+                           "card is not finite")
+    log(f"Table-II reference: {TABLE2_REF_STEPS} steps of {bs} scenes "
+        f"({TABLE2_REF_UNSAFE} with the unsafe fixture) x {M} x 3: ego "
+        f"within {worst_ego:.3e} on the same plans, {apart} scene-steps "
+        f"chose apart, {off_rows} of {n_rows} rows off, {repairs} repairs.  "
+        f"Full length on the first step's inputs, card vs cpu: backup solve "
+        f"(500 Adam steps, {bk_args[0].shape[0]} unsafe scenes) "
+        f"max_abs_err={errs[0]:.3e}; convex refinement (K=6, 50 Adam "
+        f"steps, {cv_args[0].shape[0]} rows) max_abs_err={errs[1]:.3e}; "
+        f"phase wall {time.time() - t0:.1f} s")
+
+
+#: phase 24's rows: (name, configuration from the heavy contract, steps,
+#: scenes' keyword arguments for table2_scenes, stlp_override)
+def table2_rows():
+    from pstl_tpu_torch import sim
+    from pstl_tpu_torch.config import bench_config
+    heavy = bench_config("heavy")
+    return [
+        ("a guided", heavy, TABLE2_STEPS, {}, None),
+        ("b ref_parity", heavy.ref_parity(open_loop=False), TABLE2_STEPS,
+         {}, None),
+        ("c backup, unsafe fixture", heavy.with_(backup=True),
+         TABLE2_SHORT_STEPS, {"unsafe": TABLE2_SCENES}, None),
+        ("d refinement + lite_refine",
+         heavy.with_(refinement=True, lite_refine=True), TABLE2_SHORT_STEPS,
+         {}, None),
+        ("d raw_refinement", heavy.with_(raw_refinement=True),
+         TABLE2_SHORT_STEPS, {}, None),
+        ("e test_aggressive", heavy, TABLE2_STEPS,
+         {"repeat": len(sim.TEST_AGGRESSIVE_STLPS)},
+         sim.TEST_AGGRESSIVE_STLPS),
+    ]
+
+
+def step_launches(scenes, cfg, net, coeffs, override):
+    """Device launches of one recorded closed-loop step from the episodes'
+    start, profiled apart.  Under the backup, a step of 1 and of 2 solve
+    iterations are profiled and the step of ``backup_niters`` extrapolated
+    (the loop repeats one iteration's launches; the profiler's overhead on a
+    step of ~10^5 launches would take minutes)."""
+    from pstl_tpu_torch import sim
+
+    def one(c):
+        return profile_calls(lambda: sim.run_closed_loop_host(
+            0, scenes, c, net, coeffs, 1, record=True,
+            stlp_override=override), 1)[0]
+
+    if not cfg.backup:
+        return one(cfg)
+    l1, l2 = one(cfg.with_(backup_niters=1)), one(cfg.with_(backup_niters=2))
+    return l1 + (l2 - l1) * (cfg.backup_niters - 1)
+
+
+def table2_phase(dev, name_power):
+    """Phase 24: Table II at full width (``scripts/closed_loop_eval.py``'s
+    protocol on the port): the held-out scenes, ``run_closed_loop_host``
+    with ``record=True`` and the e7_round5 weights, at the heavy contract's
+    width and route ``"2"`` for each of ``table2_rows``.  Every metric must
+    be finite; kernel 1 must launch once per guided denoise step of every
+    step run (and nothing else); the backup row must repair.  Per row: the
+    Table-II columns, the median step (host clock + sync, the record's
+    area metric included, as in the JAX package) and, profiled apart on one
+    more step, the device launches of a step.  Kernel 1 against its plain
+    version on row (b)'s first guided step's recorded inputs.  Returns
+    kernel 1's record numbers for row (b)."""
+    import numpy as np
+    import torch
+    from pstl_tpu_torch import diffusion, sim
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    t0 = time.time()
+    rows = table2_rows()
+    net = e7_net(rows[0][1], dev)
+    coeffs = diffusion.get_coeffs(rows[0][1], device=dev)
+    data = table2_data(rows[0][1])
+    parity = None
+    for what, cfg, steps, scene_kw, override in rows:
+        t_row = time.time()
+        scenes = table2_scenes(data, dev, **scene_kw)
+        guided = int(diffusion._trigger_schedule(cfg).sum())
+        torch.cuda.synchronize()
+        reset_counts()
+        with Recorder(gk, "guidance_fused") as rec:
+            out = sim.run_closed_loop_host(0, scenes, cfg, net, coeffs,
+                                           steps, record=True,
+                                           stlp_override=override)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        hist = out["history"]
+        ran = len(hist["step_s"])
+        check_counts(counts, {"guidance_fused": guided * ran},
+                     f"Table II {what}")
+        if what.startswith("b"):
+            parity = (counts["guidance_fused"], rec.calls[0][0])
+        vals = {k: float(v.float().mean()) if torch.is_tensor(v) else v
+                for k, v in out.items() if k != "history"}
+        vals["repairs_fired"] = float(out["repairs"].sum())
+        vals["area"] = float(out["area"])
+        check_finite(vals, f"Table II {what}")
+        if not np.isfinite(np.stack(hist["ego"])).all():
+            raise RuntimeError(f"Table II {what}: ego history not finite")
+        if what.startswith("c") and not vals["repairs_fired"] > 0:
+            raise RuntimeError("Table II backup row: no repair fired")
+        launches = step_launches(scenes, cfg, net, coeffs, override)
+        log(f"Table II {what} ({scenes.ego_full.shape[0]} scenes x "
+            f"{cfg.n_randoms} x 3, {ran} of {steps} steps, {guided} of "
+            f"{cfg.diffusion_steps - 1} denoise steps guided, niters "
+            f"{cfg.guidance_niters}, e7_round5 weights): compliance="
+            f"{vals['stl_acc']:.4f} area={vals['area']:.4f} progress="
+            f"{vals['progress']:.3f} collision={vals['collide']:.4f} "
+            f"out_of_lane={vals['out_of_lane']:.4f} mean_traj_len="
+            f"{vals['traj_len']:.2f} repairs_fired="
+            f"{vals['repairs_fired']:.0f}; median step "
+            f"{median(hist['step_s']) * 1e3:.1f} ms (first "
+            f"{hist['step_s'][0] * 1e3:.1f} ms), {launches:.0f} device "
+            f"launches a step (profiled apart); kernel 1 launches "
+            f"{counts['guidance_fused']} = {guided} x {ran}; row wall "
+            f"{time.time() - t_row:.1f} s; {name_power}")
+
+    launches, args = parity
+    err, ms, plain_ms, bnd = recorded_kernel1(args, "the ref_parity row")
+    log(f"kernel 1 on the ref_parity row: launches {launches}; phase wall "
         f"{time.time() - t0:.1f} s")
     return launches, err, ms, plain_ms, bnd
 
@@ -2123,6 +2526,13 @@ def main():
     ev_launches, ev_err, ev_ms, ev_plain_ms, ev_bound = table1_phase(
         dev, store, name_power)
     log(f"phase 22 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    table2_reference_phase(dev)
+    log(f"phase 23 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    t2_launches, t2_err, t2_ms, t2_plain_ms, t2_bound = table2_phase(
+        dev, name_power)
+    log(f"phase 24 wall {time.time() - t_ph:.1f} s")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there
@@ -2154,7 +2564,9 @@ def main():
         entry("min_clearance_bwd", "min_clearance.cu", pk + "193",
               mono_counts["min_clearance_bwd"], *clear["bwd"]),
         entry(fused, "guidance_fused.cu", at + "396", ev_launches, ev_err,
-              ev_ms, ev_plain_ms, ev_bound)]}),
+              ev_ms, ev_plain_ms, ev_bound),
+        entry(fused, "guidance_fused.cu", at + "396", t2_launches, t2_err,
+              t2_ms, t2_plain_ms, t2_bound)]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

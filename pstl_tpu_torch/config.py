@@ -279,6 +279,27 @@ class Config:
     def with_(self, **kw) -> "Config":
         return replace(self, **kw)
 
+    def ref_parity(self, open_loop: bool = False) -> "Config":
+        """The reference-parity bundle (``pstl_tpu.config.Config.ref_parity``):
+        every documented deviation reverted at once: the always-positive
+        guidance offset clamp, no forward shield, the raw Euler env (speed
+        may go negative), the backup solve's 500 iterations, no sampler
+        temperature and, with guidance, the README schedule (last 10
+        denoise steps, one Adam iteration, lr 0.01 open-loop / 0.04
+        closed-loop, multi_cands 10 / 5)."""
+        c = self.with_(
+            guidance_positive_offset_quirk=True,
+            forward_shield=False,
+            env_nonnegative_speed=False,
+            backup_niters=500,
+            sample_noise_scale=1.0,
+        )
+        if self.guidance:
+            c = c.with_(guidance_before=10, guidance_niters=1,
+                        guidance_lr=0.01 if open_loop else 0.04,
+                        multi_cands=10 if open_loop else 5)
+        return c
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 

@@ -8,7 +8,8 @@
    the candidate-minor route as the planner builds it (``maximize=False``:
    the hinge threshold is ``stl_nn_thres``) or unguided row-major,
    multi-cands selection, RefineNet and ``n_rolls`` re-rectifications, the
-   final rollout and scores;
+   convex refinement under ``cfg.refinement`` (K = 8), the final rollout
+   and scores;
 3. the untimed metric tail (:func:`_nn_metrics`): std, hull area, min-ADE /
    FDE, entropies, occupancy area, label breakdown.
 
@@ -21,9 +22,8 @@ same thing, as the JAX package's two calls under one key do.  The functions
 take them as arguments (``flex``, ``noise``), so tests can hand in the JAX
 package's own.
 
-Refused by name: ``cfg.refinement`` (``refine.py`` is not ported),
-``viz_dir`` (``viz.py`` is not ported), and the VAE and BC heads, which the
-dense training step refuses too.
+Refused by name: ``viz_dir`` (``viz.py`` is not ported), and the VAE and
+BC heads, which the dense training step refuses too.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from pstl_tpu_torch import diffusion, metrics, specs
+from pstl_tpu_torch import diffusion, metrics, refine, specs
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
 from pstl_tpu_torch.device import resolve_device
@@ -52,8 +52,6 @@ RUN_METRICS = ("acc", "scene_acc", "ade", "fde", "std", "vol", "ent_ent_s",
 
 def check_supported(cfg: Config) -> None:
     """Raise for evaluation configurations the port does not run."""
-    if cfg.refinement:
-        raise NotImplementedError("refinement (refine.py) is not ported")
     if not cfg.diffusion:
         raise NotImplementedError("the VAE and BC heads are not ported for "
                                   "dense rows (nor is their training step)")
@@ -178,6 +176,9 @@ def _sample_and_score(net: Net, batch: Dict[str, Tensor], cfg: Config,
             (s_re, _, _), _ = score_controls(nn_controls)
             nn_controls = net.rect(feature, highlevel, stlp_rows,
                                    nn_controls, s_re)
+        if cfg.refinement:
+            nn_controls = refine.convex_refinement(
+                nn_controls, all_steps, states_flat, score_rows, valid, cfg)
 
     (scores, acc, scene_acc), nn_trajs = score_controls(nn_controls)
     nn = {"acc": acc, "scene_acc": scene_acc, "scores": scores}

@@ -3,24 +3,33 @@
 Every scene is pre-extracted into fixed-shape tensors, so one step —
 observe around the simulated pose, plan (DDPM reverse pass with fused
 guidance, multi-candidate selection, RefineNet + ``n_rolls``
-re-rectification, lane-keep argmax), Euler env step with collision and
+re-rectification, the optional test-time refinement, lane-keep argmax),
+the optional backup safety controller, Euler env step with collision and
 drivable-area checks, metric update — runs on the device for a batch of
 scenes.  The JAX package writes observe / env_step per scene and vmaps
 them; here they take the scene batch directly.  ``chunk`` (steps per
-dispatch in JAX) becomes a Python loop in the caller.
+jitted scan in JAX) is a Python loop of steps per call here.
 
-Not ported yet: the backup controller and the refinement options
-(``refine.py``), the VAE / BC planners.
+The runners are ``run_closed_loop`` (a fixed number of done-masked steps)
+and ``run_closed_loop_host`` (the closed-loop Table-II evaluation: per-step
+history, step times and the candidate-area metric under ``record``,
+per-scene start frames, an early exit when every scene is done).  The JAX
+key becomes a seed: the planner draws its noise from a device generator
+seeded with it; the tests hand in the JAX key chain's draws as ``noise``.
+
+Refused by name: the VAE and BC planners, the init-hint draws
+(``use_init_hint``) and ``render_dir`` (``viz.py`` is not ported).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import time
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from pstl_tpu_torch import diffusion, specs
+from pstl_tpu_torch import diffusion, metrics, refine, specs
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.device import resolve_device
 from pstl_tpu_torch.models import net as models
@@ -33,7 +42,14 @@ Tensor = torch.Tensor
 LANE_OFFSET = 3.5
 D_SAFE = 0.1
 CORRIDOR_HALF = 3.25
+# fixed aggressive stlp override (nusc_sim.py:466-472)
 AGGRESSIVE_STLP = np.array([1.0, 9.0, -3.0, 2.0, 0.1, 0.2], np.float32)
+# --test_aggressive per-episode presets (nusc_sim.py:444-465)
+TEST_AGGRESSIVE_STLPS = np.array([
+    [0.0, 1.0, -1.0, 2.0, 2.0, 0.2],
+    [0.0, 4.0, -1.0, 1.0, 1.0, 0.2],
+    [0.0, 6.0, -1.0, 1.0, 0.2, 0.2],
+], np.float32)
 
 
 class SceneTensors(NamedTuple):
@@ -218,11 +234,6 @@ def observe(scenes: SceneTensors, ego_state: Tensor, t: Tensor,
 
 def check_supported(cfg: Config) -> None:
     """Raise for planner configurations the port does not run yet."""
-    if cfg.backup:
-        raise NotImplementedError("the backup controller (refine.py) is "
-                                  "not ported")
-    if cfg.refinement or cfg.raw_refinement:
-        raise NotImplementedError("refinement (refine.py) is not ported")
     if cfg.vae or cfg.bc or not cfg.diffusion:
         raise NotImplementedError(
             "the planner runs the diffusion head only (the VAE head is "
@@ -249,16 +260,26 @@ def check_devices(dev: torch.device, net: Net,
                              f"{t.device}: move them to the scenes' device")
 
 
-def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
+def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
+                 stlp_override: Optional[np.ndarray] = None):
     """Returns ``plan(obs, noise=None, generator=None) -> (u0 (bs, 2),
     info)``: dense batching with the aggressive stlp override, the DDPM
     reverse pass with guidance (maximize; ``noise`` in the sampler's
     layout, see ``diffusion.reverse_sample``), multi-cands + RefineNet +
-    n_rolls re-rectification, lane-keep restriction with the forward
-    shield, argmax robustness.  (The per-scene ``stlp_override`` presets of
-    the JAX planner are not ported.)"""
+    n_rolls re-rectification, the test-time refinement (``refinement``:
+    ``refine.convex_refinement`` with K = 6; ``raw_refinement``; under
+    ``lite_refine`` only when no lane-keep candidate of the batch satisfies
+    its spec), lane-keep restriction with the forward shield, argmax
+    robustness.
+
+    ``stlp_override`` (bs, 6): per-scene stlp rows (the ``--test_aggressive``
+    presets, ``TEST_AGGRESSIVE_STLPS``).  As in the JAX package, each
+    scene's candidate rows take its own row, while the scene-level stlp
+    takes the override's last row for every scene."""
     check_supported(cfg)
     M = cfg.n_randoms
+    override_np = np.asarray(stlp_override if stlp_override is not None
+                             else AGGRESSIVE_STLP, np.float32)
 
     @torch.no_grad()
     def plan(obs: Dict[str, Tensor], noise: Optional[Tensor] = None,
@@ -267,10 +288,15 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
         dev = obs["ego_traj"].device
         check_devices(dev, net, coeffs)
         n = bs * M * 3
-        override = torch.as_tensor(AGGRESSIVE_STLP, device=dev)
+        override = torch.as_tensor(override_np, device=dev)
         states = obs["ego_traj"][:, 0, :4]
-        dense = specs.densify_batch(obs, override.expand(bs, 6), cfg,
-                                    override.expand(n, 1, 6))
+        gt_stlp = override.reshape(-1, 6)[-1].expand(bs, 6)
+        if override.ndim == 2:
+            stlp_dense = torch.repeat_interleave(override, M * 3,
+                                                 0)[:, None, :]
+        else:
+            stlp_dense = override.expand(n, 1, 6)
+        dense = specs.densify_batch(obs, gt_stlp, cfg, stlp_dense)
         highlevel = dense["highlevel_dense"]
         valid = dense["valids_dense"].reshape(-1)
         states_flat = torch.repeat_interleave(states, M * 3, 0)
@@ -314,6 +340,15 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
                 s_re, _ = score_controls(controls)
                 controls = net.rect(feature, highlevel, stlp_rows, controls,
                                     s_re)
+            if cfg.refinement or cfg.raw_refinement:
+                # lite_refine (nusc_sim.py:554-557): skip the repair when a
+                # lane-keep candidate of the batch already satisfies its
+                # spec (the JAX package's lax.cond; here a host sync)
+                if not cfg.lite_refine or float(torch.amax(
+                        score_controls(controls)[0].reshape(bs, M, 3)[
+                            :, :, 0])) <= 0:
+                    controls = _refine(controls, all_steps, states_flat,
+                                       score_rows, valid, cfg)
         else:
             controls = nn_controls
 
@@ -337,6 +372,54 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs):
         return u_best[:, 0, :], info
 
     return plan
+
+
+def _refine(controls: Tensor, all_steps: Tensor, states_flat: Tensor,
+            score_rows, valid: Tensor, cfg: Config) -> Tensor:
+    """The planner's test-time refinement: convex with K = 6, or raw."""
+    if cfg.refinement:
+        return refine.convex_refinement(controls, all_steps, states_flat,
+                                        score_rows, valid, cfg, K=6)
+    return refine.raw_refinement(controls, states_flat, score_rows, valid,
+                                 cfg)
+
+
+def _apply_backup(u0: Tensor, info: Dict[str, Tensor],
+                  obs: Dict[str, Tensor], cfg: Config):
+    """The backup safety controller (nusc_sim.py:686-708) for a scene
+    batch: where the chosen plan's clearance 2 steps ahead to a valid
+    neighbor drops below D_SAFE, solve a control residual
+    (``refine.solve_backup``, ``cfg.backup_niters`` Adam steps) against the
+    first unsafe neighbor in slot order and apply the corrected first
+    control.  Returns (u0 (bs, 2), unsafe (bs,) bool).
+
+    The JAX package solves every scene and keeps the unsafe ones; the solve
+    of a scene depends on that scene alone, so here only the unsafe scenes
+    are solved, and none when no scene is unsafe (one host sync)."""
+    plan_traj = info["plan_traj"]                    # (bs, nt+1, 4)
+    nei = obs["neighbor_trajs_aug"]                  # (bs, K, nt, 7)
+    # the chosen plan's first two controls, recovered from its states
+    dth = (plan_traj[:, 1:3, 2] - plan_traj[:, 0:2, 2]) / cfg.dt
+    dv = (plan_traj[:, 1:3, 3] - plan_traj[:, 0:2, 3]) / cfg.dt
+    u01 = torch.stack([dth, dv], dim=-1)             # (bs, 2, 2)
+    clear = geom.car_clearance(
+        plan_traj[:, None, 2, :3], cfg.ego_L, cfg.ego_W,
+        nei[:, :, 2, 1:4], nei[:, :, 2, 5], nei[:, :, 2, 6],
+        cfg.refined_nL, cfg.refined_nW)              # (bs, K)
+    unsafe_k = (nei[:, :, 2, 0] > 0.5) \
+        & (torch.clamp(clear, -5.0, 20.0) < D_SAFE)
+    unsafe = torch.any(unsafe_k, dim=-1)
+    rows = torch.nonzero(unsafe)[:, 0]
+    if rows.numel() == 0:
+        return u0, unsafe
+    # the first unsafe slot (argmax returns the first maximum)
+    j = torch.argmax(unsafe_k[rows].to(torch.uint8), dim=-1)
+    u_res = refine.solve_backup(plan_traj[rows, 0:3], u01[rows],
+                                nei[rows, j, 0:3], cfg,
+                                n_iters=cfg.backup_niters)
+    out = u0.clone()
+    out[rows] = u01[rows, 0] + u_res[:, 0]
+    return out, unsafe
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +489,18 @@ def _init_carry(scenes: SceneTensors, generator: torch.Generator,
                  generator=generator)
 
 
-def _make_body(scenes: SceneTensors, cfg: Config, plan):
-    """The (observe -> plan -> env step -> metric update) step."""
+def _make_body(scenes: SceneTensors, cfg: Config, plan, with_info=False):
+    """The (observe -> plan -> backup -> env step -> metric update) step:
+    ``body(carry, noise=None)`` returns the next carry, and with
+    ``with_info`` also the plan's info."""
 
     def body(c: Carry, noise: Optional[Tensor] = None):
         obs = observe(scenes, c.ego, c.t, cfg)
         u0, info = plan(obs, noise=noise, generator=c.generator)
+        if cfg.backup:
+            u0, repaired = _apply_backup(u0, info, obs, cfg)
+        else:
+            repaired = torch.zeros_like(c.done)
         new_ego, collide, ool, done_t = env_step(scenes, c.ego, c.t, u0, cfg)
         active = ~c.done
         carry = Carry(
@@ -423,8 +512,10 @@ def _make_body(scenes: SceneTensors, cfg: Config, plan):
             progress=c.progress + active * c.ego[:, 3] * cfg.dt,
             stl_acc_sum=c.stl_acc_sum + active * info["stl_acc"],
             steps=c.steps + active,
-            repairs=c.repairs,     # the backup controller is not ported
+            repairs=c.repairs + (active & repaired),
             generator=c.generator)
+        if with_info:
+            return carry, info
         return carry
 
     return body
@@ -444,19 +535,113 @@ def _carry_metrics(c: Carry) -> Dict[str, Tensor]:
 
 
 def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
-                          coeffs: diffusion.Coeffs):
+                          coeffs: diffusion.Coeffs, with_info: bool = False,
+                          stlp_override=None, chunk: int = 1):
     """Returns (init_carry, step).  ``init_carry(seed=0, t0=None)`` starts
-    the episodes (the planner draws its noise from a device generator
-    seeded with ``seed``); ``step(carry, noise=None)`` runs one replanning
-    step for every scene (done scenes are masked, not skipped).  Call
-    ``step`` in a loop for several steps."""
+    the episodes at frames ``t0`` (bs,) (default 0; the planner draws its
+    noise from a device generator seeded with ``seed``).  ``step(carry,
+    noise=None)`` runs ``chunk`` replanning steps for every scene (done
+    scenes are masked, not skipped); ``noise`` pins the sampler's draws:
+    one tensor for a step, a sequence of ``chunk`` for a chunk.
+    ``with_info`` forces chunk 1 and returns (carry, the plan's info)."""
     dev = scenes.ego_full.device
     check_devices(dev, net, coeffs)
-    body = _make_body(scenes, cfg, make_planner(cfg, net, coeffs))
+    plan = make_planner(cfg, net, coeffs, stlp_override=stlp_override)
+    body = _make_body(scenes, cfg, plan, with_info=with_info)
+
+    if with_info or chunk <= 1:
+        step = body
+    else:
+        def step(c: Carry, noise: Optional[Sequence[Tensor]] = None):
+            for i in range(chunk):
+                c = body(c, None if noise is None else noise[i])
+            return c
 
     def init_carry(seed: int = 0, t0=None):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         return _init_carry(scenes, gen, t0=t0)
 
-    return init_carry, body
+    return init_carry, step
+
+
+def run_closed_loop(seed: int, scenes: SceneTensors, cfg: Config, net: Net,
+                    coeffs: diffusion.Coeffs, max_steps: int,
+                    noise: Optional[Sequence[Tensor]] = None
+                    ) -> Dict[str, Tensor]:
+    """``max_steps`` done-masked replanning steps of every scene (no early
+    exit); returns the per-scene metrics: collide, out_of_lane, traj_len,
+    progress, stl_acc (mean over active steps), agent_steps, repairs.
+    ``noise``: the sampler's draws of each step."""
+    init_carry, step = make_closed_loop_step(scenes, cfg, net, coeffs)
+    c = init_carry(seed)
+    for i in range(max_steps):
+        c = step(c, None if noise is None else noise[i])
+    return _carry_metrics(c)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
+                         net: Net, coeffs: diffusion.Coeffs, max_steps: int,
+                         record: bool = False,
+                         render_dir: Optional[str] = None,
+                         stlp_override=None, chunk: int = 1, t0=None,
+                         noise: Optional[Sequence[Tensor]] = None
+                         ) -> Dict[str, object]:
+    """The closed-loop Table-II evaluation: ``run_closed_loop``'s metrics
+    over up to ``max_steps`` steps (``chunk`` a call), stopping early once
+    every scene is done.  ``record`` (forces chunk 1) adds ``history``:
+    the ego states before and after every step ("ego", numpy (bs, 4)
+    each), the chosen plans ("plan", (bs, nt+1, 4)), the per-step
+    candidate-area diversity ("area", nusc_sim.py:714-735) and the step
+    times ("step_s": host clock around the step and its record, after a
+    device sync), and ``area``, the mean over the steps.  ``t0``: per-scene
+    start frames; ``noise``: the sampler's draws of each step.
+    ``render_dir`` is refused: the closed-loop frames need ``viz.py``,
+    which is not ported."""
+    if render_dir:
+        raise NotImplementedError("render_dir: the closed-loop frames "
+                                  "(viz.py) are not ported")
+    chunk = 1 if record else max(chunk, 1)
+    init_carry, step = make_closed_loop_step(
+        scenes, cfg, net, coeffs, with_info=record,
+        stlp_override=stlp_override, chunk=chunk)
+    dev = scenes.ego_full.device
+    c = init_carry(seed, t0=t0)
+    bs = scenes.ego_full.shape[0]
+    M, nt = cfg.n_randoms, cfg.nt
+    hist = {"ego": [c.ego.cpu().numpy()], "plan": [], "area": [],
+            "step_s": []}
+    for si in range(max(max_steps // chunk, 1)):
+        pinned = None
+        if noise is not None:
+            pinned = (noise[si] if chunk == 1
+                      else noise[si * chunk:(si + 1) * chunk])
+        t_start = time.time()
+        if record:
+            c, info = step(c, pinned)
+            hist["ego"].append(c.ego.cpu().numpy())
+            hist["plan"].append(info["plan_traj"].cpu().numpy())
+            area = metrics.measure_extra_diversity(
+                info["trajs"][:, :-1].reshape(bs, M, 3, nt * 4),
+                info["scores"].reshape(bs, M, 3),
+                info["valids_dense"].reshape(bs, M, 3), nt,
+                info["controls"].reshape(bs, M, 3, nt * 2),
+                -cfg.mul_w_max, cfg.mul_w_max, -cfg.mul_a_max,
+                cfg.mul_a_max)["area"]
+            hist["area"].append(float(area))
+        else:
+            c = step(c, pinned)
+        _sync(dev)
+        hist["step_s"].append(time.time() - t_start)
+        if bool(c.done.all()):
+            break
+    out: Dict[str, object] = dict(_carry_metrics(c))
+    if record:
+        out["history"] = hist
+        out["area"] = float(np.mean(hist["area"])) if hist["area"] else 0.0
+    return out

@@ -8,8 +8,8 @@ controls), ``pre_stlp`` (the pSTL draw each row is conditioned on) and
 
 The JAX package runs the whole optimization as one jitted ``lax.scan``;
 here it is a Python loop of ``iters`` steps, each a ``torch.autograd.grad``
-of :func:`trajopt_loss` and an Adam update written out in optax's order
-(``optax.adam`` on ``cosine_decay_schedule(3 * trajopt_lr, iters,
+of :func:`trajopt_loss` and an update of ``optim.Adam`` (``optax.adam``
+written out, on ``cosine_decay_schedule(3 * trajopt_lr, iters,
 alpha=0.02)``).  The learning rates, Adam's bias corrections and the
 annealed temperatures are float32 tables computed once on the host
 (:func:`schedules`).  The robustness is the ``ClauseBank``'s
@@ -28,16 +28,13 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from pstl_tpu_torch import specs
+from pstl_tpu_torch import optim, specs
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.device import resolve_device
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.train import to_device
 
 Tensor = torch.Tensor
-
-#: optax.adam's defaults
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def trajopt_loss(params: Tensor, states_flat: Tensor,
@@ -109,15 +106,12 @@ def schedules(cfg: Config, iters: int) -> Schedules:
     cosine = 0.5 * (1 + torch.cos(torch.tensor(np.pi, dtype=f32)
                                   * torch.clamp(count, max=steps) / steps))
     lr = (cfg.trajopt_lr * 3.0) * ((1 - 0.02) * cosine + 0.02)
-    k = torch.arange(1, iters + 1, dtype=f32)
-    bc1 = 1 - torch.tensor(ADAM_B1, dtype=f32) ** k
-    bc2 = 1 - torch.tensor(ADAM_B2, dtype=f32) ** k
+    bc1, bc2 = optim.bias_corrections(iters)
     tau_final = cfg.smoothing_factor
     tau_start = min(10.0, tau_final)
     frac = count / max(iters - 1, 1)
     tau = tau_start * torch.tensor(tau_final / tau_start, dtype=f32) ** frac
-    return Schedules(step=(-lr).numpy(), bc1=bc1.numpy(), bc2=bc2.numpy(),
-                     tau=tau.numpy())
+    return Schedules(step=(-lr).numpy(), bc1=bc1, bc2=bc2, tau=tau.numpy())
 
 
 def optimize(params0: Tensor, states: Tensor,
@@ -142,8 +136,7 @@ def optimize(params0: Tensor, states: Tensor,
     p = params0.reshape(n, cfg.nt, 2).detach()
     states_flat = states[:, None, None].expand(bs, M, 3, 4).reshape(n, 4)
     sch = schedules(cfg, iters)
-    mu = torch.zeros_like(p)
-    nu = torch.zeros_like(p)
+    adam = optim.Adam(p, -sch.step, iters)
     for i in range(iters):
         with torch.enable_grad():
             x = p.detach().requires_grad_(True)
@@ -152,12 +145,7 @@ def optimize(params0: Tensor, states: Tensor,
                                    stlp_draws=stlp_draws)
             g, = torch.autograd.grad(loss, x)
         with torch.no_grad():
-            # optax.scale_by_adam, then scale_by_schedule and apply_updates
-            mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
-            nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
-            u = (mu / float(sch.bc1[i])) / (
-                torch.sqrt(nu / float(sch.bc2[i])) + ADAM_EPS)
-            p = p + float(sch.step[i]) * u
+            p = adam.update(p, g, i)
         if on_iter is not None:
             on_iter(i)
     with torch.no_grad():

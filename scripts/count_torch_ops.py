@@ -13,7 +13,12 @@ Counts, under a ``TorchDispatchMode`` that skips views and metadata ops:
   under ``ours_guidance`` with ``guidance_pallas_fuse_freeze`` (99 denoise
   steps, 10 guided; each guided step's kernel call counts as one op, as it
   launches once on the card), and unguided under ``e7_ours``;
-- the untimed rows of one eval batch (``_trajopt_row``, ``_nn_metrics``).
+- the untimed rows of one eval batch (``_trajopt_row``, ``_nn_metrics``);
+- a closed-loop Table-II step (``sim.run_closed_loop_host(record=True)``)
+  under the heavy contract (route "2": 99 guided denoise steps) and under
+  ``ref_parity(open_loop=False)`` (10 guided), and one Adam iteration of
+  each loop of ``refine.py``: the backup solve (per call, whatever the
+  number of scenes), the convex refinement (K = 6) and the raw one.
 
 Widths are cut (2 scenes, 4 seeds, hidden 32): the op count of these paths
 does not depend on the widths, except the hull area's chunk loop, which
@@ -32,8 +37,10 @@ def main():
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from pstl_tpu_torch import diffusion, eval_openloop, specs, trajopt
-    from pstl_tpu_torch.config import PRESETS
+    from pstl_tpu_torch import diffusion, eval_openloop, refine, sim, specs
+    from pstl_tpu_torch import trajopt
+    from pstl_tpu_torch.config import PRESETS, bench_config
+    from pstl_tpu_torch.data import synthetic
     from pstl_tpu_torch.data.dataset import SceneDataset
     from pstl_tpu_torch.models.net import Net, init_flax_like
     from pstl_tpu_torch.ops import guidance_kernel as gk
@@ -89,6 +96,17 @@ def main():
 
     # the evaluation's regions
     real = gk.guidance_fused_plain
+
+    def kernel_as_one(c):
+        """The plain kernel, counted as the one launch it is on the card."""
+        def one_launch(*a):
+            c.paused += 1
+            try:
+                return real(*a)
+            finally:
+                c.paused -= 1
+                c.n += 1
+        return one_launch
     for preset, kw in (("ours_guidance",
                         {"guidance_pallas_fuse_freeze": True}),
                        ("e7_ours", {})):
@@ -103,16 +121,7 @@ def main():
         batch = to_device(eds.gather([0, 1]), "cpu")
         coeffs = diffusion.get_coeffs(ecfg)
         c = Count()
-
-        def one_launch(*a):
-            c.paused += 1
-            try:
-                return real(*a)
-            finally:
-                c.paused -= 1
-                c.n += 1
-
-        gk.guidance_fused_plain = one_launch
+        gk.guidance_fused_plain = kernel_as_one(c)
         try:
             with torch.no_grad(), c:
                 out = eval_openloop._sample_and_score(
@@ -132,6 +141,66 @@ def main():
               f"{int(diffusion._trigger_schedule(ecfg).sum())} guided): "
               f"timed region {timed} ops, trajopt row {rows}, metric tail "
               f"{tail}")
+
+
+    # the closed-loop Table-II step and the loops of refine.py
+    heavy = bench_config("heavy").with_(n_randoms=4, hiddens=(32, 32),
+                                        rect_hiddens=(32, 32))
+    data = synthetic.generate_dataset(777, 2, heavy, scene_len=38)
+    scenes = sim.scenes_from_dataset(data, device="cpu")
+    for name, cfg in (("heavy", heavy),
+                      ("ref_parity", heavy.ref_parity(open_loop=False))):
+        net = Net(cfg)
+        init_flax_like(net, torch.Generator().manual_seed(0))
+        coeffs = diffusion.get_coeffs(cfg)
+        c = Count()
+        gk.guidance_fused_plain = kernel_as_one(c)
+        try:
+            def run(steps):
+                return lambda: sim.run_closed_loop_host(
+                    0, scenes, cfg, net, coeffs, steps, record=True)
+            with c:
+                run(1)()
+            one = c.n
+            c.n = 0
+            with c:
+                run(2)()
+            per_step = c.n - one
+        finally:
+            gk.guidance_fused_plain = real
+        print(f"closed-loop step ({name}, "
+              f"{int(diffusion._trigger_schedule(cfg).sum())} of "
+              f"{cfg.diffusion_steps - 1} denoise steps guided, record=True):"
+              f" {per_step} ops")
+
+    cfg = heavy
+    obs = sim.observe(scenes, scenes.ego_full[:, 0],
+                      torch.zeros(2, dtype=torch.long), cfg)
+    n = 2 * cfg.n_randoms * 3
+    stlp = torch.as_tensor(sim.AGGRESSIVE_STLP)
+    dense = specs.densify_batch(obs, stlp.expand(2, 6), cfg,
+                                stlp.expand(n, 1, 6))
+    score_rows = specs.make_score_rows(obs, dense, cfg)
+    valid = dense["valids_dense"].reshape(-1)
+    states = torch.repeat_interleave(obs["ego_traj"][:, 0, :4],
+                                     cfg.n_randoms * 3, 0)
+    g = torch.Generator().manual_seed(0)
+    u = torch.randn((n, cfg.nt, 2), generator=g) * 0.3
+    steps = torch.randn((100, n, cfg.nt, 2), generator=g) * 0.3
+    traj = obs["ego_traj"][:, :3, :4]
+    nei = obs["neighbor_trajs_aug"][:, 0, :3]
+    loops = {
+        "backup solve": lambda k: lambda: refine.solve_backup(
+            traj, u[:2, :2], nei, cfg, n_iters=k),
+        "convex refinement (K=6)": lambda k: lambda: refine.convex_refinement(
+            u, steps, states, score_rows, valid, cfg, K=6, n_iters=k),
+        "raw refinement": lambda k: lambda: refine.raw_refinement(
+            u, states, score_rows, valid, cfg, n_iters=k),
+    }
+    for name, fn in loops.items():
+        print(f"{name}: {count(fn(2)) - count(fn(1))} ops an Adam "
+              f"iteration, {count(fn(1)) - (count(fn(2)) - count(fn(1)))} "
+              "outside the loop")
 
 
 if __name__ == "__main__":

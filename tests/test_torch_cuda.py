@@ -441,3 +441,51 @@ def test_eval_region_card_matches_cpu(dev):
         out.append(nn["scores"].cpu())
     assert gk.launches == before + int(diffusion._trigger_schedule(cfg).sum())
     assert float((out[1] - out[0]).abs().max()) <= chip_smoke.EVAL_SCORE_ATOL
+
+
+@pytest.mark.parametrize("n_iters,tol", [(50, 1e-4), (500, 1e-2)])
+def test_backup_solve_card_matches_cpu(dev, n_iters, tol):
+    """``refine.solve_backup`` on the card against the CPU on
+    ``torch_parity.backup_case``: after 50 Adam steps within 1e-4, after
+    the full 500 within the learning rate (``test_torch_refine``'s bounds
+    against the JAX package, and why)."""
+    import torch_parity
+    from pstl_tpu_torch import refine
+    from pstl_tpu_torch.config import Config
+    cfg = Config().finalize()
+    plan, u01, nei = (torch.as_tensor(a) for a in torch_parity.backup_case())
+    out = [refine.solve_backup(plan[:, 0:3].to(d), u01.to(d),
+                               nei[:, 0:3].to(d), cfg, n_iters=n_iters).cpu()
+           for d in ("cpu", dev)]
+    assert float((out[1] - out[0]).abs().max()) <= tol
+    assert float(out[0].abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("how", ["convex6", "convex8", "raw"])
+def test_refinement_card_matches_cpu(dev, how):
+    """The convex (K = 6, 8; 50 Adam steps) and raw (5) refinements on the
+    card against the CPU on ``torch_parity.refine_case`` (inputs on which
+    the loops are well conditioned): controls within 1e-4, the rows that
+    satisfy their spec untouched on both."""
+    import torch_parity
+    from pstl_tpu_torch import refine, specs
+    from pstl_tpu_torch.config import Config
+    cfg = Config(diffusion=True, n_randoms=4, n_neighbors=3,
+                 compute_dtype="float32", flex=True).finalize()
+    batch, stlp, states, valid, u, steps = torch_parity.refine_case(cfg)
+    out = []
+    for d in ("cpu", dev):
+        t = lambda a: torch.as_tensor(a).to(d)
+        scorer = specs.TiledScorer({k: t(v) for k, v in batch.items()},
+                                   t(stlp), cfg)
+        with torch.no_grad():
+            if how == "raw":
+                r = refine.raw_refinement(t(u), t(states), scorer, t(valid),
+                                          cfg)
+            else:
+                r = refine.convex_refinement(t(u), t(steps), t(states),
+                                             scorer, t(valid), cfg,
+                                             K=int(how[-1]))
+        out.append(r.cpu())
+    assert float((out[1] - out[0]).abs().max()) <= 1e-4
+    assert float((out[0] - torch.as_tensor(u)).abs().max()) > 0.05

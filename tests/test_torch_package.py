@@ -76,6 +76,26 @@ def test_config_fields_and_defaults_mirror_jax():
     assert jf == tf
 
 
+@pytest.mark.parametrize("open_loop", [False, True])
+@pytest.mark.parametrize("guidance", [True, False])
+def test_ref_parity_mirrors_jax(guidance, open_loop):
+    """Config.ref_parity gives, field for field, the JAX method's bundle,
+    from a configuration whose every reverted field is off its parity
+    value."""
+    flags = dict(diffusion=True, rect_head=True, diverse_loss=True,
+                 multi_cands=7, guidance=guidance, guidance_niters=3,
+                 guidance_before=40, guidance_lr=0.2, n_rolls=3, flex=True)
+    j = JConfig(**flags).finalize().with_(
+        forward_shield=True, env_nonnegative_speed=True,
+        sample_noise_scale=1.3, backup_niters=100)
+    t = TConfig(**j.to_dict())
+    want = j.ref_parity(open_loop=open_loop).to_dict()
+    assert t.ref_parity(open_loop=open_loop).to_dict() == want
+    assert t.ref_parity(open_loop).to_dict() != t.to_dict()
+    assert TConfig().ref_parity().to_dict() == JConfig().ref_parity(
+        ).to_dict()
+
+
 @pytest.mark.parametrize("mode", ["heavy", "parity", "parity_nog"])
 def test_bench_configs_finalize_equal(mode, monkeypatch):
     """bench.build_cfg(mode) (every BENCH_* knob unset) and the port's

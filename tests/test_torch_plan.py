@@ -97,10 +97,19 @@ def test_plan_step_matches_jax():
 
 
 def test_unported_planner_options_raise():
+    """The backup controller and the refinement options are accepted; the
+    VAE / BC planners, the init hint and the unported samplers raise by
+    name."""
     cfg = TConfig(**FLAGS).with_(guidance_pallas_fuse_freeze=True).finalize()
     tsim.check_supported(cfg)
     tsim.check_supported(cfg.with_(use_pallas_clearance=True))
     for kw in (dict(backup=True), dict(refinement=True),
-               dict(sampler="dpmpp")):
-        with pytest.raises(NotImplementedError):
+               dict(raw_refinement=True),
+               dict(refinement=True, lite_refine=True)):
+        tsim.check_supported(cfg.with_(**kw))
+    for kw, match in ((dict(sampler="dpmpp"), "dpmpp"),
+                      (dict(diffusion=False, vae=True), "VAE"),
+                      (dict(diffusion=False, bc=True), "BC"),
+                      (dict(use_init_hint=True), "use_init_hint")):
+        with pytest.raises(NotImplementedError, match=match):
             tsim.check_supported(cfg.with_(**kw))
