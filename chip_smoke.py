@@ -123,19 +123,41 @@ and no result line is printed:
    kernel 1 against its plain version on the ref_parity row's first guided
    step (bs 25, one Adam iteration, lr 0.04, the offset quirk on).
 
+25. card vs CPU for one dense baseline train step: ``e3_vae`` (the init
+   hint), ``e6_trafficsim`` (stl_weight 1, collision loss 1) and BC
+   (``e3_vae`` with ``vae=False, bc=True, use_init_hint=False``: the JAX
+   package has no BC preset), fp32, 8 scenes x 64 x 3 rows, full widths,
+   the same seeded draws: phase 16's tolerances, no kernel launch.
+26. the baselines' training at full width on phase 20's store (128 scenes
+   x 64 x 3 = 24,576 rows, bf16): 4 train steps and an eval step each of
+   e3, e6 and BC, the median step and peak device memory (e6's collision
+   loss materializes the geometry route's pair tensors), and an e6
+   checkpoint saved and loaded bit for bit as in phase 18.
+27. Table I's baseline rows with phase 22's protocol: vae_mono (phase 15's
+   e2 net with ``gt_data_training`` off), vae_aug, trafficsim and BC
+   (phase 26's nets: 4 steps of training make a wiring check, not a Table
+   result) and ctg (e5b_round5, guided on all 99 denoise steps with 3 Adam
+   iterations under ``guidance_pallas_fuse_freeze``: kernel 1 once per
+   denoise step of every batch and of the warm-up), kernel 1 against its
+   plain version on the ctg row's first guided step.
+28. Table II's baseline rows with phase 24's protocol: vae_aug and
+   trafficsim (phase 26's nets) and ctg (kernel 1 99 x 36 times), 36
+   steps each: the six columns, the median step, launches a step.
+
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's (kernel 1 on the closed loop's path, the
-ninth entry on the evaluation's and the tenth on the ref_parity Table-II
-row's) launches, error, times (``ms`` one eager call
-of its wrapper, ``graph_ms`` the kernel alone in a graph replay, see
-``kernel_ms``; ``plain_ms`` the plain version) and its bound: the
-larger of its bytes (each input read once, each output written once) over
-the card's 3.35 TB/s and its arithmetic over the peak of its operands'
-type, 989 TFLOP/s for bf16 and 67 TFLOP/s for float32 (counted from the
-shapes; see ``*_ops``); the last line is
+ninth entry on the evaluation's, the tenth on the ref_parity Table-II
+row's and the eleventh on the ctg Table-I row's) launches, error, times
+(``ms`` one eager call of its wrapper, ``graph_ms`` the kernel alone in a
+graph replay, see ``kernel_ms``; ``plain_ms`` the plain version) and its
+bound: the larger of its bytes (each input read once, each output written
+once) over the card's 3.35 TB/s and its arithmetic over the peak of its
+operands' type, 989 TFLOP/s for bf16 and 67 TFLOP/s for float32 (counted
+from the shapes; see ``*_ops``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -183,6 +205,14 @@ TABLE2_REF_UNSAFE = 2
 TABLE2_REF_M = 16
 TABLE2_REF_STEPS = 3
 TABLE2_REF_BACKUP_ITERS = 50
+#: the baselines (phases 25-28): (name, preset, overrides).  The JAX package
+#: has no BC preset, nor does the port: BC is e3_vae's recipe with the BC
+#: head in place of the VAE and no init hint
+BC_KW = {"vae": False, "bc": True, "use_init_hint": False}
+BASELINES = (("e3", "e3_vae", {}), ("e6", "e6_trafficsim", {}),
+             ("bc", "e3_vae", BC_KW))
+#: the baselines' train steps at full width (phase 26)
+BASELINE_STEPS = 4
 #: kernels of a trajopt iteration's device-time breakdown
 TOP_KERNELS = 8
 #: the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM,
@@ -1359,7 +1389,8 @@ def step_loop(dev, cfg, ds, steps, what):
 def mono_train_phase(dev):
     """Phase 15: one e2 epoch through ``train.train``, then train steps of
     the stl_weight 1 variant and of e4; returns the e2 epoch's clearance
-    launches (the main path's) and the dataset."""
+    launches (the main path's), the dataset and the e2 epoch's net (the
+    vae_mono row of phase 27)."""
     import torch
     from pstl_tpu_torch import train
     from pstl_tpu_torch.config import mono_config
@@ -1377,7 +1408,7 @@ def mono_train_phase(dev):
     torch.cuda.synchronize()
     reset_counts()
     t1 = time.time()
-    train.train(cfg, ds, epochs=1, device=dev, log=log, history=hist)
+    e2 = train.train(cfg, ds, epochs=1, device=dev, log=log, history=hist)
     torch.cuda.synchronize()
     wall = time.time() - t1
     counts = read_counts()
@@ -1401,7 +1432,7 @@ def mono_train_phase(dev):
     check_counts(c4, {"min_clearance_fwd": E4_STEPS}, "e4 train steps")
     log(f"mono training: median train step e2 {e2_step * 1e3:.1f} ms, e4 "
         f"{e4_step * 1e3:.1f} ms; phase wall {time.time() - t0:.1f} s")
-    return main_counts, ds
+    return main_counts, ds, e2.net
 
 
 # --------------------------------------------------------------------------
@@ -1444,7 +1475,8 @@ def with_gt_seed(batch, cfg):
 
 def dense_draws(cfg, bs, seed):
     """Every draw of one dense train step of ``bs`` scenes, seeded, on the
-    CPU: the flex uniforms, prep's noise and steps, the sampler's chain."""
+    CPU: the flex uniforms, prep's noise and steps, the sampler's chain and,
+    for the VAE, its latent noise."""
     import torch
     from pstl_tpu_torch import specs
     g = torch.Generator().manual_seed(seed)
@@ -1454,7 +1486,9 @@ def dense_draws(cfg, bs, seed):
             "prep_t": torch.randint(1, cfg.diffusion_steps, (n,),
                                     generator=g),
             "sample_noise": torch.randn(
-                (cfg.diffusion_steps, n, cfg.nt * 2), generator=g)}
+                (cfg.diffusion_steps, n, cfg.nt * 2), generator=g),
+            **({"vae_noise": torch.randn((n, cfg.vae_dim), generator=g)}
+               if cfg.vae else {})}
 
 
 def dense_step(cfg, net, batch, draws, dev):
@@ -1475,19 +1509,25 @@ def dense_step(cfg, net, batch, draws, dev):
                  ).detach().cpu() for k, p in net.named_parameters()})
 
 
-def dense_reference_phase(dev):
-    """Phase 16: one fp32 train step of e5_ddpm (random weights) and of
-    e7_ours (warm-started from e5b_round5) on the card against the same
-    step on the CPU, same weights, batch and draws, DENSE_REF_SCENES scenes
-    x 64 x 3 rows: every metric, every gradient; no kernel launches."""
+#: phase 16's steps: (name, preset, overrides).  e7 with the STL hinge on:
+#: at a fresh RefineNet head no row turns from violating to satisfying, so
+#: the DPP loss alone reaches no parameter
+DENSE_REF = (("e5_ddpm", "e5_ddpm", {}),
+             ("e7_ours", "e7_ours", {"stl_weight": 1.0}))
+
+
+def dense_reference_phase(dev, steps=DENSE_REF, what="dense reference"):
+    """Phase 16 (and 25 with the baselines' ``steps``): one fp32 train step
+    of each (name, preset, overrides) on the card against the same step on
+    the CPU, same weights (flax-like from a seed; e7 warm-started from
+    e5b_round5), batch and draws, DENSE_REF_SCENES scenes x 64 x 3 rows:
+    every metric, every gradient; no kernel launches."""
     import numpy as np
     import torch
     from pstl_tpu_torch.data.dataset import SceneDataset
 
     t0 = time.time()
-    # e7 with the STL hinge on: at a fresh RefineNet head no row turns from
-    # violating to satisfying, so the DPP loss alone reaches no parameter
-    for preset, kw in (("e5_ddpm", {}), ("e7_ours", {"stl_weight": 1.0})):
+    for name, preset, kw in steps:
         cfg = dense_config(preset, compute_dtype="float32",
                            batch_size=DENSE_REF_SCENES, **kw)
         ds = SceneDataset.from_synthetic(cfg, seed=5, n_scenes=cfg.batch_size)
@@ -1500,19 +1540,20 @@ def dense_reference_phase(dev):
         reset_counts()
         m_dev, g_dev = dense_step(cfg, net, batch, draws, dev)
         torch.cuda.synchronize()
-        check_counts(read_counts(), {}, f"{preset} reference step")
+        check_counts(read_counts(), {}, f"{name} reference step")
         m_err = max(abs(m_dev[k] - m_cpu[k]) / (abs(m_cpu[k]) + 1e-6)
                     for k in m_cpu)
         g_err = grad_err(g_dev, g_cpu)
-        log(f"dense reference step ({preset}, fp32, {cfg.batch_size} scenes "
-            f"x {cfg.n_randoms * 3} rows): card loss {m_dev['loss']:.6f} vs "
+        log(f"{what} step ({name}, fp32, {cfg.batch_size} scenes x "
+            f"{cfg.n_randoms * 3} rows): card loss {m_dev['loss']:.6f} vs "
             f"cpu {m_cpu['loss']:.6f}; worst metric rel err {m_err:.3e} "
             f"(tolerance {DENSE_RTOL}); worst gradient err {g_err:.3e} of "
             f"its tensor's largest entry (tolerance {DENSE_GRAD_TOL}); "
+            f"kernel launches 0; "
             + " ".join(f"{k}={v:.5f}" for k, v in sorted(m_dev.items())))
         if not (m_err <= DENSE_RTOL and g_err <= DENSE_GRAD_TOL):
-            raise RuntimeError(f"card and cpu {preset} train steps disagree")
-    log(f"dense reference: phase wall {time.time() - t0:.1f} s")
+            raise RuntimeError(f"card and cpu {name} train steps disagree")
+    log(f"{what}: phase wall {time.time() - t0:.1f} s")
 
 
 def dense_loop(dev, cfg, net, ds, steps, what):
@@ -1594,24 +1635,25 @@ def dense_train_phase(dev, ds, name_power):
         f"{time.time() - t0:.1f} s")
 
 
-def dense_checkpoint_phase(dev, ds):
-    """Phase 18: two e7 train steps, a checkpoint, a fresh net and Adam
-    loaded from it (parameters, moments and step count equal bit for bit),
-    then one more step from each on the same batch and draws."""
+def dense_checkpoint_phase(dev, ds, preset="e7_ours"):
+    """Phase 18 (and 26 with ``e6_trafficsim``): two train steps, a
+    checkpoint, a fresh net and Adam loaded from it (parameters, moments
+    and step count equal bit for bit), then one more step from each on the
+    same batch and draws.  e7 is warm-started from e5b_round5."""
     import shutil
     import torch
     from pstl_tpu_torch import diffusion, specs, train
     from pstl_tpu_torch.data.dataset import batch_iterator
 
     t0 = time.time()
-    cfg = dense_config("e7_ours")
+    cfg = dense_config(preset)
     formulas = specs.build_scorer(cfg)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
 
     def state_of(net):
         return train.TrainState(net, train.make_optimizer(cfg, net), 0)
 
-    state = state_of(dense_net(cfg, dev, seed=3, warm=True))
+    state = state_of(dense_net(cfg, dev, seed=3, warm=cfg.rect_head))
     batches = [train.to_device(b, dev) for _, b in zip(
         range(3), batch_iterator(ds, "train", cfg.batch_size, shuffle=False))]
     step = train.make_train_step(cfg, state.net, formulas, coeffs, state.opt)
@@ -1649,7 +1691,7 @@ def dense_checkpoint_phase(dev, ds):
     p_diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
         state.net.parameters(), loaded.net.parameters()))
     m_diff = max(abs(out[0][k] - out[1][k]) for k in out[0])
-    log(f"dense checkpoint: {os.path.getsize(path)} bytes, parameters, "
+    log(f"{preset} checkpoint: {os.path.getsize(path)} bytes, parameters, "
         f"{n_moments} Adam moments and the step count equal bit for bit "
         f"after loading into a fresh net; the next step from both: metrics "
         f"differ by {m_diff:.3e}, parameters by {p_diff:.3e} (tolerance "
@@ -2086,12 +2128,14 @@ def recorded_kernel1(args, where):
 # the closed-loop Table-II evaluation (phases 23-24)
 # --------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def table2_data(cfg, n_keep=TABLE2_SCENES):
     """``scripts/closed_loop_eval.py``'s held-out scenes as a numpy dataset:
     synthetic seed 777, 2 x 25 scenes at scene_len 38, the pre-check (mean
     GT speed >= 1 m/s), the first ``n_keep`` kept, with their drivable
     rasters made once (``sim.scenes_from_dataset`` rasterizes a synthetic
-    scene's corridor, ~0.5 s a scene on the host)."""
+    scene's corridor, ~0.5 s a scene on the host), once per (cfg, n_keep)
+    a run."""
     import numpy as np
     from pstl_tpu_torch import sim
     from pstl_tpu_torch.data import synthetic
@@ -2438,6 +2482,189 @@ def table2_phase(dev, name_power):
     return launches, err, ms, plain_ms, bnd
 
 
+# --------------------------------------------------------------------------
+# the baselines: VAE, TrafficSim, BC and CTG (phases 25-28)
+# --------------------------------------------------------------------------
+
+def baseline_train_phase(dev, store, name_power):
+    """Phase 26: BASELINE_STEPS train steps and an eval step of each of
+    BASELINES at full width on phase 20's store (128 scenes x 64 x 3 =
+    24,576 rows, bf16), from a seed; no kernel may launch.  The median
+    step, the peak device memory (e6's hinge backward runs the
+    ``TiledScorer``'s recompute VJP and its collision loss materializes the
+    (n, K, T, nL, nW) pair tensors of the geometry route) and finite
+    metrics; then an e6 checkpoint saved and loaded (phase 18's checks).
+    Returns the trained nets by name."""
+    import torch
+
+    t0 = time.time()
+    nets = {}
+    for name, preset, kw in BASELINES:
+        cfg = dense_config(preset, **kw)
+        net = dense_net(cfg, dev, seed=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        med, _ = dense_loop(dev, cfg, net, store, BASELINE_STEPS,
+                            f"{name} train steps")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"{name} training ({preset}, {cfg.batch_size} scenes x "
+            f"{cfg.n_randoms * 3} rows, {cfg.compute_dtype}): median train "
+            f"step {med * 1e3:.1f} ms, peak device memory {peak:.2f} GiB; "
+            f"{name_power}")
+        nets[name] = net
+    dense_checkpoint_phase(dev, store, "e6_trafficsim")
+    log(f"baseline training: phase wall {time.time() - t0:.1f} s")
+    return nets
+
+
+def eval_net(cfg, src, dev):
+    """A net of ``cfg`` on ``dev`` holding ``src``'s parameters (a net reads
+    its own config: a mono-trained net evaluates its multi-candidate
+    rows)."""
+    from pstl_tpu_torch.models.net import Net
+    net = Net(cfg)
+    net.load_state_dict(src.state_dict())
+    return net.to(dev).eval()
+
+
+def e5b_net(cfg, dev):
+    """The committed e5b_round5 DDPM base (strict) in a net of ``cfg``."""
+    from pstl_tpu_torch.models import convert
+    from pstl_tpu_torch.models.net import Net
+    net = Net(cfg)
+    convert.load_weights(net, "e5b_round5")
+    return net.to(dev).eval()
+
+
+def table1_baseline_phase(dev, store, nets, name_power):
+    """Phase 27: Table I's baseline rows with phase 22's protocol on the
+    store's val split: vae_mono (phase 15's e2 net, ``gt_data_training``
+    off as ``scripts/e2e_pipeline.py`` evaluates it), vae_aug (e3),
+    trafficsim (e6) and BC from phase 26, and ctg (e5b_round5, guided on
+    every denoise step under ``guidance_pallas_fuse_freeze``: kernel 1 on
+    every denoise step of every batch and of the warm-up; the VAE / BC rows
+    launch nothing).  Kernel 1 against its plain version on the ctg row's
+    first guided step.  Returns kernel 1's record numbers."""
+    import math
+    import torch
+    from pstl_tpu_torch import diffusion, eval_openloop
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    t0 = time.time()
+    rows = (("vae_mono", "e2_vae_mono", {"gt_data_training": False}, "e2"),
+            ("vae_aug", "e3_vae", {}, "e3"),
+            ("trafficsim", "e6_trafficsim", {}, "e6"),
+            ("bc", "e3_vae", BC_KW, "bc"),
+            ("ctg", "ctg", {"guidance_pallas_fuse_freeze": True}, None))
+    ctg = None
+    for what, preset, kw, src in rows:
+        cfg = eval_config(preset, **kw)
+        net = e5b_net(cfg, dev) if src is None else eval_net(cfg, nets[src],
+                                                             dev)
+        n_batches = min(math.ceil(store.split_len("val") / cfg.batch_size),
+                        cfg.n_trials + 1)
+        guided = (int(diffusion._trigger_schedule(cfg).sum())
+                  if cfg.guidance else 0)
+        times = []
+        torch.cuda.synchronize()
+        reset_counts()
+        with Recorder(gk, "guidance_fused") as rec:
+            out = eval_openloop.run(cfg, store, net, log=lambda *a: None,
+                                    device=dev, times=times)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = guided * (n_batches + 1)
+        check_counts(counts, {"guidance_fused": want} if want else {},
+                     f"Table I {what}")
+        check_finite(out, f"Table I {what}")
+        weights = ("e5b_round5 weights" if src is None else
+                   f"phase {15 if src == 'e2' else 26}'s {src} net: a "
+                   f"wiring check, not a Table result")
+        log(f"Table I {what} ({preset}, {weights}; {n_batches} val batches "
+            f"of {cfg.batch_size} scenes x {cfg.sampling_size} x 3): "
+            f"success={out['nn_scene_acc']:.4f} "
+            f"compliance={out['nn_acc']:.4f} area={out['nn_area']:.4f} "
+            f"entropy={out['nn_ent_ent_s']:.4f}; "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(out.items())))
+        log(f"Table I {what}: timed sampling region per batch "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times)
+            + f" ms (median {median(times) * 1e3:.1f}); kernel 1 launches "
+            f"{counts['guidance_fused']} = {guided} x {n_batches + 1}; "
+            f"{name_power}")
+        if src is None:
+            ctg = (counts["guidance_fused"], rec.calls[0][0])
+    launches, args = ctg
+    err, ms, plain_ms, bnd = recorded_kernel1(args, "the ctg Table-I row")
+    log(f"kernel 1 on the ctg Table-I row: launches {launches}; phase wall "
+        f"{time.time() - t0:.1f} s")
+    return launches, err, ms, plain_ms, bnd
+
+
+def table2_baseline_phase(dev, nets, name_power):
+    """Phase 28: Table II's baseline rows with phase 24's protocol (seed
+    777, the first 25 held-out scenes that pass the pre-check, scene_len
+    38, ``run_closed_loop_host(record=True)``, M 64, TABLE2_STEPS steps):
+    vae_aug and trafficsim with phase 26's nets (a wiring check), ctg with
+    e5b_round5 under ``guidance_pallas_fuse_freeze`` (kernel 1 on all 99
+    denoise steps of every step run; the VAE rows launch nothing).  Per
+    row the six Table-II columns, the median step and, profiled apart on
+    one more step, the device launches of a step.  Returns ctg's kernel 1
+    launches."""
+    import numpy as np
+    import torch
+    from pstl_tpu_torch import diffusion, sim
+    from pstl_tpu_torch.config import bench_config
+
+    t0 = time.time()
+    data = table2_data(bench_config("heavy"))
+    rows = (("vae_aug", dense_config("e3_vae"), nets["e3"]),
+            ("trafficsim", dense_config("e6_trafficsim"), nets["e6"]),
+            ("ctg", dense_config("ctg", guidance_pallas_fuse_freeze=True
+                                 ).finalize(), None))
+    ctg_launches = None
+    for what, cfg, src in rows:
+        t_row = time.time()
+        net = e5b_net(cfg, dev) if src is None else eval_net(cfg, src, dev)
+        coeffs = diffusion.get_coeffs(cfg, device=dev)
+        scenes = table2_scenes(data, dev)
+        guided = (int(diffusion._trigger_schedule(cfg).sum())
+                  if cfg.guidance else 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        out = sim.run_closed_loop_host(0, scenes, cfg, net, coeffs,
+                                       TABLE2_STEPS, record=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        hist = out["history"]
+        ran = len(hist["step_s"])
+        check_counts(counts, {"guidance_fused": guided * ran} if guided
+                     else {}, f"Table II {what}")
+        if guided:
+            ctg_launches = counts["guidance_fused"]
+        vals = {k: float(v.float().mean()) if torch.is_tensor(v) else v
+                for k, v in out.items() if k != "history"}
+        vals["area"] = float(out["area"])
+        check_finite(vals, f"Table II {what}")
+        if not np.isfinite(np.stack(hist["ego"])).all():
+            raise RuntimeError(f"Table II {what}: ego history not finite")
+        launches = step_launches(scenes, cfg, net, coeffs, None)
+        log(f"Table II {what} ({scenes.ego_full.shape[0]} scenes x "
+            f"{cfg.n_randoms} x 3, {ran} of {TABLE2_STEPS} steps, "
+            + ("e5b_round5 weights" if src is None else
+               "phase 26's net: a wiring check, not a Table result")
+            + f"): compliance={vals['stl_acc']:.4f} area={vals['area']:.4f} "
+            f"progress={vals['progress']:.3f} collision="
+            f"{vals['collide']:.4f} out_of_lane={vals['out_of_lane']:.4f} "
+            f"mean_traj_len={vals['traj_len']:.2f}; median step "
+            f"{median(hist['step_s']) * 1e3:.1f} ms (first "
+            f"{hist['step_s'][0] * 1e3:.1f} ms), {launches:.0f} device "
+            f"launches a step (profiled apart); kernel 1 launches "
+            f"{counts['guidance_fused']} = {guided} x {ran}; row wall "
+            f"{time.time() - t_row:.1f} s; {name_power}")
+    log(f"Table II baselines: phase wall {time.time() - t0:.1f} s")
+    return ctg_launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "pstl_tpu_torch")):
         print("chip_smoke.py: the pstl_tpu_torch package is not beside this "
@@ -2509,7 +2736,7 @@ def main():
 
     clear = clearance_phase(dev)
     mono_reference_phase(dev)
-    mono_counts, ds = mono_train_phase(dev)
+    mono_counts, ds, e2_net = mono_train_phase(dev)
     dense_reference_phase(dev)
     dense_train_phase(dev, ds, name_power)
     dense_checkpoint_phase(dev, ds)
@@ -2533,6 +2760,21 @@ def main():
     t2_launches, t2_err, t2_ms, t2_plain_ms, t2_bound = table2_phase(
         dev, name_power)
     log(f"phase 24 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    dense_reference_phase(dev, BASELINES, "baseline reference")
+    log(f"phase 25 wall {time.time() - t_ph:.1f} s; {name_power}")
+    t_ph = time.time()
+    nets = dict(baseline_train_phase(dev, store, name_power), e2=e2_net)
+    log(f"phase 26 wall {time.time() - t_ph:.1f} s; {name_power}")
+    t_ph = time.time()
+    cg_launches, cg_err, cg_ms, cg_plain_ms, cg_bound = \
+        table1_baseline_phase(dev, store, nets, name_power)
+    log(f"phase 27 wall {time.time() - t_ph:.1f} s; {name_power}")
+    t_ph = time.time()
+    cg2_launches = table2_baseline_phase(dev, nets, name_power)
+    log(f"phase 28 wall {time.time() - t_ph:.1f} s; kernel 1 on the ctg "
+        f"rows: {cg_launches} launches on Table I, {cg2_launches} on Table "
+        f"II; {name_power}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there
@@ -2566,7 +2808,9 @@ def main():
         entry(fused, "guidance_fused.cu", at + "396", ev_launches, ev_err,
               ev_ms, ev_plain_ms, ev_bound),
         entry(fused, "guidance_fused.cu", at + "396", t2_launches, t2_err,
-              t2_ms, t2_plain_ms, t2_bound)]}),
+              t2_ms, t2_plain_ms, t2_bound),
+        entry(fused, "guidance_fused.cu", at + "396", cg_launches, cg_err,
+              cg_ms, cg_plain_ms, cg_bound)]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@
    the candidate-minor route as the planner builds it (``maximize=False``:
    the hinge threshold is ``stl_nn_thres``) or unguided row-major,
    multi-cands selection, RefineNet and ``n_rolls`` re-rectifications, the
-   convex refinement under ``cfg.refinement`` (K = 8), the final rollout
-   and scores;
+   convex refinement under ``cfg.refinement`` (K = 8); or, for the
+   baselines, the VAE decoder on a prior latent or the BC head (the init
+   hint of ``e3_vae`` is the store's ``params_init`` column); then the
+   final rollout and scores;
 3. the untimed metric tail (:func:`_nn_metrics`): std, hull area, min-ADE /
    FDE, entropies, occupancy area, label breakdown.
 
@@ -22,8 +24,7 @@ same thing, as the JAX package's two calls under one key do.  The functions
 take them as arguments (``flex``, ``noise``), so tests can hand in the JAX
 package's own.
 
-Refused by name: ``viz_dir`` (``viz.py`` is not ported), and the VAE and
-BC heads, which the dense training step refuses too.
+Refused by name: ``viz_dir`` (``viz.py`` is not ported).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from pstl_tpu_torch import diffusion, metrics, refine, specs
+from pstl_tpu_torch import diffusion, metrics, refine, sim, specs
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
 from pstl_tpu_torch.device import resolve_device
@@ -51,11 +52,14 @@ RUN_METRICS = ("acc", "scene_acc", "ade", "fde", "std", "vol", "ent_ent_s",
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for evaluation configurations the port does not run."""
-    if not cfg.diffusion:
-        raise NotImplementedError("the VAE and BC heads are not ported for "
-                                  "dense rows (nor is their training step)")
-    diffusion.check_supported(cfg)
+    """Raise for evaluation configurations that cannot sample: the
+    evaluation needs a diffusion, VAE or BC head (the JAX package's fails
+    on the headless policy), and a sampler the port runs."""
+    if not (cfg.diffusion or cfg.vae or cfg.bc):
+        raise NotImplementedError("the evaluation needs a diffusion, VAE or "
+                                  "BC head")
+    if cfg.diffusion:
+        diffusion.check_supported(cfg)
 
 
 def _trajopt_row(net: Net, batch: Dict[str, Tensor], cfg: Config, formulas,
@@ -111,11 +115,12 @@ def _sample_and_score(net: Net, batch: Dict[str, Tensor], cfg: Config,
     (scene, maneuver), the reverse pass (guided: candidate-minor with
     ``make_guidance_loss`` and ``make_cm_eps_fn``, ``maximize=False``;
     unguided: row-major with the network's diffusion forward), multi-cands,
-    RefineNet and ``n_rolls``, the final rollout and scores.  ``flex``: the
-    densify draw; ``noise``: the sampler's draws in its layout (see
-    ``diffusion.reverse_sample``); what is not given comes from
-    ``generator``.  Returns (nn, controls (N, nt, 2), trajs (N, nt+1, 4),
-    valid (N,))."""
+    RefineNet and ``n_rolls``, or the VAE / BC decoder, then the final
+    rollout and scores.  ``flex``: the densify draw; ``noise``: the
+    sampler's draws in its layout (see ``diffusion.reverse_sample``) or the
+    VAE's prior latent (N, vae_dim) (``draw_shape``); what is not given
+    comes from ``generator``.  Returns (nn, controls (N, nt, 2), trajs
+    (N, nt+1, 4), valid (N,))."""
     check_supported(cfg)
     S = cfg.sampling_size
     batch = attach_neighbors(batch, cfg)
@@ -146,6 +151,12 @@ def _sample_and_score(net: Net, batch: Dict[str, Tensor], cfg: Config,
 
     # the scene feature, tiled to the N candidate rows
     feature = torch.repeat_interleave(net.encode(dense), S * 3, 0)
+    if not cfg.diffusion:
+        nn_controls = sim.decode_baseline(net, dense, feature, cfg, noise,
+                                          generator, n_randoms=S)
+        (scores, acc, scene_acc), nn_trajs = score_controls(nn_controls)
+        nn = {"acc": acc, "scene_acc": scene_acc, "scores": scores}
+        return nn, nn_controls, nn_trajs, valid
     fused = (specs.make_guidance_loss(batch, dense, cfg, states, valid,
                                       n_randoms=S)
              if cfg.guidance else None)
@@ -227,6 +238,17 @@ def sampler_shape(cfg: Config, bs: int):
     return (bs * R, cfg.nt * 2)
 
 
+def draw_shape(cfg: Config, bs: int):
+    """The shape of ``_sample_and_score``'s ``noise`` for ``bs`` scenes: the
+    sampler's (diffusion_steps, *sampler_shape), the VAE's prior latent
+    (bs*3*S, vae_dim), or None (the BC head draws nothing)."""
+    if cfg.diffusion:
+        return (cfg.diffusion_steps,) + sampler_shape(cfg, bs)
+    if cfg.vae:
+        return (bs * 3 * cfg.sampling_size, cfg.vae_dim)
+    return None
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -263,7 +285,6 @@ def run(cfg: Config, ds: SceneDataset, net: Net,
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed + 123)
     n_trials = n_trials if n_trials is not None else cfg.n_trials
-    T = cfg.diffusion_steps
     warmed = False
     for bi, b in enumerate(batch_iterator(ds, "val", cfg.batch_size,
                                           shuffle=False, drop_last=False)):
@@ -273,8 +294,9 @@ def run(cfg: Config, ds: SceneDataset, net: Net,
         bs = batch["ego_traj"].shape[0]
         tj_flex = specs.flex_uniforms(bs, gen, dev)
         flex = specs.flex_uniforms(bs, gen, dev)
-        noise = torch.randn((T,) + sampler_shape(cfg, bs), generator=gen,
-                            device=dev)
+        shape = draw_shape(cfg, bs)
+        noise = (torch.randn(shape, generator=gen, device=dev)
+                 if shape is not None else None)
         tj = _trajopt_row(net, batch, cfg, formulas, flex=tj_flex)
 
         def sample():

@@ -1,11 +1,11 @@
 """Training losses (port of ``pstl_tpu/losses.py``): the STL hinge, the
 epsilon-prediction MSE (masked to STL-satisfying rows under
 ``stl_bc_mask``), the DPP diversity loss over candidate shards, the
-RefineNet stay-close regularizer and the TrafficSim collision loss.
+RefineNet stay-close regularizer, the dense VAE's reconstruction and KL
+terms, the BC MSE and the TrafficSim collision loss.
 
 The mono training step (``train.py``) computes its VAE reconstruction and
-KL terms inline, as the JAX package does.  Not ported: the dense VAE and BC
-losses (``vae_losses``, ``bc_mse``), whose heads the port does not run.
+KL terms inline, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -99,6 +99,43 @@ def rect_reg(rect_controls: Tensor, nn_controls: Tensor, scores: Tensor,
              + torch.mean(torch.relu(
                  (rect_controls[..., 1] / cfg.mul_a_max) ** 2 - 1)))
     return reg, extra * cfg.extra_rect_reg
+
+
+def _target_mse(nn_controls: Tensor, dense_controls: Tensor,
+                dense_scores: Tensor, dense_valids: Tensor,
+                cfg: Config) -> Tensor:
+    """The squared control error to the trajopt targets over the first
+    nt - 1 steps, averaged over every row or, under ``stl_bc_mask``, over
+    the valid rows whose targets satisfy the spec (score > 0)."""
+    nnf = nn_controls.reshape(-1, cfg.nt, 2)
+    dcf = dense_controls.reshape(-1, cfg.nt, 2)
+    sq = torch.square(nnf[:, :-1, :2] - dcf[:, :-1, :2])
+    if cfg.stl_bc_mask:
+        m = (dense_scores.reshape(-1) * dense_valids.reshape(-1) > 0)
+        return mask_mean(sq, m.to(sq.dtype)[:, None, None])
+    return torch.mean(sq)
+
+
+def vae_losses(nn_controls: Tensor, dense_controls: Tensor, latent_stats,
+               dense_scores: Tensor, dense_valids: Tensor,
+               cfg: Config) -> Tuple[Tensor, Tensor]:
+    """The dense VAE's (reconstruction, KL): the target MSE times
+    ``weight_vae_bc`` and ``bc_weight``, and the KL of the latent's
+    (mean, logstd, std) to N(0, 1) times ``weight_vae_kl``."""
+    mean, logstd, std = latent_stats
+    recon = _target_mse(nn_controls, dense_controls, dense_scores,
+                        dense_valids, cfg) * cfg.weight_vae_bc
+    recon = recon * cfg.bc_weight
+    kl = (-0.5 * torch.mean(1 + 2 * logstd - mean * mean - std * std)
+          ) * cfg.weight_vae_kl
+    return recon, kl
+
+
+def bc_mse(nn_controls: Tensor, dense_controls: Tensor, dense_scores: Tensor,
+           dense_valids: Tensor, cfg: Config) -> Tensor:
+    """The BC head's target MSE times ``bc_weight``."""
+    return _target_mse(nn_controls, dense_controls, dense_scores,
+                       dense_valids, cfg) * cfg.bc_weight
 
 
 def collision(min_centroid_d: Tensor, radius_sum: Tensor,

@@ -5,11 +5,12 @@ Dtypes follow the flax model: fp32 parameters, matmuls in the compute dtype
 (``cfg.compute_dtype``, bf16 by default) with the input, weight and bias
 cast to it, ReLU in the compute dtype, fp32 out of every MLP.  The matmul
 and the bias add are separate ops (two roundings in bf16), as in flax's
-``Dense``.  The diffusion head runs both its inputs: the multi-candidate
-rows of the planner and the per-scene (``gt_data_training``, "mono") rows
-of training; the VAE head runs the mono rows.  :func:`init_flax_like` draws
-fresh parameters as flax's ``Dense`` does.  Not ported yet: the BC head,
-the VAE's multi-candidate (trajopt) inputs and the init hint.
+``Dense``.  Every head of the JAX package runs: the diffusion head, the VAE
+(on the per-scene ``gt_data_training`` "mono" rows, on the multi-candidate
+rows with their trajopt controls, or from a prior latent ``sample``), the
+BC head and the headless policy, each with the init-hint input under
+``use_init_hint``.  :func:`init_flax_like` draws fresh parameters as flax's
+``Dense`` does.
 """
 
 from __future__ import annotations
@@ -97,16 +98,6 @@ class Net(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.bc or not (cfg.diffusion or cfg.vae):
-            raise NotImplementedError(
-                "the torch port has the diffusion and VAE heads only (the "
-                "BC head is not ported yet)")
-        if cfg.vae and not cfg.diffusion and not cfg.gt_data_training:
-            raise NotImplementedError(
-                "the VAE head runs on the mono (gt_data_training) inputs "
-                "only; its multi-candidate trajopt inputs are not ported")
-        if cfg.use_init_hint:
-            raise NotImplementedError("the init-hint inputs are not ported")
         self.cfg = cfg
         h = tuple(cfg.hiddens)
         dt = compute_dtype(cfg)
@@ -159,19 +150,25 @@ class Net(nn.Module):
     def forward(self, batch: Dict[str, Tensor], ext: Dict[str, Tensor],
                 prev_feature: Optional[Tensor] = None,
                 n_randoms: Optional[int] = None,
-                get_feature: bool = False):
+                get_feature: bool = False,
+                sample: Optional[Tensor] = None):
         """Policy forward (``pstl_tpu.models.net.Net.__call__``).
 
-        Multi-candidate rows (the planner): the scene feature is tiled to
-        bs * n_randoms * 3 rows and ``stlp_dense`` supplies the pSTL
-        parameters; ext: timestep (n, 1), highlevel (n, 1), noise
-        (n, nt*2).  Mono rows (``gt_data_training``): the per-scene feature,
-        ext["highlevel"] (bs, 1) and ext["gt_stlp"] (bs, 6) are tiled to
-        n = bs * n_randoms rows; the diffusion head takes timestep and noise
-        per row, the VAE head gt_controls (bs, nt, 2) and its latent noise
-        (n, vae_dim).  Diffusion returns the epsilon prediction (n, nt, 2)
-        (and the feature with ``get_feature``); the VAE returns tanh-bounded
-        controls and (mean, logstd, std) of its latent.
+        Multi-candidate rows (the planner, the dense step): the scene
+        feature is tiled to bs * n_randoms * 3 rows and ``stlp_dense``
+        supplies the pSTL parameters; mono rows (``gt_data_training``): the
+        per-scene feature, ext["highlevel"] (bs, 1) and ext["gt_stlp"]
+        (bs, 6) are tiled to n = bs * n_randoms rows.  ext per head:
+        diffusion timestep (n, 1), highlevel, noise (n, nt*2); VAE
+        highlevel and its latent noise (n, vae_dim) with
+        ext["trajopt_controls"] (n, nt, 2) (multi) or ext["gt_controls"]
+        (bs, nt, 2) (mono) to encode, or the latent itself as ``sample``;
+        BC highlevel; the headless policy reads batch["gt_high_level"].
+        Under ``use_init_hint`` batch["params_init"] (a control seed a row)
+        joins the input.  Diffusion returns the epsilon prediction
+        (n, nt, 2) (and the feature with ``get_feature``); the others
+        tanh-bounded controls, the VAE with (mean, logstd, std) of its
+        latent ((None,) * 3 from ``sample``).
         """
         cfg = self.cfg
         multi = cfg.multi_check
@@ -195,16 +192,34 @@ class Net(nn.Module):
                 pin = torch.cat([tile(feature), ext["noise"], time_feat,
                                  tile(ext["highlevel"]), tile(stlp_feat)],
                                 -1)
+        elif cfg.bc:
+            pin = torch.cat([feature, ext["highlevel"], stlp_feat], -1)
+        elif cfg.vae:
+            if sample is not None:
+                latent = sample
+                feat, hl, stlp = feature, ext["highlevel"], stlp_feat
+            else:
+                if multi:
+                    code = self.traj_encoder(
+                        ext["trajopt_controls"].reshape(-1, cfg.nt * 2))
+                    feat, hl, stlp = feature, ext["highlevel"], stlp_feat
+                else:
+                    code = tile(self.traj_encoder(
+                        ext["gt_controls"].reshape(-1, cfg.nt * 2)))
+                    feat, hl, stlp = (tile(feature), tile(ext["highlevel"]),
+                                      tile(stlp_feat))
+                mean = code[..., :cfg.vae_dim]
+                logstd = code[..., cfg.vae_dim:]
+                std = torch.exp(logstd)
+                latent = ext["noise"] * std + mean
+                latent_stats = (mean, logstd, std)
+            pin = torch.cat([feat, latent, hl, stlp], -1)
         else:
-            code = tile(self.traj_encoder(
-                ext["gt_controls"].reshape(-1, cfg.nt * 2)))
-            mean = code[..., :cfg.vae_dim]
-            logstd = code[..., cfg.vae_dim:]
-            std = torch.exp(logstd)
-            latent = ext["noise"] * std + mean
-            latent_stats = (mean, logstd, std)
-            pin = torch.cat([tile(feature), latent, tile(ext["highlevel"]),
-                             tile(stlp_feat)], -1)
+            pin = torch.cat([feature, batch["gt_high_level"], stlp_feat], -1)
+        if cfg.use_init_hint:
+            hint = batch["params_init"].reshape(pin.shape[:-1]
+                                                + (cfg.nt * 2,))
+            pin = torch.cat([pin, hint], -1)
         raw = self.policy_net(pin)
         if cfg.diffusion:
             controls = (raw + ext["noise"]).reshape(-1, cfg.nt, 2)
@@ -303,11 +318,11 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
     """Candidate-minor epsilon predictor for the DDPM reverse loop.
 
     Layer 1 of the policy MLP is linear, so it splits by input block: the
-    feature / highlevel / stlp contribution ``base`` is computed
-    once per plan and laid out candidate-minor (bs, h1, R); the timestep
-    embedding gives one (h1,) vector per denoise step; only the noise block
-    depends on x.  Returns ``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` with
-    r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout); its
+    feature / highlevel / stlp (and init-hint) contribution ``base`` is
+    computed once per plan and laid out candidate-minor (bs, h1, R); the
+    timestep embedding gives one (h1,) vector per denoise step; only the
+    noise block depends on x.  Returns ``eps_cm(x_cm (bs, nt, 2, R), t) ->
+    eps`` with r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout); its
     ``operands`` dict holds the pieces for the superstep kernel.
     """
     layers = net.policy_net.layers
@@ -327,6 +342,9 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
             + highlevel.to(dt) @ W1[o:o + 1].to(dt)
             + stlp_feat.to(dt) @ W1[o + 1:o + 1 + Net.STLP_DIM].to(dt)
             + bias[0].to(dt))
+    if cfg.use_init_hint:
+        hint = batch["params_init"].reshape(-1, D)
+        base = base + hint.to(dt) @ W1[o + 1 + Net.STLP_DIM:].to(dt)
     h1 = base.shape[-1]
     base_cm = base.reshape(bs, M, 3, h1).permute(0, 3, 2, 1).reshape(
         bs, h1, R)

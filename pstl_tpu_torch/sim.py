@@ -17,8 +17,11 @@ per-scene start frames, an early exit when every scene is done).  The JAX
 key becomes a seed: the planner draws its noise from a device generator
 seeded with it; the tests hand in the JAX key chain's draws as ``noise``.
 
-Refused by name: the VAE and BC planners, the init-hint draws
-(``use_init_hint``) and ``render_dir`` (``viz.py`` is not ported).
+The planner runs every head: the diffusion policy, and the baselines'
+VAE (a prior latent decoded, with the init-hint draws under
+``use_init_hint``) and BC heads, whose candidates go straight to the
+lane-keep argmax.  Refused by name: ``render_dir`` (``viz.py`` is not
+ported).
 """
 
 from __future__ import annotations
@@ -233,20 +236,25 @@ def observe(scenes: SceneTensors, ego_state: Tensor, t: Tensor,
 # ---------------------------------------------------------------------------
 
 def check_supported(cfg: Config) -> None:
-    """Raise for planner configurations the port does not run yet."""
-    if cfg.vae or cfg.bc or not cfg.diffusion:
+    """Raise for planner configurations that cannot plan: the planner needs
+    a diffusion, VAE or BC head on multi-candidate rows (the JAX planner
+    fails on the others), and a sampler the port runs."""
+    if not (cfg.diffusion or cfg.vae or cfg.bc):
+        raise NotImplementedError("the planner needs a diffusion, VAE or BC "
+                                  "head (the headless policy reads "
+                                  "per-scene labels)")
+    if cfg.gt_data_training:
         raise NotImplementedError(
-            "the planner runs the diffusion head only (the VAE head is "
-            "ported for mono training, the BC head not at all)")
+            "gt_data_training is a training mode: the planner runs "
+            "multi-candidate rows (evaluate a mono preset with "
+            "gt_data_training=False)")
     # use_pallas_clearance (BENCH_PALLAS=1) is accepted and changes nothing
     # here: the planner scores through TiledScorer (min_clearance_tiled on
     # per-scene discs) and never calls specs.prep_signals, the only caller
     # of the clearance kernels (ops/clearance_kernel.py), which the mono
     # training step reaches (train.py)
-    if cfg.use_init_hint:
-        raise NotImplementedError("use_init_hint needs the hint draws, "
-                                  "which are not ported")
-    diffusion.check_supported(cfg)
+    if cfg.diffusion:
+        diffusion.check_supported(cfg)
 
 
 def check_devices(dev: torch.device, net: Net,
@@ -260,12 +268,26 @@ def check_devices(dev: torch.device, net: Net,
                              f"{t.device}: move them to the scenes' device")
 
 
+def hint_draws(n: int, cfg: Config, generator: Optional[torch.Generator],
+               device) -> Tensor:
+    """The planner's init hint (``use_init_hint``): a control seed a row as
+    the dataset's random seeds are drawn (``pstl_tpu/sim.py:275-286``),
+    steering uniform in +-mul_w_max times 0.1 and acceleration uniform in
+    +-mul_a_max, (n, nt, 2)."""
+    u = torch.rand((2, n, cfg.nt), generator=generator, device=device)
+    return torch.stack([(u[0] * 2 - 1) * cfg.mul_w_max * 0.1,
+                        (u[1] * 2 - 1) * cfg.mul_a_max], dim=-1)
+
+
 def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
                  stlp_override: Optional[np.ndarray] = None):
-    """Returns ``plan(obs, noise=None, generator=None) -> (u0 (bs, 2),
-    info)``: dense batching with the aggressive stlp override, the DDPM
-    reverse pass with guidance (maximize; ``noise`` in the sampler's
-    layout, see ``diffusion.reverse_sample``), multi-cands + RefineNet +
+    """Returns ``plan(obs, noise=None, generator=None, hint=None) ->
+    (u0 (bs, 2), info)``: dense batching with the aggressive stlp override,
+    the candidates (the DDPM reverse pass with guidance, maximize,
+    ``noise`` in the sampler's layout, see ``diffusion.reverse_sample``;
+    the VAE decoder on a prior latent, ``noise`` (n, vae_dim); the BC head,
+    no draw), under ``use_init_hint`` with ``hint`` (n, nt, 2) as the
+    rows' control seeds (``hint_draws``), multi-cands + RefineNet +
     n_rolls re-rectification, the test-time refinement (``refinement``:
     ``refine.convex_refinement`` with K = 6; ``raw_refinement``; under
     ``lite_refine`` only when no lane-keep candidate of the batch satisfies
@@ -283,7 +305,8 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
 
     @torch.no_grad()
     def plan(obs: Dict[str, Tensor], noise: Optional[Tensor] = None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             hint: Optional[Tensor] = None):
         bs = obs["ego_traj"].shape[0]
         dev = obs["ego_traj"].device
         check_devices(dev, net, coeffs)
@@ -297,6 +320,11 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         else:
             stlp_dense = override.expand(n, 1, 6)
         dense = specs.densify_batch(obs, gt_stlp, cfg, stlp_dense)
+        if cfg.use_init_hint:
+            # the closed loop has no trajopt seeds: draw them as the dataset
+            # draws its random ones
+            dense["params_init"] = (hint if hint is not None else
+                                    hint_draws(n, cfg, generator, dev))
         highlevel = dense["highlevel_dense"]
         valid = dense["valids_dense"].reshape(-1)
         states_flat = torch.repeat_interleave(states, M * 3, 0)
@@ -310,22 +338,28 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         # the scene feature, tiled to the n candidate rows (the JAX planner
         # reads it from Net.__call__(get_feature=True))
         feature = torch.repeat_interleave(net.encode(dense), M * 3, 0)
-        fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
-                 if cfg.guidance else None)
-        cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
-                 if cfg.cm_sampler and fused is not None else None)
+        if cfg.diffusion:
+            fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
+                     if cfg.guidance else None)
+            cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature,
+                                           cfg)
+                     if cfg.cm_sampler and fused is not None else None)
 
-        def eps_fn(x, t):
-            """The unguided pass's eps: the diffusion forward (the JAX
-            planner's apply_fn)."""
-            ext = {"timestep": torch.full((n, 1), float(t), device=dev),
-                   "highlevel": highlevel, "noise": x}
-            return net(dense, ext, prev_feature=feature).reshape(
-                n, cfg.nt * 2)
+            def eps_fn(x, t):
+                """The unguided pass's eps: the diffusion forward (the JAX
+                planner's apply_fn)."""
+                ext = {"timestep": torch.full((n, 1), float(t), device=dev),
+                       "highlevel": highlevel, "noise": x}
+                return net(dense, ext, prev_feature=feature).reshape(
+                    n, cfg.nt * 2)
 
-        nn_controls, all_steps = diffusion.reverse_sample(
-            cm_fn, fused, cfg, coeffs, maximize=True, noise=noise,
-            generator=generator, eps_fn=eps_fn, n=n)
+            nn_controls, all_steps = diffusion.reverse_sample(
+                cm_fn, fused, cfg, coeffs, maximize=True, noise=noise,
+                generator=generator, eps_fn=eps_fn, n=n)
+        else:
+            nn_controls = decode_baseline(net, dense, feature, cfg, noise,
+                                          generator)
+            all_steps = nn_controls[None]
 
         if cfg.rect_head and not cfg.not_use_rect:
             if cfg.multi_cands is not None:
@@ -372,6 +406,23 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         return u_best[:, 0, :], info
 
     return plan
+
+
+def decode_baseline(net: Net, dense, feature: Tensor, cfg: Config,
+                     z: Optional[Tensor],
+                     generator: Optional[torch.Generator],
+                     n_randoms: Optional[int] = None) -> Tensor:
+    """The VAE (decoding a prior latent ``z`` (n, vae_dim), drawn from
+    ``generator`` when not given) or the BC head on the dense rows: their
+    controls (n, nt, 2)."""
+    ext = {"highlevel": dense["highlevel_dense"]}
+    if not cfg.vae:
+        return net(dense, ext, prev_feature=feature, n_randoms=n_randoms)
+    if z is None:
+        z = torch.randn((feature.shape[0], cfg.vae_dim),
+                        generator=generator, device=feature.device)
+    return net(dense, ext, prev_feature=feature, n_randoms=n_randoms,
+               sample=z)[0]
 
 
 def _refine(controls: Tensor, all_steps: Tensor, states_flat: Tensor,
@@ -492,11 +543,14 @@ def _init_carry(scenes: SceneTensors, generator: torch.Generator,
 def _make_body(scenes: SceneTensors, cfg: Config, plan, with_info=False):
     """The (observe -> plan -> backup -> env step -> metric update) step:
     ``body(carry, noise=None)`` returns the next carry, and with
-    ``with_info`` also the plan's info."""
+    ``with_info`` also the plan's info.  ``noise`` pins the plan's draws:
+    a tensor (the sampler's noise, or the VAE's prior latent) or a dict of
+    the planner's keywords ("noise", "hint")."""
 
-    def body(c: Carry, noise: Optional[Tensor] = None):
+    def body(c: Carry, noise=None):
         obs = observe(scenes, c.ego, c.t, cfg)
-        u0, info = plan(obs, noise=noise, generator=c.generator)
+        draws = noise if isinstance(noise, dict) else {"noise": noise}
+        u0, info = plan(obs, generator=c.generator, **draws)
         if cfg.backup:
             u0, repaired = _apply_backup(u0, info, obs, cfg)
         else:
@@ -541,8 +595,8 @@ def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
     the episodes at frames ``t0`` (bs,) (default 0; the planner draws its
     noise from a device generator seeded with ``seed``).  ``step(carry,
     noise=None)`` runs ``chunk`` replanning steps for every scene (done
-    scenes are masked, not skipped); ``noise`` pins the sampler's draws:
-    one tensor for a step, a sequence of ``chunk`` for a chunk.
+    scenes are masked, not skipped); ``noise`` pins the plan's draws (see
+    ``_make_body``): one for a step, a sequence of ``chunk`` for a chunk.
     ``with_info`` forces chunk 1 and returns (carry, the plan's info)."""
     dev = scenes.ego_full.device
     check_devices(dev, net, coeffs)
@@ -552,7 +606,7 @@ def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
     if with_info or chunk <= 1:
         step = body
     else:
-        def step(c: Carry, noise: Optional[Sequence[Tensor]] = None):
+        def step(c: Carry, noise: Optional[Sequence] = None):
             for i in range(chunk):
                 c = body(c, None if noise is None else noise[i])
             return c
@@ -567,12 +621,12 @@ def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
 
 def run_closed_loop(seed: int, scenes: SceneTensors, cfg: Config, net: Net,
                     coeffs: diffusion.Coeffs, max_steps: int,
-                    noise: Optional[Sequence[Tensor]] = None
+                    noise: Optional[Sequence] = None
                     ) -> Dict[str, Tensor]:
     """``max_steps`` done-masked replanning steps of every scene (no early
     exit); returns the per-scene metrics: collide, out_of_lane, traj_len,
     progress, stl_acc (mean over active steps), agent_steps, repairs.
-    ``noise``: the sampler's draws of each step."""
+    ``noise``: the plan's draws of each step (see ``_make_body``)."""
     init_carry, step = make_closed_loop_step(scenes, cfg, net, coeffs)
     c = init_carry(seed)
     for i in range(max_steps):
@@ -590,7 +644,7 @@ def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
                          record: bool = False,
                          render_dir: Optional[str] = None,
                          stlp_override=None, chunk: int = 1, t0=None,
-                         noise: Optional[Sequence[Tensor]] = None
+                         noise: Optional[Sequence] = None
                          ) -> Dict[str, object]:
     """The closed-loop Table-II evaluation: ``run_closed_loop``'s metrics
     over up to ``max_steps`` steps (``chunk`` a call), stopping early once
@@ -600,7 +654,7 @@ def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
     candidate-area diversity ("area", nusc_sim.py:714-735) and the step
     times ("step_s": host clock around the step and its record, after a
     device sync), and ``area``, the mean over the steps.  ``t0``: per-scene
-    start frames; ``noise``: the sampler's draws of each step.
+    start frames; ``noise``: the plan's draws of each step.
     ``render_dir`` is refused: the closed-loop frames need ``viz.py``,
     which is not ported."""
     if render_dir:

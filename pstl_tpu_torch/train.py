@@ -11,21 +11,30 @@ for two kinds of preset:
   differentiates through the rollout (the forward and the backward kernel
   once a step); the diffusion branch scores controls sampled without
   gradient (unless ``grad_rollout``), the forward kernel only.
-- **dense** (``multi_check``: ``e5_ddpm``, ``e7_ours``, ``e8_stl``): the
-  batch densified to n = batch_size * n_randoms * 3 rows (flex pSTL draws,
-  or the ``pre_stlp`` column), the hoisted signal dict
+- **dense** (``multi_check``: ``e5_ddpm``, ``e7_ours``, ``e8_stl``,
+  ``e3_vae``, ``e6_trafficsim``, BC): the batch densified to
+  n = batch_size * n_randoms * 3 rows (flex pSTL draws, or the
+  ``pre_stlp`` column), the hoisted signal dict
   (``specs.dense_signal_input``), the trajopt targets' scores (the
   ``tj_scores_prior`` column, else the rollout of ``params`` scored on the
-  "discs" route) and the epsilon-MSE of the noised targets, masked to the
-  satisfying rows (``stl_bc_mask``).  Plain DDPM (e5) stops there.  With
+  "discs" route) and, for the diffusion head, the epsilon-MSE of the
+  noised targets, masked to the satisfying rows (``stl_bc_mask``).  Plain
+  DDPM (e5) stops there.  With
   ``rect_head`` (e7 / e8) the step also runs the full unguided sampler
   without gradient, picks the best of the last ``multi_cands`` decodings
   under the ``TiledScorer``, rectifies them with ``Net.rect`` and scores the
   result with gradient (``geometry.min_clearance_tiled``'s recompute VJP):
   the STL hinge, the DPP diversity and the stay-close regularizer, or,
   without ``diverse_loss``, the normalized regularizer and the collision
-  loss.  No custom kernel runs on this path, as none does in the JAX
-  package's.
+  loss.  The baselines' heads on the same rows: the VAE (``e3_vae`` with
+  the init hint, ``e6_trafficsim``) encodes the trajopt controls and
+  decodes a latent drawn per row, the BC head maps the scene to controls;
+  each is trained on the STL hinge of its controls' rollouts (with
+  gradient, through the ``TiledScorer``), the target MSE masked by
+  ``stl_bc_mask`` (``losses.vae_losses`` with the KL term, or
+  ``losses.bc_mse``) and the collision loss, whose full geometry route
+  materializes (n, K, T, nL, nW) pair tensors.  No custom kernel runs on
+  this path, as none does in the JAX package's.
 
 With ``rect_head`` and not ``joint``, Adam updates the RefineNet head
 (``rect_net``, ``merge_net``) only, and every other parameter stays as it
@@ -40,13 +49,13 @@ updates them in place.  Checkpoints (``save_checkpoint``,
 ``load_checkpoint``, ``load_params_only``) are torch files under
 ``exps/<exp_name>/torch_models``.
 
-Not ported (each raises, by name): ``grad_rollout`` on the dense step,
-guidance in the training sampler, the dense VAE and BC heads, the init
-hint (both in ``Net``), the constant-velocity neighbor prediction
-(``gt_nei=False``), and the viz of an experiment directory (``exp_name``
-with ``no_viz`` False; ROADMAP.md §1 item 12).  The JAX package's
-device-side chunking (``train_chunk``) is exact by construction, so the port
-steps once per batch; its shard store is not ported.
+Not ported (each raises, by name): ``grad_rollout`` on the dense
+diffusion step, guidance in the training sampler, the constant-velocity
+neighbor prediction (``gt_nei=False``), and the viz of an experiment
+directory (``exp_name`` with ``no_viz`` False; ROADMAP.md §1 item 12).
+The JAX package's device-side chunking (``train_chunk``) is exact by
+construction, so the port steps once per batch; its shard store is not
+ported.
 """
 
 from __future__ import annotations
@@ -211,18 +220,19 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
                             states: Tensor, draws: Dict[str, Tensor],
                             generator: Optional[torch.Generator]):
     """The dense (``multi_check``) branch: plain DDPM, or with ``rect_head``
-    the sampler, the multi-candidate selection and the RefineNet
+    the sampler, the multi-candidate selection and the RefineNet; the VAE
+    (``e3_vae``, ``e6_trafficsim``) and BC heads on the trajopt targets
     (``pstl_tpu/train.py:batch_forward_and_loss``)."""
-    if not cfg.diffusion:
-        raise NotImplementedError("the dense VAE and BC steps are not ported "
-                                  "(nor are their heads, models/net.py)")
-    if cfg.grad_rollout and not cfg.rect_head:
+    if cfg.diffusion and cfg.grad_rollout and not cfg.rect_head:
         raise NotImplementedError("grad_rollout (training through the dense "
                                   "sampler) is not ported")
-    if cfg.rect_head and cfg.guidance:
+    if cfg.diffusion and cfg.rect_head and cfg.guidance:
         raise NotImplementedError(
             "guidance in the training sampler (the row-major guided sampler, "
             "ROADMAP.md §1 item 6) is not ported")
+    if not (cfg.diffusion or cfg.vae or cfg.bc):
+        raise NotImplementedError("the dense step needs a diffusion, VAE or "
+                                  "BC head")
     bs = states.shape[0]
     n = bs * cfg.n_randoms * 3
     rd: Dict[str, Tensor] = {}
@@ -257,6 +267,39 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
                                  cfg, with_collision=True)
         return losses.collision(sig["min_centroid_d"], sig["radius_sum"],
                                 cfg)
+
+    if not cfg.diffusion:
+        # the VAE (trajopt controls encoded, the latent drawn per row) or
+        # the BC head, trained on the hinge of its own controls' scores,
+        # the target MSE and the collision loss
+        if cfg.vae:
+            noise = draws.get("vae_noise")
+            if noise is None:
+                noise = torch.randn((n, cfg.vae_dim), generator=generator,
+                                    device=states.device)
+            nn_controls, latent_stats = net(dense, {
+                "highlevel": highlevel, "noise": noise,
+                "trajopt_controls": dense_controls})
+        else:
+            nn_controls = net(dense, {"highlevel": highlevel})
+        scores, acc = score_controls(nn_controls)
+        rd["loss_stl"] = losses.stl_hinge(scores, valid, cfg.stl_nn_thres,
+                                          cfg.stl_weight)
+        if cfg.vae:
+            rd["loss_vae_bc"], rd["loss_vae_kl"] = losses.vae_losses(
+                nn_controls, dense_controls, latent_stats, dense_scores,
+                valid, cfg)
+            rd["loss_coll"] = coll_loss(nn_controls)
+            rd["loss"] = (rd["loss_stl"] + rd["loss_vae_bc"]
+                          + rd["loss_vae_kl"] + rd["loss_coll"])
+        else:
+            rd["loss_bc"] = losses.bc_mse(nn_controls, dense_controls,
+                                          dense_scores, valid, cfg)
+            rd["loss_coll"] = coll_loss(nn_controls)
+            rd["loss"] = rd["loss_stl"] + rd["loss_bc"] + rd["loss_coll"]
+        rd["acc"] = acc
+        rd["tj_acc"] = specs.mask_mean((dense_scores > 0).float(), valid)
+        return rd["loss"], rd
 
     noise, steps, noised = diffusion.prep(
         batch["params"], cfg, coeffs, noise=draws.get("prep_noise"),

@@ -18,7 +18,12 @@ Counts, under a ``TorchDispatchMode`` that skips views and metadata ops:
   under the heavy contract (route "2": 99 guided denoise steps) and under
   ``ref_parity(open_loop=False)`` (10 guided), and one Adam iteration of
   each loop of ``refine.py``: the backup solve (per call, whatever the
-  number of scenes), the convex refinement (K = 6) and the raw one.
+  number of scenes), the convex refinement (K = 6) and the raw one;
+- the baselines (``e3_vae``, ``e6_trafficsim``, BC: ``e3_vae`` with the BC
+  head and no init hint; ``ctg`` with ``guidance_pallas_fuse_freeze``):
+  a dense train step (forward, backward, Adam), an eval batch's timed
+  region and a closed-loop step with ``record=True`` (not BC's, which no
+  Table-II row runs).
 
 Widths are cut (2 scenes, 4 seeds, hidden 32): the op count of these paths
 does not depend on the widths, except the hull area's chunk loop, which
@@ -38,7 +43,7 @@ def main():
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from pstl_tpu_torch import diffusion, eval_openloop, refine, sim, specs
-    from pstl_tpu_torch import trajopt
+    from pstl_tpu_torch import train, trajopt
     from pstl_tpu_torch.config import PRESETS, bench_config
     from pstl_tpu_torch.data import synthetic
     from pstl_tpu_torch.data.dataset import SceneDataset
@@ -201,6 +206,55 @@ def main():
         print(f"{name}: {count(fn(2)) - count(fn(1))} ops an Adam "
               f"iteration, {count(fn(1)) - (count(fn(2)) - count(fn(1)))} "
               "outside the loop")
+
+    # the baselines: a dense train step, an eval batch's timed region and a
+    # closed-loop step of each
+    bc = {"vae": False, "bc": True, "use_init_hint": False}
+    small = dict(exp_name=None, n_randoms=4, sampling_size=4,
+                 hiddens=(32, 32), batch_size=2, vae_dim=8)
+    rows = (("e3", "e3_vae", {}), ("e6", "e6_trafficsim", {}),
+            ("bc", "e3_vae", bc),
+            ("ctg", "ctg", {"guidance_pallas_fuse_freeze": True}))
+    for name, preset, kw in rows:
+        bcfg = PRESETS[preset].with_(**small, **kw).with_(
+            run_sampling_test=True).finalize()
+        net = Net(bcfg)
+        init_flax_like(net, torch.Generator().manual_seed(0))
+        coeffs = diffusion.get_coeffs(bcfg)
+        bds = SceneDataset.from_synthetic(bcfg, seed=0, n_scenes=2)
+        bds.ensure_random_params(0)
+        batch = to_device(bds.gather([0, 1]), "cpu")
+        msg = f"{name} ({preset}):"
+        if name != "ctg":
+            tstep = train.make_train_step(bcfg, net, form, coeffs,
+                                          train.make_optimizer(bcfg, net))
+            gen = torch.Generator().manual_seed(0)
+            n_ops = count(lambda: tstep(batch, generator=gen))
+            msg += f" dense train step {n_ops} ops,"
+        c = Count()
+        gk.guidance_fused_plain = kernel_as_one(c)
+        try:
+            with torch.no_grad(), c:
+                eval_openloop._sample_and_score(
+                    net, batch, bcfg, form, coeffs,
+                    generator=torch.Generator().manual_seed(0))
+            timed = c.n
+            if name != "bc":
+                def run(steps):
+                    return lambda: sim.run_closed_loop_host(
+                        0, scenes, bcfg.with_(n_neighbors=8), net, coeffs,
+                        steps, record=True)
+                c.n = 0
+                with c:
+                    run(1)()
+                one = c.n
+                c.n = 0
+                with c:
+                    run(2)()
+                msg += f" closed-loop step {c.n - one} ops,"
+        finally:
+            gk.guidance_fused_plain = real
+        print(f"{msg} eval timed region {timed} ops")
 
 
 if __name__ == "__main__":

@@ -12,18 +12,22 @@ scenes x 64 rows a batch, random initialization from seed 1, synthetic scenes
 from seed 0), each on the next train batch; with ``--train e5`` or ``--train
 e7``: dense train steps of ``e5_ddpm`` / ``e7_ours`` (128 scenes x 64 x 3 =
 24,576 rows; e7 warm-started from the committed e5b_round5 base, its
-RefineNet head from seed 1).  Either way ``--warmup`` untimed
+RefineNet head from seed 1); with ``--train e3``, ``e6`` or ``bc``: the
+baselines' dense train steps at that width (``e3_vae``, ``e6_trafficsim``,
+and BC: ``e3_vae`` with the BC head and no init hint, as the JAX package
+has no BC preset), from seed 1.  Either way ``--warmup`` untimed
 steps, then ``--steps`` steps untraced and as many again under
 ``torch.profiler``; written to ``--out``: the untraced step times, the traced
 window's device busy time by kernel name, the device busy share of the
 window (sum of kernel times over the window's wall time; one stream, so
-kernels do not overlap) and, for a train step, the device time in the
+kernels do not overlap), the device ms a step by kernel family
+(``FAMILIES``, by name) and, for a train step, the device time in the
 clearance kernels and in everything else.  ``--repo`` profiles another
 checkout's package with this script (parent against change: unpack the
 parent under ``build/``).
 
     python scripts/profile_torch_step.py [--gpallas 0|1|1f|2f|2|3|4]
-        [--train e2|e4] [--scenes 16] [--steps 3] [--repo DIR]
+        [--train e2|e4|e5|e7|e3|e6|bc] [--scenes 16] [--steps 3] [--repo DIR]
         [--out build/profile_step.json]
 """
 
@@ -34,8 +38,32 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TRAIN_PRESETS = {"e2": "e2_vae_mono", "e4": "e4_ddpm_mono", "e5": "e5_ddpm",
-                 "e7": "e7_ours"}
+#: --train: (preset, overrides)
+TRAIN_PRESETS = {"e2": ("e2_vae_mono", {}), "e4": ("e4_ddpm_mono", {}),
+                 "e5": ("e5_ddpm", {}), "e7": ("e7_ours", {}),
+                 "e3": ("e3_vae", {}), "e6": ("e6_trafficsim", {}),
+                 "bc": ("e3_vae", {"vae": False, "bc": True,
+                                   "use_init_hint": False})}
+
+
+#: kernel families by name: the first family whose fragment the kernel's
+#: name holds (lower case), else "other"
+FAMILIES = (("port kernels", ("guidance_fused_kernel",
+                              "guidance_frozen_kernel", "superstep_",
+                              "min_clearance_")),
+            ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
+            ("scan", ("scan",)),
+            ("reduction", ("reduce",)),
+            ("copy / cat", ("copy", "cat", "gather", "scatter", "index")),
+            ("elementwise", ("elementwise",)))
+
+
+def family(name):
+    name = name.lower()
+    for fam, frags in FAMILIES:
+        if any(f in name for f in frags):
+            return fam
+    return "other"
 
 
 def closed_loop_step(args, dev):
@@ -72,9 +100,9 @@ def train_step(args, dev):
     from pstl_tpu_torch.models import convert
     from pstl_tpu_torch.models.net import Net, init_flax_like
 
-    preset = TRAIN_PRESETS[args.train]
+    preset, kw = TRAIN_PRESETS[args.train]
     cfg = (mono_config(preset) if PRESETS[preset].gt_data_training
-           else PRESETS[preset].with_(exp_name=None))
+           else PRESETS[preset].with_(exp_name=None, **kw))
     n_steps = args.warmup + 2 * args.steps
     ds = SceneDataset.from_synthetic(
         cfg, seed=0,
@@ -122,7 +150,8 @@ def main():
     dev = torch.device("cuda", 0)
     step = train_step(args, dev) if args.train else closed_loop_step(args,
                                                                     dev)
-    what = (f"{TRAIN_PRESETS[args.train]} train step" if args.train
+    what = (f"{args.train} ({TRAIN_PRESETS[args.train][0]}) train step"
+            if args.train
             else f"BENCH_GPALLAS={args.gpallas}")
     for _ in range(args.warmup):
         step()
@@ -160,6 +189,11 @@ def main():
            "steps": args.steps, "untraced_step_ms": step_ms,
            "traced_window_ms": window_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / window_ms, "kernels": rows}
+    fams = {}
+    for r in rows:
+        fam = family(r["name"])
+        fams[fam] = fams.get(fam, 0.0) + r["device_ms"] / args.steps
+    out["family_ms_per_step"] = fams
     if args.train:
         clear = [r for r in rows if "min_clearance" in r["name"]]
         out["clearance_ms_per_step"] = {

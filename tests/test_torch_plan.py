@@ -97,19 +97,21 @@ def test_plan_step_matches_jax():
 
 
 def test_unported_planner_options_raise():
-    """The backup controller and the refinement options are accepted; the
-    VAE / BC planners, the init hint and the unported samplers raise by
-    name."""
+    """The backup controller, the refinement options, the VAE / BC planners
+    and the init hint are accepted; the unported samplers raise by name, as
+    do the configurations that cannot plan (no head, mono rows)."""
     cfg = TConfig(**FLAGS).with_(guidance_pallas_fuse_freeze=True).finalize()
     tsim.check_supported(cfg)
     tsim.check_supported(cfg.with_(use_pallas_clearance=True))
     for kw in (dict(backup=True), dict(refinement=True),
                dict(raw_refinement=True),
-               dict(refinement=True, lite_refine=True)):
+               dict(refinement=True, lite_refine=True),
+               dict(diffusion=False, vae=True),
+               dict(diffusion=False, vae=True, use_init_hint=True),
+               dict(diffusion=False, bc=True), dict(use_init_hint=True)):
         tsim.check_supported(cfg.with_(**kw))
     for kw, match in ((dict(sampler="dpmpp"), "dpmpp"),
-                      (dict(diffusion=False, vae=True), "VAE"),
-                      (dict(diffusion=False, bc=True), "BC"),
-                      (dict(use_init_hint=True), "use_init_hint")):
+                      (dict(diffusion=False), "head"),
+                      (dict(gt_data_training=True), "gt_data_training")):
         with pytest.raises(NotImplementedError, match=match):
             tsim.check_supported(cfg.with_(**kw))

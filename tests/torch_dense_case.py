@@ -1,9 +1,10 @@
 """Shared case of the dense train-step parity tests
 (``tests/test_torch_dense_train_*.py``): the port's train step
-(``pstl_tpu_torch.train``) on ``e5_ddpm``, ``e7_ours`` and ``e8_stl``
-against ``pstl_tpu.train`` on the same converted parameters, batch and
-draws, at a small size (hiddens and rect_hiddens (32, 32), n_randoms 4,
-n_shards 2, 8 denoise steps, bs 3, K 3).
+(``pstl_tpu_torch.train``) on ``e5_ddpm``, ``e7_ours``, ``e8_stl`` and the
+baselines (``e3_vae``, ``e6_trafficsim``, BC) against ``pstl_tpu.train``
+on the same converted parameters, batch and draws, at a small size
+(hiddens and rect_hiddens (32, 32), n_randoms 4, n_shards 2, 8 denoise
+steps, bs 3, K 3; the baselines' tests set vae_dim 8).
 
 The scenes are ``lane_scenes``: the synthetic batch made straight (a
 constant-speed GT line, lanes 3.5 m apart along it, every scene a lane
@@ -19,7 +20,8 @@ scored by the step itself, or given as a ``tj_scores_prior`` column.
 The draws are the JAX step's own: ``k_dense, k_prep, k_sample, k_vae =
 split(key, 4)``; the flex uniforms from ``get_dense_stlp``'s three keys of
 k_dense and ``generate_flex_pstl``'s six of each, prep's noise and steps
-from k_prep, the sampler's chain from k_sample, handed to the port.
+from k_prep, the sampler's chain from k_sample, the VAE's latent noise from
+k_vae, handed to the port.
 
 The JAX step is compiled with LLVM's optimizations off
 (``xla_backend_optimization_level`` 0, ``JAX_OPTS``): with them on, XLA's
@@ -84,11 +86,12 @@ SMALL = dict(exp_name=None, hiddens=(32, 32), rect_hiddens=(32, 32),
              n_neighbors=3)
 
 
-def lane_scenes(batch, cfg):
+def lane_scenes(batch, cfg, nei_off=3.5):
     """``batch`` made straight: the GT a constant-speed line from each
     scene's start, the lanes along it 3.5 m apart, every scene a lane keep,
-    neighbor 0 in the left lane beside the ego and the others gone; seed 0
-    of every maneuver holds the GT controls."""
+    neighbor 0 beside the ego, ``nei_off`` to its left (3.5: in the left
+    lane), and the others gone; seed 0 of every maneuver holds the GT
+    controls."""
     b = {k: v.copy() for k, v in batch.items()}
     ego = b["ego_traj"]
     bs, T = ego.shape[:2]
@@ -107,8 +110,8 @@ def lane_scenes(batch, cfg):
     nei = b["neighbors_traj"]
     nei[:, 1:, :, 0] = 0.0
     nei[:, 0, :, 0] = 1.0
-    nei[:, 0, :, 1] = ego[..., 0] - 3.5 * sn
-    nei[:, 0, :, 2] = ego[..., 1] + 3.5 * c
+    nei[:, 0, :, 1] = ego[..., 0] - nei_off * sn
+    nei[:, 0, :, 2] = ego[..., 1] + nei_off * c
     nei[:, 0, :, 3:5] = ego[..., 2:4]
     nei[:, 0, :, 5], nei[:, 0, :, 6] = 4.0, 1.8
     b["neighbors"] = nei[:, :, 0].copy()
@@ -135,19 +138,27 @@ def flip_stlp(batch, cfg):
     return st
 
 
+#: neighbor 0's lateral offset in the "near" case: 1.5 m, below the sum of
+#: the ego's and its disc radii (0.865 + 0.9 m), so the collision loss
+#: relu(1 - d / radius_sum) is positive on the rollouts
+NEAR_OFF = 1.5
+
+
 def setup(preset, case="flex", **kw):
     """(cfg, two numpy batches, the flax net, its params).  ``case``:
     "flex" (the step draws the dense pSTL parameters), "tj_prior" (and the
-    batches carry a ``tj_scores_prior`` column) or "flip" (the batches carry
+    batches carry a ``tj_scores_prior`` column), "flip" (the batches carry
     ``flip_stlp``'s ``pre_stlp`` column, and the RefineNet head brakes: its
-    output layer scaled by 0.01 and its acceleration biases -1).  The
-    control head is scaled by 0.01 and, in "flex", the RefineNet's output
-    layer by 0.1: mild corrections."""
+    output layer scaled by 0.01 and its acceleration biases -1) or "near"
+    (as "flex", neighbor 0 NEAR_OFF to the ego's left).  The control head is
+    scaled by 0.01 and, in "flex", the RefineNet's output layer by 0.1:
+    mild corrections."""
     cfg = PRESETS[preset].with_(**SMALL, **kw)
     ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=12)
     ds.ensure_random_params(cfg.seed)
+    off = NEAR_OFF if case == "near" else 3.5
     batches = [lane_scenes({k: v for k, v in b.items()
-                            if k.startswith(ttrain.COLS)}, cfg)
+                            if k.startswith(ttrain.COLS)}, cfg, off)
                for b in batch_iterator(ds, "train", cfg.batch_size,
                                        shuffle=False)][:2]
     rng = np.random.RandomState(5)
@@ -186,9 +197,16 @@ def flex_draws(cfg, k_dense, bs):
 
 def jax_draws(cfg, key, bs):
     """The draws of pstl_tpu.train.batch_forward_and_loss's dense branch
-    under ``key``."""
+    under ``key``: the VAE's latent noise (k_vae) for the VAE, else the
+    diffusion's."""
     n = bs * cfg.n_randoms * 3
-    k_dense, k_prep, k_sample, _ = jax.random.split(key, 4)
+    k_dense, k_prep, k_sample, k_vae = jax.random.split(key, 4)
+    if not cfg.diffusion:
+        out = {"flex": flex_draws(cfg, k_dense, bs)}
+        if cfg.vae:
+            out["vae_noise"] = torch.as_tensor(np.array(jax.random.normal(
+                k_vae, (n, cfg.vae_dim))))
+        return out
     k_noise, k_t = jax.random.split(k_prep)
     return {"flex": flex_draws(cfg, k_dense, bs),
             "prep_noise": torch.as_tensor(np.array(
@@ -214,12 +232,17 @@ def torch_net(cfg, jparams):
 
 
 def run_train_steps(preset, dtype, monkeypatch, case="flex", grad_floor=1e-6,
-                    tight=True, **kw):
+                    tight=True, bf16_step_metrics=False, **kw):
     """Two train steps of ``preset``: the first's loss, metrics and every
     gradient, the second's metrics, and both steps' parameters against the
     JAX step; under the RefineNet-only mask every parameter outside the head
     must also stay as it was, bit for bit, on both sides, and the head must
-    move.  Returns the first step's port metrics."""
+    move.  ``bf16_step_metrics``: in bf16 step i's metrics (i = 1, 2) are
+    held to i bf16 steps of their value (the first step's own bound, 2^-8 to
+    2^-7 relative, and one more for the parameters a step apart) rather
+    than rtol 1e-3; the baselines' tanh-bounded controls carry a rounding
+    of their bf16 output layer straight into the target MSE, whose
+    masked mean keeps a few rows.  Returns the first step's port metrics."""
     small_sampler_noise(monkeypatch)
     cfg, batches, jnet, jparams = setup(preset, case, compute_dtype=dtype,
                                         **kw)
@@ -257,8 +280,11 @@ def run_train_steps(preset, dtype, monkeypatch, case="flex", grad_floor=1e-6,
         for k in jrd_step:
             if i == 0:
                 check_close(trd[k], jrd[k], bf16, k)
-            np.testing.assert_allclose(float(trd[k]), float(jrd_step[k]),
-                                       rtol=1e-3, atol=1e-6, err_msg=k)
+            if bf16 and bf16_step_metrics:
+                check_close(trd[k], jrd_step[k], True, k, bf16_steps=i + 1)
+            else:
+                np.testing.assert_allclose(float(trd[k]), float(jrd_step[k]),
+                                           rtol=1e-3, atol=1e-6, err_msg=k)
         if i == 0:
             first = {k: float(v) for k, v in trd.items()}
             # a parameter the loss does not reach has no .grad; JAX's is 0
