@@ -142,12 +142,33 @@ and no result line is printed:
    plain version on the ctg row's first guided step.
 28. Table II's baseline rows with phase 24's protocol: vae_aug and
    trafficsim (phase 26's nets) and ctg (kernel 1 99 x 36 times), 36
-   steps each: the six columns, the median step, launches a step.
+   steps each: the six columns, the median step, launches a step, and the
+   indices of the scenes that collide.
+
+29. card vs CPU for the rest of the sampler: small reverse passes with
+   pinned draws through ``diffusion.sample`` (DDIM at eta 0 and 0.5,
+   DPM++, the m-major guided DDPM chain on route "2"; route "0" with bf16
+   robustness), and one fp32 ``ours_guidance`` train step (the guided
+   training sampler) at phase 16's tolerances.
+30. the heavy contract at full width under the new samplers: DDIM with 20
+   steps on "2" (64 steps: kernel 1 20 x 64 times), DPM++ (19 x 8), DDIM
+   on "1" (kernel 2 20 x 8), the m-major DDPM chain (kernel 1 99 x 8), the
+   parity schedule under DDIM with ``fast_guided_focus=0.5`` (20 x 8) and
+   "0" with bf16 robustness (no launch), 8 steps each but the first; kernel
+   1 against its plain version on the DDIM row's first guided step.
+31. ``ours_guidance`` warm-started from e5b_round5 at full width (24,576
+   rows, bf16): 4 train steps and an eval step, only the RefineNet head
+   moving.
+32. the shard store: phase 20's store written as a native shard store, its
+   shuffled train batches against ``batch_iterator``'s bit for bit, and 4
+   ``e5_ddpm`` steps through ``train.train(use_shard_store=True,
+   time_profile=True)`` with the timer's sections.
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's (kernel 1 on the closed loop's path, the
 ninth entry on the evaluation's, the tenth on the ref_parity Table-II
-row's and the eleventh on the ctg Table-I row's) launches, error, times
+row's, the eleventh on the ctg Table-I row's and the twelfth on the DDIM
+closed loop's) launches, error, times
 (``ms`` one eager call of its wrapper, ``graph_ms`` the kernel alone in a
 graph replay, see ``kernel_ms``; ``plain_ms`` the plain version) and its
 bound: the larger of its bytes (each input read once, each output written
@@ -828,8 +849,16 @@ def check_counts(counts, want, what):
                            f"{want}")
 
 
+#: what -> (median step s, quality) of every closed loop ``report_loop``
+#: printed, for the rows printed beside each other
+LOOPS = {}
+
+
 def report_loop(what, steps, counts, m, step_s, wall):
     sps = SCENES / median(step_s)
+    LOOPS[what] = (median(step_s), {
+        k: float(m[k].float().mean())
+        for k in ("stl_acc", "collide", "out_of_lane", "progress")})
     log(f"{what}: {SCENES} scenes x {steps} steps, launches={counts}, "
         f"stl_compliance={float(m['stl_acc'].mean()):.4f} "
         f"collide_rate={float(m['collide'].mean()):.4f} "
@@ -2647,6 +2676,9 @@ def table2_baseline_phase(dev, nets, name_power):
         check_finite(vals, f"Table II {what}")
         if not np.isfinite(np.stack(hist["ego"])).all():
             raise RuntimeError(f"Table II {what}: ego history not finite")
+        hits = torch.nonzero(out["collide"].float().cpu() > 0).flatten()
+        log(f"Table II {what}: colliding scenes (index into table2_data's "
+            f"kept scenes) {hits.tolist()}")
         launches = step_launches(scenes, cfg, net, coeffs, None)
         log(f"Table II {what} ({scenes.ego_full.shape[0]} scenes x "
             f"{cfg.n_randoms} x 3, {ran} of {TABLE2_STEPS} steps, "
@@ -2663,6 +2695,301 @@ def table2_baseline_phase(dev, nets, name_power):
             f"{time.time() - t_row:.1f} s; {name_power}")
     log(f"Table II baselines: phase wall {time.time() - t0:.1f} s")
     return ctg_launches
+
+
+# --------------------------------------------------------------------------
+# the rest of the sampler and the shard store (phases 29-32)
+# --------------------------------------------------------------------------
+
+def plan_context(cfg, scenes):
+    """The first plan step's dense batch and guidance context of the scenes
+    (``sim.make_planner``'s: ``score_rows``, the validity mask, the dense
+    initial states and the fused loss where ``cfg`` enables it), and the
+    rows' count n."""
+    import torch
+    from pstl_tpu_torch import diffusion, sim, specs
+    dev = scenes.ego_full.device
+    bs = scenes.ego_full.shape[0]
+    obs = sim.observe(scenes, scenes.ego_full[:, 0],
+                      torch.zeros(bs, dtype=torch.long, device=dev), cfg)
+    n = bs * cfg.n_randoms * 3
+    stlp = torch.as_tensor(sim.AGGRESSIVE_STLP, device=dev)
+    dense = specs.densify_batch(obs, stlp.expand(bs, 6), cfg,
+                                stlp.expand(n, 1, 6))
+    states = obs["ego_traj"][:, 0, :4]
+    valid = dense["valids_dense"].reshape(-1)
+    ctx = diffusion.make_guidance_ctx(
+        specs.make_score_rows(obs, dense, cfg), valid,
+        torch.repeat_interleave(states, cfg.n_randoms * 3, 0),
+        specs.make_guidance_loss(obs, dense, cfg, states, valid))
+    return dense, ctx, n
+
+
+#: phase 29's passes: (what, BENCH_GPALLAS, overrides of the heavy row)
+SAMPLER_REF = (
+    ("DDIM eta 0", "2", {"sampler": "ddim", "ddim_steps": 6}),
+    ("DDIM eta 0.5", "2", {"sampler": "ddim", "ddim_steps": 6,
+                           "ddim_eta": 0.5}),
+    ("DPM++", "2", {"sampler": "dpmpp", "ddim_steps": 6}),
+    ("m-major DDPM", "2", {"cm_sampler": False}),
+    ("bf16 robustness", "0", {"robustness_dtype": "bfloat16"}))
+
+
+def sampler_reference_phase(dev, net_cpu, net_dev):
+    """Phase 29: small reverse passes of the new samplers on the card
+    against the CPU with pinned draws, each through ``diffusion.sample``
+    with the planner's guidance context: DDIM at eta 0 and 0.5, DPM++ and
+    the m-major guided DDPM on route "2" (kernel 1 on the card, its plain
+    version on the CPU), and route "0" (the XLA loop) with bf16
+    robustness.  Phase 5's tolerance, 1e-3 in the controls, on all but
+    EVAL_MAX_OFF_SHARE of them: an in-kernel argmin at a near-tie can go
+    the other way on the card (FMA contraction), which moves that column
+    within its trust region, and the later steps carry it (on the CPU
+    alone, a 1e-7 relative change of eps moves the DDIM eta-0.5 pass's
+    controls this way).  Every control within ``trust_region_bound``.  In
+    bf16 the two devices round the robustness gradients apart, so any
+    share may flip; there only the bound holds.  Then one fp32
+    ``ours_guidance`` train step, card against CPU, at phase 16's
+    tolerances."""
+    import torch
+    from pstl_tpu_torch import diffusion
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.models import net as models
+
+    t0 = time.time()
+    for what, gpallas, kw in SAMPLER_REF:
+        cfg = bench_config("heavy", gpallas=gpallas).with_(
+            n_randoms=4, diffusion_steps=12, compute_dtype="float32", **kw)
+        out = {}
+        for d, net in (("cpu", net_cpu), (dev, net_dev)):
+            scenes = scene_batch(cfg, d, n_scenes=2)
+            dense, ctx, n = plan_context(cfg, scenes)
+            g = torch.Generator()
+            g.manual_seed(3)
+            noise = torch.randn(
+                (diffusion.n_draws(cfg),)
+                + diffusion.draw_layout(cfg, 2, 3 * cfg.n_randoms),
+                generator=g).to(d)
+            with torch.no_grad():
+                feature = torch.repeat_interleave(net.encode(dense),
+                                                  cfg.n_randoms * 3, 0)
+                cm_fn = (models.make_cm_eps_fn(
+                    net, dense, dense["highlevel_dense"], feature, cfg)
+                    if cfg.cm_sampler and ctx.fused_loss is not None
+                    else None)
+                ctrl, _ = diffusion.sample(
+                    lambda e: net(dense, e, prev_feature=feature),
+                    dense["highlevel_dense"], cfg,
+                    diffusion.get_coeffs(cfg, device=d), n, noise=noise,
+                    stlp_dense=dense["stlp_dense"], guide=ctx,
+                    maximize=True, cm_fn=cm_fn)
+            out[str(d)] = ctrl.cpu()
+        diff = (out[str(dev)] - out["cpu"]).abs()
+        err = float(diff.max())
+        share = float((diff > 1e-3).float().mean())
+        bnd = trust_region_bound(cfg)
+        bf16 = cfg.robustness_dtype == "bfloat16"
+        log(f"sampler reference: {what} (BENCH_GPALLAS={gpallas}, "
+            f"{diffusion.n_draws(cfg)} draws), card vs cpu "
+            f"max_abs_err={err:.3e} (bound {bnd:.3g}), {share:.4f} of the "
+            f"controls beyond 1e-3 (allowed "
+            f"{'any' if bf16 else EVAL_MAX_OFF_SHARE})")
+        if not (err <= bnd and (bf16 or share <= EVAL_MAX_OFF_SHARE)):
+            raise RuntimeError(f"card and cpu {what} passes disagree: "
+                               f"{err}, {share} beyond 1e-3")
+    dense_reference_phase(dev, (("ours_guidance", "ours_guidance",
+                                 {"stl_weight": 1.0}),),
+                          "guided dense reference")
+    log(f"phase 29 wall {time.time() - t0:.1f} s")
+
+
+def trust_region_bound(cfg):
+    """The sum over the guided denoise steps of 2 beta_t, times the larger
+    control scale: how far a chain's controls can move if every guided
+    update flips within its trust region on either side."""
+    from pstl_tpu_torch import diffusion
+    beta = diffusion.get_coeffs(cfg).beta
+    if cfg.sampler in diffusion.FAST_SAMPLERS:
+        taus = [int(t) for t in diffusion._fast_taus(cfg)]
+        ts = taus if cfg.sampler == "ddim" else taus[1:]
+    else:
+        trig = diffusion._trigger_schedule(cfg)
+        ts = [t for j, t in enumerate(range(cfg.diffusion_steps - 1, 0, -1))
+              if trig[j]]
+    return float(sum(2 * beta[t] for t in ts)) * max(cfg.mul_w_max,
+                                                     cfg.mul_a_max)
+
+
+#: phase 30's rows: (what, BENCH mode, BENCH_GPALLAS, overrides, steps)
+SAMPLER_ROWS = (
+    ("DDIM 20 steps", "heavy", "2", {"sampler": "ddim", "ddim_steps": 20},
+     STEPS),
+    ("DPM++ 20 steps", "heavy", "2", {"sampler": "dpmpp", "ddim_steps": 20},
+     ROUTE_STEPS),
+    ("DDIM 20 steps, frozen payloads", "heavy", "1",
+     {"sampler": "ddim", "ddim_steps": 20}, ROUTE_STEPS),
+    ("m-major DDPM (cm_sampler off)", "heavy", "2", {"cm_sampler": False},
+     ROUTE_STEPS),
+    ("parity, DDIM 20 steps, guided focus 0.5", "parity", "2",
+     {"sampler": "ddim", "ddim_steps": 20, "fast_guided_focus": 0.5},
+     ROUTE_STEPS),
+    ("XLA loop, bf16 robustness", "heavy", "0",
+     {"robustness_dtype": "bfloat16"}, ROUTE_STEPS))
+
+
+def guided_steps(cfg):
+    """Guided denoise steps a plan: every step of a fast sampler (DDIM S,
+    DPM++ S - 1), the trigger schedule's on the DDPM chain."""
+    from pstl_tpu_torch import diffusion
+    if cfg.sampler == "ddim":
+        return len(diffusion._fast_taus(cfg))
+    if cfg.sampler == "dpmpp":
+        return len(diffusion._fast_taus(cfg)) - 1
+    return int(diffusion._trigger_schedule(cfg).sum())
+
+
+def sampler_loop_phase(dev, net, name_power):
+    """Phase 30: the heavy contract at full width (e7_round5, 16 synthetic
+    scenes) under the new samplers: ``SAMPLER_ROWS``, each launching its
+    route's kernel once per guided step of every plan and nothing else;
+    kernel 1 against its plain version on the DDIM row's first guided
+    step's recorded inputs.  Per row the median step, launches a step and
+    the quality, beside the DDPM route "2" (phase 6).  Returns kernel 1's
+    record numbers at the DDIM point."""
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+
+    t0 = time.time()
+    ddim = None
+    for what, mode, gpallas, kw, steps in SAMPLER_ROWS:
+        t_row = time.time()
+        cfg = bench_config(mode, gpallas=gpallas).with_(**kw)
+        kernel = ROUTE_KERNEL[gpallas]
+        guided = guided_steps(cfg)
+        with Recorder(gk, "guidance_fused") as rec:
+            counts, m, step_s, wall = run_loop(dev, net, cfg, steps)
+        check_counts(counts, {kernel: guided * steps} if kernel else {},
+                     f"{what} closed loop")
+        report_loop(f"{what} closed loop (BENCH_GPALLAS={gpallas})", steps,
+                    counts, m, step_s, wall)
+        log(f"{what}: median step {median(step_s) * 1e3:.1f} ms, "
+            f"{counts.get(kernel, 0) // steps if kernel else 0} kernel "
+            f"launches a step ({guided} guided steps a plan); row wall "
+            f"{time.time() - t_row:.1f} s; {name_power}")
+        if ddim is None:
+            ddim = (counts[kernel], rec.calls[0][0])
+    ref = LOOPS.get("BENCH_GPALLAS=2 sel_every=1 closed loop")
+    if ref is not None:
+        log(f"beside the DDPM chain on route 2 (phase 6, 99 guided steps a "
+            f"plan): median step {ref[0] * 1e3:.1f} ms, "
+            + " ".join(f"{k}={v:.4f}" for k, v in ref[1].items()))
+    launches, args = ddim
+    err, ms, plain_ms, bnd = recorded_kernel1(args, "the DDIM closed loop")
+    log(f"kernel 1 on the DDIM closed loop: launches {launches}; phase "
+        f"wall {time.time() - t0:.1f} s")
+    return launches, err, ms, plain_ms, bnd
+
+
+def guided_train_phase(dev, ds, name_power):
+    """Phase 31: ``ours_guidance`` (the training sampler guided on its last
+    10 denoise steps through the row-major fallback loss) warm-started
+    from e5b_round5 at full width (phase 15's scenes with the GT controls
+    in seed 0: 128 scenes x 64 x 3 = 24,576 rows, bf16): E7_STEPS train
+    steps and an eval step, finite, no kernel launch; every parameter
+    outside the RefineNet head bit for bit as loaded."""
+    import torch
+    from pstl_tpu_torch import train
+
+    t0 = time.time()
+    cfg = dense_config("ours_guidance")
+    net = dense_net(cfg, dev, seed=1, warm=True)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    step, _ = dense_loop(dev, cfg, net, ds, E7_STEPS,
+                         "ours_guidance train steps")
+    moved = sorted({k.split(".")[0] for k, v in net.state_dict().items()
+                    if not torch.equal(v, before[k])})
+    if any(m not in train.RECT_MODULES for m in moved):
+        raise RuntimeError(f"ours_guidance steps moved {moved}, expected "
+                           f"the RefineNet head only")
+    log(f"guided training: median train step {step * 1e3:.1f} ms "
+        f"({cfg.batch_size} scenes x {cfg.n_randoms * 3} rows, "
+        f"{guided_steps(cfg)} of "
+        f"{cfg.diffusion_steps - 1} denoise steps guided, "
+        f"{cfg.guidance_niters} Adam iteration at lr {cfg.guidance_lr}; "
+        f"{name_power}); modules moved: {moved}; phase wall "
+        f"{time.time() - t0:.1f} s")
+
+
+def shard_store_phase(dev, store, name_power):
+    """Phase 32: phase 20's store written as a native shard store (under
+    build/), one epoch of its shuffled train batches against
+    ``batch_iterator``'s bit for bit, then E5_STEPS ``e5_ddpm`` train steps
+    (and the val pass) through ``train.train(use_shard_store=True,
+    time_profile=True)`` on a subset of E5_STEPS train batches, with the
+    timer's sections printed."""
+    import shutil
+    import numpy as np
+    from pstl_tpu_torch import train
+    from pstl_tpu_torch.data.dataset import (SceneDataset, batch_iterator,
+                                             shard_store_iterator,
+                                             to_shard_store)
+    from pstl_tpu_torch.runtime import ShardStore
+
+    t0 = time.time()
+    cfg = dense_config("e5_ddpm")
+    path = os.path.join(HERE, "build", "chip_smoke_store", "shard_store")
+    shutil.rmtree(path, ignore_errors=True)
+    to_shard_store(store, path)
+    ss = ShardStore(path)
+    t1 = time.time()
+    got = list(shard_store_iterator(ss, store, "train", cfg.batch_size,
+                                    shuffle=True, seed=cfg.seed, epoch=0))
+    t_store = time.time() - t1
+    t1 = time.time()
+    want = list(batch_iterator(store, "train", cfg.batch_size, shuffle=True,
+                               seed=cfg.seed, epoch=0))
+    t_np = time.time() - t1
+    if len(got) != len(want) or not got:
+        raise RuntimeError(f"shard store: {len(got)} batches, "
+                           f"batch_iterator {len(want)}")
+    for g, w in zip(got, want):
+        if sorted(g) != sorted(w) or not all(
+                g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+                for k in w):
+            raise RuntimeError("shard store batches differ from "
+                               "batch_iterator's")
+    ss.close()
+    log(f"shard store: {len(got)} train batches of {cfg.batch_size} scenes "
+        f"({len(got[0])} columns) equal batch_iterator's bit for bit; "
+        f"epoch read {t_store:.2f} s (shard store) vs {t_np:.2f} s "
+        f"(numpy gather)")
+    # a subset whose train split holds E5_STEPS batches
+    n = E5_STEPS * cfg.batch_size
+    while True:
+        sub = SceneDataset({k: v[:n] for k, v in store.data.items()}, cfg)
+        if sub.split_len("train") // cfg.batch_size >= E5_STEPS:
+            break
+        n += 8
+    sdir = os.path.join("exps", "_tmp", "shard_store")
+    shutil.rmtree(sdir, ignore_errors=True)
+    logs = []
+    reset_counts()
+    state = train.train(cfg.with_(use_shard_store=True, time_profile=True),
+                        sub, epochs=1, device=dev, log=logs.append)
+    check_counts(read_counts(), {}, "e5 through the shard store")
+    shutil.rmtree(sdir, ignore_errors=True)
+    for ln in logs:
+        if ln.startswith("profile[") or ln.startswith(("train[", "val  [")):
+            log(f"shard store e5: {ln}")
+    prof = [ln for ln in logs if ln.startswith("profile[")]
+    if state.step != sub.split_len("train") // cfg.batch_size or len(
+            prof) != 2:
+        raise RuntimeError(f"train.train on the shard store ran "
+                           f"{state.step} steps, {len(prof)} profiles")
+    log(f"shard store e5: {state.step} train steps of {cfg.batch_size} "
+        f"scenes through train.train(use_shard_store=True, "
+        f"time_profile=True); {name_power}; phase wall "
+        f"{time.time() - t0:.1f} s")
 
 
 def main():
@@ -2775,6 +3102,17 @@ def main():
     log(f"phase 28 wall {time.time() - t_ph:.1f} s; kernel 1 on the ctg "
         f"rows: {cg_launches} launches on Table I, {cg2_launches} on Table "
         f"II; {name_power}")
+    sampler_reference_phase(dev, net_cpu.eval(), net_dev.eval())
+    t_ph = time.time()
+    dd_launches, dd_err, dd_ms, dd_plain_ms, dd_bound = sampler_loop_phase(
+        dev, net, name_power)
+    log(f"phase 30 wall {time.time() - t_ph:.1f} s; {name_power}")
+    t_ph = time.time()
+    guided_train_phase(dev, ds, name_power)
+    log(f"phase 31 wall {time.time() - t_ph:.1f} s")
+    t_ph = time.time()
+    shard_store_phase(dev, store, name_power)
+    log(f"phase 32 wall {time.time() - t_ph:.1f} s")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there
@@ -2810,7 +3148,9 @@ def main():
         entry(fused, "guidance_fused.cu", at + "396", t2_launches, t2_err,
               t2_ms, t2_plain_ms, t2_bound),
         entry(fused, "guidance_fused.cu", at + "396", cg_launches, cg_err,
-              cg_ms, cg_plain_ms, cg_bound)]}),
+              cg_ms, cg_plain_ms, cg_bound),
+        entry(fused, "guidance_fused.cu", at + "396", dd_launches, dd_err,
+              dd_ms, dd_plain_ms, dd_bound)]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

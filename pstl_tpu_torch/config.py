@@ -103,7 +103,7 @@ class Config:
     beta_start: float = 1e-4
     beta_end: float = 0.02
     cos: bool = True
-    sampler: str = "ddpm"             # the port runs "ddpm" only
+    sampler: str = "ddpm"
     ddim_steps: int = 20
     ddim_eta: float = 0.0
     fast_guided_focus: float = 0.0

@@ -1,7 +1,7 @@
-"""Fixed-shape scene dataset and batch iterator — a numpy mirror of
-``pstl_tpu/data/dataset.py`` (``SceneDataset`` with its npz store and
-train/val split file, and ``batch_iterator``; the shard store is not
-ported).
+"""Fixed-shape scene dataset and batch iterators — a numpy mirror of
+``pstl_tpu/data/dataset.py``: ``SceneDataset`` with its npz store and
+train/val split file, ``batch_iterator``, and the native shard store's
+``to_shard_store`` / ``shard_store_iterator`` (``runtime/shard_store.py``).
 
 Everything lives in one dict of stacked arrays; a batch is an index
 shuffle plus a gather.  The trajopt sidecars (``params``, ``params_init``,
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import collections
 import os
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -144,6 +144,27 @@ class SceneDataset:
         params = np.stack([w, a], axis=-1).astype(np.float32)
         self.data["params"] = params
         self.data["params_init"] = params.copy()
+
+
+def to_shard_store(ds: SceneDataset, path: str):
+    """Persist the dataset as a native shard-store directory (the JAX
+    package's format)."""
+    from pstl_tpu_torch.runtime import write_store
+    write_store(path, ds.data)
+
+
+def shard_store_iterator(store, ds: SceneDataset, split: str,
+                         batch_size: int, shuffle: bool, seed: int = 0,
+                         epoch: int = 0,
+                         columns: Optional[Tuple[str, ...]] = None):
+    """Batches of ``split`` from a ``runtime.ShardStore``, in
+    ``batch_iterator``'s order (the same shuffle, the ragged tail dropped):
+    the native worker thread assembles batch k+1 while batch k is being
+    consumed."""
+    idx = ds.splits[split].copy()
+    if shuffle:
+        np.random.RandomState(seed * 100003 + epoch).shuffle(idx)
+    yield from store.iter_batches(idx, batch_size, columns=columns)
 
 
 def batch_iterator(ds: SceneDataset, split: str, batch_size: int,

@@ -1,34 +1,46 @@
-"""DDPM reverse sampler with STL guidance (port of the DDPM path of
-``pstl_tpu/diffusion.py``).
+"""Reverse samplers with STL guidance (port of ``pstl_tpu/diffusion.py``):
+the DDPM chain, DDIM and DPM-Solver++(2M), and the guidance step they share.
 
-When any denoise step is guided, the reverse loop runs in candidate-minor
-(bs, nt, 2, R) layout and each guided step is :func:`_guidance_step`: under
-``guidance_pallas`` one launch of a guidance kernel
+:func:`sample` dispatches on ``cfg.sampler`` as the JAX package's does:
+"ddim" to :func:`reverse_sample_ddim`, "dpmpp" to
+:func:`reverse_sample_dpmpp`, anything else to the DDPM
+:func:`reverse_sample`.  The guidance context (:func:`make_guidance_ctx`)
+carries the per-row robustness function, the validity mask, the dense
+initial states and, optionally, the candidate-minor fused loss
+(``CandMinorGuidanceLoss``).
+
+When a denoise step of the DDPM chain is guided and the caller passes
+``cm_fn`` (``cm_sampler`` with the fused loss), the chain runs in
+candidate-minor (bs, nt, 2, R) layout.  Otherwise it runs row-major on
+(n, nt*2) with eps from the network's diffusion forward; the fast samplers
+always do.  A guided step is :func:`_guidance_step`: with the fused loss,
+under ``guidance_pallas`` one launch of a guidance kernel
 (``ops/guidance_kernel.py``: ``guidance_fused`` freezes the selections
 in-kernel, ``guidance_frozen`` reads those ``freeze_cm`` froze), otherwise
 the XLA guidance loop (Adam on autograd gradients of the guidance loss, in
-plain torch ops, as the JAX package computes it outside any kernel).
-``guidance_sel_every > 1`` carries the frozen selections across denoise
-steps.  When no step is guided, the loop runs row-major on (n, nt*2) with
-eps from the network's diffusion forward, as the JAX package does.
+plain torch ops, as the JAX package computes it outside any kernel); a
+row-major mean is turned candidate-minor around it.  Without the fused loss
+the XLA loop runs on the row-major fallback loss: rollout of the
+denormalized mean, ``score_rows`` and the hinge.  ``guidance_sel_every > 1``
+carries the frozen selections across DDPM denoise steps.  The fast samplers
+guide every step and re-freeze each time, as in the JAX package.
 
-The loop is a Python loop over the T-1 denoise steps; the trigger and
-refresh schedules are static, so it makes no host synchronisation of its
-own.  Noise is injectable for parity tests: a (T, *shape) tensor holds x0
-and then one draw per step, with shape (bs, nt, 2, R) on the
-candidate-minor path and (n, nt*2) on the row-major one.
+The loops are Python loops over static schedules, so they make no host
+synchronisation of their own.  Noise is injectable for parity tests: a
+(:func:`n_draws`, *shape) tensor holds x0 and then the per-step draws --
+DDPM T (x0, one a denoise step, the last zeroed), DDIM S + 1 (x0, one a
+step, the last multiplied by 0), DPM++ 1 (x0 only) -- with shape
+(bs, nt, 2, R) on the candidate-minor path and (n, nt*2) on the row-major
+ones (:func:`draw_layout`).
 
-Under ``guidance_pallas_superstep`` the loop is :func:`_reverse_superstep`
-instead: one launch of the superstep kernel (``ops/superstep_kernel.py``:
-eps MLP, posterior, guidance, noise) per denoise step.
+Under ``guidance_pallas_superstep`` the DDPM loop is
+:func:`_reverse_superstep` instead: one launch of the superstep kernel
+(``ops/superstep_kernel.py``: eps MLP, posterior, guidance, noise) per
+denoise step.
 
 For training, :func:`prep` noises controls and :func:`sample` runs the
-unguided row-major pass, on the per-scene (mono) rows or on the dense
-multi-candidate rows.
-
-Not ported yet: the DDIM and DPM++ samplers, and guidance on the row-major
-path (``cm_sampler=False`` or the row-major guidance loss), which is also
-what a guided training sampler would take.
+pass on the per-scene (mono) rows or on the dense multi-candidate rows,
+guided by the row-major fallback loss where the configuration guides.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import torch
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import guidance_kernel, superstep_kernel
+from pstl_tpu_torch.ops.guidance_loss import mask_mean
 
 Tensor = torch.Tensor
 
@@ -133,24 +146,104 @@ def _trigger_schedule(cfg: Config) -> np.ndarray:
     return trig
 
 
+#: the fast samplers of ``cfg.sampler``; any other name runs the DDPM chain
+FAST_SAMPLERS = ("ddim", "dpmpp")
+
+
+def _fast_taus(cfg: Config) -> np.ndarray:
+    """Timestep subsequence of the fast samplers (ddim / dpm++), as
+    ``pstl_tpu/diffusion.py:_fast_taus`` places it: uniform over [1, T-1]
+    by default; with ``fast_guided_focus > 0`` and a band (the banded
+    trigger's ``guidance_before``, or ``fast_focus_band``) a ``focus``
+    fraction of the S evaluations inside [1, band] and the rest uniformly
+    above it, repaired to strictly decreasing."""
+    T = cfg.diffusion_steps
+    S = min(cfg.ddim_steps, T - 1)
+    focus = cfg.fast_guided_focus
+    banded = (cfg.guidance and cfg.guidance_sets is None
+              and cfg.guidance_freq is None and not cfg.guidance_reverse
+              and 0 < cfg.guidance_before < T - 1)
+    gb = cfg.fast_focus_band or (cfg.guidance_before if banded else 0)
+    if focus <= 0.0 or not 0 < gb < T - 1:
+        return np.linspace(T - 1, 1, S).round().astype(np.int32)
+    s_lo = int(np.clip(round(S * focus), 1, min(S - 1, gb)))
+    s_hi = min(S - s_lo, T - 2 - gb)
+    hi = np.linspace(T - 1, gb + 1, s_hi).round()
+    lo = np.linspace(gb, 1, s_lo).round()
+    taus = np.concatenate([hi, lo]).astype(np.int32)
+    # rounding can collide neighbors inside a dense band
+    for i in range(1, len(taus)):
+        taus[i] = min(taus[i], taus[i - 1] - 1)
+    return np.maximum(taus, 1)
+
+
+class GuidanceCtx(NamedTuple):
+    """What the in-sampler guidance reads (``make_guidance_ctx``)."""
+    score_rows: Optional[Callable]
+    valid: Optional[Tensor]
+    states_flat: Optional[Tensor]
+    fused_loss: Optional[object] = None
+
+
+def make_guidance_ctx(score_rows: Optional[Callable], valid: Optional[Tensor],
+                      states_flat: Optional[Tensor],
+                      fused_loss=None) -> GuidanceCtx:
+    """The guidance context (``pstl_tpu/diffusion.py:make_guidance_ctx``): a
+    per-row robustness function (``specs.make_score_rows``), the validity
+    mask (n,), the dense initial states (n, 4) and optionally the
+    candidate-minor fused loss (``specs.make_guidance_loss``).  Without the
+    fused loss the guidance runs the row-major fallback loss on the first
+    three."""
+    return GuidanceCtx(score_rows, valid, states_flat, fused_loss)
+
+
+def _as_ctx(guide) -> Optional[GuidanceCtx]:
+    """A sampler's ``guide``: None, a :class:`GuidanceCtx`, or a fused loss
+    alone (the candidate-minor path needs nothing else)."""
+    if guide is None or isinstance(guide, GuidanceCtx):
+        return guide
+    return GuidanceCtx(None, None, None, guide)
+
+
+def n_draws(cfg: Config) -> int:
+    """How many draws the configured sampler takes: DDPM T (x0, then one a
+    denoise step, the last zeroed), DDIM S + 1 (x0, one a step; the last is
+    multiplied by 0), DPM++ 1 (x0)."""
+    if cfg.sampler == "ddim":
+        return len(_fast_taus(cfg)) + 1
+    if cfg.sampler == "dpmpp":
+        return 1
+    return cfg.diffusion_steps
+
+
+def cand_minor_pass(cfg: Config) -> bool:
+    """Whether a caller that passes ``cm_fn`` wherever ``cm_sampler`` and the
+    fused loss allow (``sim.make_planner``, ``eval_openloop``) gets the
+    candidate-minor DDPM chain: a denoise step is guided and the loss is
+    the fused one."""
+    return (cfg.sampler not in FAST_SAMPLERS and cfg.guidance
+            and cfg.cm_sampler and cfg.guidance_fused_loss
+            and cfg.tiled_scorer and bool(_trigger_schedule(cfg).any()))
+
+
+def draw_layout(cfg: Config, bs: int, R: int):
+    """One draw's shape for ``bs`` scenes of R candidates each: (bs, nt, 2,
+    R) on the candidate-minor chain, else (bs*R, nt*2)."""
+    if cand_minor_pass(cfg):
+        return (bs, cfg.nt, 2, R)
+    return (bs * R, cfg.nt * 2)
+
+
 def check_supported(cfg: Config) -> None:
-    """Raise for sampler configurations the port does not run yet."""
-    if cfg.sampler != "ddpm":
-        raise NotImplementedError(f"sampler={cfg.sampler!r}: only the DDPM "
-                                  "sampler is ported")
-    if cfg.guidance:
-        if not cfg.cm_sampler:
-            raise NotImplementedError("guidance with cm_sampler=False (the "
-                                      "row-major guided sampler) is not "
-                                      "ported")
-        if not (cfg.guidance_fused_loss and cfg.tiled_scorer):
-            raise NotImplementedError(
-                "the row-major guidance loss (guidance_fused_loss=False) is "
-                "not ported; guidance runs on the candidate-minor loss only")
-        if cfg.robustness_dtype != "float32":
-            raise NotImplementedError(
-                "robustness_dtype=bfloat16 (bf16 robustness in the XLA "
-                "guidance loop) is not ported")
+    """Raise for sampler configurations the port does not run: the guidance
+    kernels compute fp32 robustness, so bf16 robustness runs on the XLA
+    loop only (``Config.finalize`` refuses the pair too)."""
+    if (cfg.guidance and cfg.guidance_pallas
+            and cfg.robustness_dtype != "float32"):
+        raise NotImplementedError(
+            "robustness_dtype=bfloat16 with guidance_pallas: the guidance "
+            "kernels compute fp32 robustness; bf16 runs on the XLA loop "
+            "(guidance_pallas=False)")
 
 
 def _refresh_schedule(trig: np.ndarray, k: int) -> np.ndarray:
@@ -166,36 +259,75 @@ def _refresh_schedule(trig: np.ndarray, k: int) -> np.ndarray:
     return refresh
 
 
-def _guidance_step(mu_cm: Tensor, beta_t: Tensor, fused_loss, cfg: Config,
-                   maximize: bool, frozen=None) -> Tensor:
-    """One guided update of the candidate-minor (bs, T, 2, R) posterior
-    mean (``pstl_tpu/diffusion.py:_guidance_step`` with ``cm_io``): Adam on
-    the guidance loss, each step followed by the beta_t trust-region clip.
-    ``frozen``: the selections (``fused_loss.freeze_cm``) the caller
-    carries; with ``guidance_reuse_selection`` they are frozen at ``mu_cm``
-    when not given.  No gradient flows out."""
+def _guidance_step(mu: Tensor, beta_t: Tensor, guide, cfg: Config,
+                   maximize: bool, frozen=None,
+                   mu_cm: Optional[Tensor] = None) -> Tensor:
+    """One guided update of the posterior mean
+    (``pstl_tpu/diffusion.py:_guidance_step``): Adam on the guidance loss,
+    each step followed by the beta_t trust-region clip.  ``mu`` is
+    candidate-minor (bs, T, 2, R) -- the result is too -- or row-major
+    (n, nt*2).  With the context's fused loss a row-major ``mu`` is turned
+    candidate-minor (or ``mu_cm``, the caller's view of it, is used) for
+    the kernel or the XLA loop and back; without it the XLA loop runs on
+    the row-major fallback loss.  ``frozen``: the selections
+    (``fused_loss.freeze_cm``) the caller carries; with
+    ``guidance_reuse_selection`` they are frozen at the candidate-minor
+    mean when not given.  No gradient flows out."""
+    ctx = _as_ctx(guide)
     thres = 100.0 if maximize else cfg.stl_nn_thres
+    fused_loss = ctx.fused_loss
+    if fused_loss is None:
+        if cfg.guidance_pallas:
+            raise ValueError(
+                "guidance_pallas needs the candidate-minor fused loss -- "
+                "set guidance_fused_loss=True (Config.finalize couples this "
+                "automatically)")
+
+        def loss_fn(mu_flat):
+            u = denormalize_controls(mu_flat, cfg, clip=False)
+            trajs = dyn.rollout(ctx.states_flat, u, cfg.dt)
+            scores = ctx.score_rows(trajs[:, :-1])
+            return mask_mean(torch.relu(thres - scores), ctx.valid)
+
+        return _adam_loop(mu.detach(), beta_t, loss_fn, cfg)
+
+    cm_io = mu.dim() == 4
+    if cm_io:
+        mu_init = mu
+    else:
+        mu_init = mu_cm if mu_cm is not None \
+            else fused_loss._to_cand_minor(mu)
+    post = (lambda x: x) if cm_io else fused_loss._from_cand_minor
     fuse = cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze
     with torch.no_grad():
         # the fused kernel freezes in-kernel: pstl_tpu computes freeze_cm
         # here too, but nothing reads it
         if frozen is None and cfg.guidance_reuse_selection and not fuse:
-            frozen = fused_loss.freeze_cm(mu_cm)
+            frozen = fused_loss.freeze_cm(mu_init)
         if cfg.guidance_pallas:
-            return guidance_kernel.guidance_adam_cm(
-                fused_loss, frozen, mu_cm, beta_t, thres, cfg,
-                fuse_freeze=cfg.guidance_pallas_fuse_freeze)
-
+            return post(guidance_kernel.guidance_adam_cm(
+                fused_loss, frozen, mu_init, beta_t, thres, cfg,
+                fuse_freeze=cfg.guidance_pallas_fuse_freeze))
     # the XLA guidance loop: frozen=None re-selects in every iteration
+    return post(_adam_loop(
+        mu_init.detach(), beta_t,
+        lambda x: fused_loss.loss_cm(x, thres, frozen=frozen), cfg))
+
+
+def _adam_loop(mu0: Tensor, beta_t: Tensor, loss_fn: Callable,
+               cfg: Config) -> Tensor:
+    """The XLA guidance loop: ``guidance_niters`` Adam steps on autograd
+    gradients of ``loss_fn`` from ``mu0``, each followed by the trust-region
+    clip around ``mu0`` (the always-positive offset under
+    ``guidance_positive_offset_quirk``)."""
     lr, b1, b2, eps = cfg.guidance_lr, 0.9, 0.999, 1e-8
-    mu_opt = mu_cm
-    m = torch.zeros_like(mu_cm)
-    v = torch.zeros_like(mu_cm)
+    mu_opt = mu0
+    m = torch.zeros_like(mu0)
+    v = torch.zeros_like(mu0)
     for it in range(cfg.guidance_niters):
         with torch.enable_grad():
             x = mu_opt.detach().requires_grad_(True)
-            g, = torch.autograd.grad(
-                fused_loss.loss_cm(x, thres, frozen=frozen), x)
+            g, = torch.autograd.grad(loss_fn(x), x)
         with torch.no_grad():
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
@@ -203,15 +335,26 @@ def _guidance_step(mu_cm: Tensor, beta_t: Tensor, fused_loss, cfg: Config,
             vh = v / (1 - b2 ** (it + 1))
             mu_opt = mu_opt - lr * mh / (torch.sqrt(vh) + eps)
             if cfg.guidance_positive_offset_quirk:
-                delta = torch.minimum(torch.abs(mu_opt - mu_cm), beta_t)
+                delta = torch.minimum(torch.abs(mu_opt - mu0), beta_t)
             else:
-                delta = torch.maximum(torch.minimum(mu_opt - mu_cm, beta_t),
+                delta = torch.maximum(torch.minimum(mu_opt - mu0, beta_t),
                                       -beta_t)
-            mu_opt = mu_cm + delta
+            mu_opt = mu0 + delta
     return mu_opt
 
 
-def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
+def _drawer(noise: Optional[Tensor], count: int, shape, generator, dev):
+    """draw(j) -> the j-th of ``count`` draws of ``shape``: ``noise[j]`` when
+    pinned (checked against (count, *shape)), else a fresh normal draw."""
+    if noise is not None:
+        if tuple(noise.shape) != (count,) + tuple(shape):
+            raise ValueError(f"noise must be {(count,) + tuple(shape)}, got "
+                             f"{tuple(noise.shape)}")
+        return lambda j: noise[j]
+    return lambda j: torch.randn(shape, generator=generator, device=dev)
+
+
+def reverse_sample(cm_fn: Optional[Callable], guide, cfg: Config,
                    coeffs: Coeffs, maximize: bool = False,
                    noise: Optional[Tensor] = None,
                    generator: Optional[torch.Generator] = None,
@@ -219,10 +362,13 @@ def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
                    n: Optional[int] = None):
     """Full reverse DDPM (``pstl_tpu/diffusion.py:reverse_sample``).
 
-    When ``fused_loss`` (the scene batch's ``CandMinorGuidanceLoss``) is
-    given and any denoise step is guided: candidate-minor (bs, nt, 2, R)
-    layout with cm_fn(x_cm, t) -> epsilon.  Otherwise row-major (n, nt*2)
-    with eps_fn(x, t) -> epsilon (n, nt*2), the network's diffusion forward.
+    ``guide``: None, the guidance context (:func:`make_guidance_ctx`) or
+    the scene batch's ``CandMinorGuidanceLoss`` alone.  When a denoise step
+    is guided, ``cm_fn`` is given and the context has the fused loss: the
+    candidate-minor (bs, nt, 2, R) layout with cm_fn(x_cm, t) -> epsilon.
+    Otherwise row-major (n, nt*2) with eps_fn(x, t) -> epsilon (n, nt*2),
+    the network's diffusion forward, guided (m-major, transposed around
+    the fused loss, or on the fallback loss) where the schedule says.
     ``noise`` (T, *layout) pins x0 and the per-step draws; otherwise they
     come from ``generator`` on the coefficients' device.  Returns (controls
     (n, nt, 2), all_steps (T, n, nt, 2)) with all_steps the denormalized
@@ -230,26 +376,20 @@ def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
     otherwise).
     """
     check_supported(cfg)
+    ctx = _as_ctx(guide)
     T = cfg.diffusion_steps
     trig = _trigger_schedule(cfg)
-    use_guidance = fused_loss is not None and bool(trig.any())
-    if use_guidance:
-        if cm_fn is None:
-            raise ValueError("guided sampling runs candidate-minor: pass "
-                             "cm_fn")
+    use_guidance = ctx is not None and bool(trig.any())
+    fused_loss = ctx.fused_loss if ctx is not None else None
+    use_cm = cm_fn is not None and fused_loss is not None and use_guidance
+    if use_cm:
         shape = (fused_loss.bs, cfg.nt, 2, fused_loss.R)
     else:
         if eps_fn is None or n is None:
-            raise ValueError("the unguided (row-major) pass needs eps_fn "
-                             "and n")
+            raise ValueError("the row-major pass needs eps_fn and n")
         shape = (n, cfg.nt * 2)
-    dev = coeffs.beta.device
-    if noise is not None and tuple(noise.shape) != (T,) + shape:
-        raise ValueError(f"noise must be {(T,) + shape}, got "
-                         f"{tuple(noise.shape)}")
-    draw = (lambda j: noise[j]) if noise is not None else (
-        lambda j: torch.randn(shape, generator=generator, device=dev))
-    if (use_guidance and cfg.guidance_pallas_superstep
+    draw = _drawer(noise, T, shape, generator, coeffs.beta.device)
+    if (use_cm and cfg.guidance_pallas_superstep
             and hasattr(cm_fn, "operands")):
         return _reverse_superstep(cm_fn, fused_loss, cfg, coeffs, trig,
                                   maximize, draw)
@@ -257,11 +397,11 @@ def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
     # steps, refreshed on every k-th guided step (the first guided step
     # always refreshes, so nothing stale is read)
     carry_sel = (use_guidance and cfg.guidance_reuse_selection
-                 and cfg.guidance_sel_every > 1)
+                 and fused_loss is not None and cfg.guidance_sel_every > 1)
     refresh = _refresh_schedule(trig, cfg.guidance_sel_every) \
         if carry_sel else None
     frozen = None
-    eps_of = cm_fn if use_guidance else eps_fn
+    eps_of = cm_fn if use_cm else eps_fn
     x = draw(0)
     hist = [x]
     for j, t in enumerate(range(T - 1, 0, -1)):
@@ -271,19 +411,116 @@ def reverse_sample(cm_fn: Optional[Callable], fused_loss, cfg: Config,
         mu = (x - ((1 - alpha) / torch.sqrt(1 - alpha_hat)) * eps) \
             / torch.sqrt(alpha)
         if use_guidance and trig[j]:
-            if carry_sel and refresh[j]:
-                with torch.no_grad():
-                    frozen = fused_loss.freeze_cm(mu)
-            mu = _guidance_step(mu, beta, fused_loss, cfg, maximize,
-                                frozen=frozen)
+            m_cm = None
+            if carry_sel:
+                # the m-major chain freezes its candidate-minor view, which
+                # the guidance step then reuses
+                m_cm = mu if use_cm else fused_loss._to_cand_minor(mu)
+                if refresh[j]:
+                    with torch.no_grad():
+                        frozen = fused_loss.freeze_cm(m_cm)
+            mu = _guidance_step(mu, beta, ctx, cfg, maximize, frozen=frozen,
+                                mu_cm=None if use_cm else m_cm)
         z = draw(j + 1)
         if t <= 1:
             z = torch.zeros_like(z)
         x = mu + cfg.sample_noise_scale * torch.sqrt(beta) * z
         if cfg.diff_full:
             hist.append(x)
-    conv = fused_loss._from_cand_minor if use_guidance else (lambda v: v)
+    conv = fused_loss._from_cand_minor if use_cm else (lambda v: v)
     return _decodings(x, hist, conv, cfg)
+
+
+def reverse_sample_ddim(eps_fn: Callable, guide, cfg: Config,
+                        coeffs: Coeffs, n: int, maximize: bool = False,
+                        noise: Optional[Tensor] = None,
+                        generator: Optional[torch.Generator] = None):
+    """DDIM over the ``_fast_taus`` subsequence
+    (``pstl_tpu/diffusion.py:reverse_sample_ddim``), row-major (n, nt*2)
+    with eps_fn(x, t) -> epsilon.  With a guidance context every step's
+    pre-noise mean is guided (:func:`_guidance_step`; the trigger schedule
+    only places the taus).  ``noise`` (S + 1, n, nt*2): x0, then one draw a
+    step, the last multiplied by 0 (t_next = 0).  Returns (controls,
+    all_steps) with all_steps [x0, S steps] (``diff_full``)."""
+    check_supported(cfg)
+    ctx = _as_ctx(guide)
+    taus = [int(t) for t in _fast_taus(cfg)]
+    taus_next = taus[1:] + [0]
+    use_guidance = ctx is not None and cfg.guidance
+    shape = (n, cfg.nt * 2)
+    draw = _drawer(noise, len(taus) + 1, shape, generator,
+                   coeffs.beta.device)
+    eta = cfg.ddim_eta
+    one = torch.ones((), device=coeffs.beta.device)
+    x = draw(0)
+    hist = [x]
+    for j, (t, t_next) in enumerate(zip(taus, taus_next)):
+        eps = eps_fn(x, t)
+        ab_t = coeffs.alpha_hat[t]
+        ab_n = coeffs.alpha_hat[t_next] if t_next > 0 else one
+        x0_hat = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
+        sigma = (eta * torch.sqrt((1 - ab_n) / (1 - ab_t))
+                 * torch.sqrt(1 - ab_t / ab_n))
+        dir_coef = torch.sqrt(torch.clamp(1 - ab_n - sigma ** 2, min=0.0))
+        mu = torch.sqrt(ab_n) * x0_hat + dir_coef * eps
+        if use_guidance:
+            mu = _guidance_step(mu, coeffs.beta[t], ctx, cfg, maximize)
+        z = draw(j + 1)
+        if t_next <= 0:
+            z = torch.zeros_like(z)
+        x = mu + cfg.sample_noise_scale * sigma * z
+        if cfg.diff_full:
+            hist.append(x)
+    return _decodings(x, hist, lambda v: v, cfg)
+
+
+def reverse_sample_dpmpp(eps_fn: Callable, guide, cfg: Config,
+                         coeffs: Coeffs, n: int, maximize: bool = False,
+                         noise: Optional[Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+    """DPM-Solver++(2M) over the ``_fast_taus`` subsequence
+    (``pstl_tpu/diffusion.py:reverse_sample_dpmpp``): data-prediction
+    updates in half log-SNR time, first order on the first step, the 2M
+    correction after; deterministic, guided on every step with a guidance
+    context.  ``noise`` (1, n, nt*2) is x0.  Returns (controls, all_steps)
+    with all_steps [x0, S-1 steps, the final decode at tau_min]."""
+    check_supported(cfg)
+    ctx = _as_ctx(guide)
+    taus = [int(t) for t in _fast_taus(cfg)]
+    use_guidance = ctx is not None and cfg.guidance
+    draw = _drawer(noise, 1, (n, cfg.nt * 2), generator, coeffs.beta.device)
+    ab = coeffs.alpha_hat
+    alpha_t = torch.sqrt(ab)
+    sigma_t = torch.sqrt(1.0 - ab)
+    lam = torch.log(alpha_t) - torch.log(sigma_t)       # half log-SNR
+
+    def x0_pred(x, t):
+        return (x - sigma_t[t] * eps_fn(x, t)) / alpha_t[t]
+
+    x = draw(0)
+    hist = [x]
+    d_prev = torch.zeros_like(x)
+    h_prev = torch.ones((), device=x.device)
+    for j, (t_prev, t) in enumerate(zip(taus[:-1], taus[1:])):
+        d = x0_pred(x, t_prev)
+        h = lam[t] - lam[t_prev]
+        if j == 0:
+            d_used = d            # first step: the first-order update
+        else:
+            r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
+            c = 1 / (2 * torch.clamp(r, min=1e-6))
+            d_used = (1 + c) * d - c * d_prev
+        x = sigma_t[t] / sigma_t[t_prev] * x \
+            - alpha_t[t] * torch.expm1(-h) * d_used
+        if use_guidance:
+            x = _guidance_step(x, coeffs.beta[t], ctx, cfg, maximize)
+        d_prev, h_prev = d, h
+        if cfg.diff_full:
+            hist.append(x)
+    x_final = x0_pred(x, taus[-1])
+    if cfg.diff_full:
+        hist.append(x_final)
+    return _decodings(x_final, hist, lambda v: v, cfg)
 
 
 def sample(apply_fn: Callable, highlevel: Tensor, cfg: Config,
@@ -291,14 +528,16 @@ def sample(apply_fn: Callable, highlevel: Tensor, cfg: Config,
            tmp_stlp: Optional[Tensor] = None,
            noise: Optional[Tensor] = None,
            generator: Optional[torch.Generator] = None,
-           stlp_dense: Optional[Tensor] = None):
-    """The unguided row-major DDPM pass with eps from the network
-    (``pstl_tpu/diffusion.py:sample`` without guidance): ``apply_fn(ext)``
-    is the network's diffusion forward on ext = {timestep (n, 1),
-    highlevel, noise (n, nt*2), stlp [, gt_stlp]}.  With ``mono`` the ext
-    carries ``tmp_stlp`` as both ``stlp`` and ``gt_stlp`` (the per-scene
-    pSTL parameters); otherwise the n dense rows' ``stlp_dense`` as
-    ``stlp``.  ``noise`` / ``generator`` as in :func:`reverse_sample`.
+           stlp_dense: Optional[Tensor] = None, guide=None,
+           maximize: bool = False, cm_fn: Optional[Callable] = None):
+    """The configured sampler (``pstl_tpu/diffusion.py:sample``) with eps
+    from the network: ``apply_fn(ext)`` is the diffusion forward on ext =
+    {timestep (n, 1), highlevel, noise (n, nt*2), stlp [, gt_stlp]}.  With
+    ``mono`` the ext carries ``tmp_stlp`` as both ``stlp`` and ``gt_stlp``
+    (the per-scene pSTL parameters); otherwise the n dense rows'
+    ``stlp_dense`` as ``stlp``.  ``guide``, ``maximize``, ``noise`` and
+    ``generator`` as in :func:`reverse_sample`; ``cm_fn`` goes to the DDPM
+    chain only (the candidate-minor layout is a DDPM-chain optimization).
     Returns (controls (n, nt, 2), all_steps)."""
     if mono:
         extra = {"stlp": tmp_stlp, "gt_stlp": tmp_stlp}
@@ -313,8 +552,15 @@ def sample(apply_fn: Callable, highlevel: Tensor, cfg: Config,
                "highlevel": highlevel, "noise": x, **extra}
         return apply_fn(ext).reshape(n, cfg.nt * 2)
 
-    return reverse_sample(None, None, cfg, coeffs, noise=noise,
-                          generator=generator, eps_fn=eps_fn, n=n)
+    if cfg.sampler == "ddim":
+        return reverse_sample_ddim(eps_fn, guide, cfg, coeffs, n, maximize,
+                                   noise, generator)
+    if cfg.sampler == "dpmpp":
+        return reverse_sample_dpmpp(eps_fn, guide, cfg, coeffs, n, maximize,
+                                    noise, generator)
+    return reverse_sample(cm_fn, guide, cfg, coeffs, maximize=maximize,
+                          noise=noise, generator=generator, eps_fn=eps_fn,
+                          n=n)
 
 
 def _reverse_superstep(cm_fn: Callable, fused_loss, cfg: Config,

@@ -112,13 +112,14 @@ def _sample_and_score(net: Net, batch: Dict[str, Tensor], cfg: Config,
                       noise: Optional[Tensor] = None,
                       generator: Optional[torch.Generator] = None):
     """The timed region: dense batch of ``sampling_size`` = S candidates per
-    (scene, maneuver), the reverse pass (guided: candidate-minor with
-    ``make_guidance_loss`` and ``make_cm_eps_fn``, ``maximize=False``;
-    unguided: row-major with the network's diffusion forward), multi-cands,
+    (scene, maneuver), the configured sampler (``diffusion.sample``; the
+    DDPM chain guided candidate-minor with ``make_guidance_loss`` and
+    ``make_cm_eps_fn``, ``maximize=False``; otherwise row-major with the
+    network's diffusion forward, guided through the context), multi-cands,
     RefineNet and ``n_rolls``, or the VAE / BC decoder, then the final
     rollout and scores.  ``flex``: the densify draw; ``noise``: the
-    sampler's draws in its layout (see ``diffusion.reverse_sample``) or the
-    VAE's prior latent (N, vae_dim) (``draw_shape``); what is not given
+    sampler's draws or the VAE's prior latent (N, vae_dim), of
+    ``draw_shape``; what is not given
     comes from ``generator``.  Returns (nn, controls (N, nt, 2), trajs
     (N, nt+1, 4), valid (N,))."""
     check_supported(cfg)
@@ -127,7 +128,6 @@ def _sample_and_score(net: Net, batch: Dict[str, Tensor], cfg: Config,
     gt_trajs = batch["ego_traj"][..., :4]
     states = gt_trajs[:, 0, :4]
     bs = states.shape[0]
-    dev = states.device
     gt_stlp = specs.calibrate_stlp(batch, gt_trajs, cfg)
 
     N = bs * S * 3
@@ -160,19 +160,16 @@ def _sample_and_score(net: Net, batch: Dict[str, Tensor], cfg: Config,
     fused = (specs.make_guidance_loss(batch, dense, cfg, states, valid,
                                       n_randoms=S)
              if cfg.guidance else None)
+    ctx = (diffusion.make_guidance_ctx(score_rows, valid, states_flat, fused)
+           if cfg.guidance else None)
     cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature, cfg,
                                    n_randoms=S)
              if cfg.cm_sampler and fused is not None else None)
-
-    def eps_fn(x, t):
-        ext = {"timestep": torch.full((N, 1), float(t), device=dev),
-               "highlevel": highlevel, "noise": x}
-        return net(dense, ext, prev_feature=feature, n_randoms=S).reshape(
-            N, cfg.nt * 2)
-
-    nn_controls, all_steps = diffusion.reverse_sample(
-        cm_fn, fused, cfg, coeffs, maximize=False, noise=noise,
-        generator=generator, eps_fn=eps_fn, n=N)
+    nn_controls, all_steps = diffusion.sample(
+        lambda e: net(dense, e, prev_feature=feature, n_randoms=S),
+        highlevel, cfg, coeffs, N, noise=noise, generator=generator,
+        stlp_dense=dense["stlp_dense"], guide=ctx, maximize=False,
+        cm_fn=cm_fn)
     if cfg.rect_head and not cfg.not_use_rect:
         if cfg.multi_cands is not None:
             nn_controls, prev_scores = diffusion.select_multi_cands(
@@ -229,21 +226,20 @@ def _nn_metrics(nn, nn_controls: Tensor, nn_trajs: Tensor, valid: Tensor,
 
 
 def sampler_shape(cfg: Config, bs: int):
-    """The layout of the reverse pass's draws for ``bs`` scenes: the
-    candidate-minor (bs, nt, 2, 3*S) when a denoise step is guided, else
-    the row-major (bs*3*S, nt*2)."""
-    R = 3 * cfg.sampling_size
-    if cfg.guidance and bool(diffusion._trigger_schedule(cfg).any()):
-        return (bs, cfg.nt, 2, R)
-    return (bs * R, cfg.nt * 2)
+    """The layout of one of the sampler's draws for ``bs`` scenes: the
+    candidate-minor (bs, nt, 2, 3*S) on the DDPM chain with a guided step,
+    ``cm_sampler`` and the fused loss, else the row-major (bs*3*S, nt*2)
+    (``diffusion.draw_layout``)."""
+    return diffusion.draw_layout(cfg, bs, 3 * cfg.sampling_size)
 
 
 def draw_shape(cfg: Config, bs: int):
     """The shape of ``_sample_and_score``'s ``noise`` for ``bs`` scenes: the
-    sampler's (diffusion_steps, *sampler_shape), the VAE's prior latent
-    (bs*3*S, vae_dim), or None (the BC head draws nothing)."""
+    sampler's (``diffusion.n_draws``, *sampler_shape) -- DDPM T, DDIM S + 1,
+    DPM++ 1 --, the VAE's prior latent (bs*3*S, vae_dim), or None (the BC
+    head draws nothing)."""
     if cfg.diffusion:
-        return (cfg.diffusion_steps,) + sampler_shape(cfg, bs)
+        return (diffusion.n_draws(cfg),) + sampler_shape(cfg, bs)
     if cfg.vae:
         return (bs * 3 * cfg.sampling_size, cfg.vae_dim)
     return None

@@ -11,9 +11,11 @@ invariants the kernels read (recentred lanes, neighbor discs, stlp rows).
 :meth:`CandMinorGuidanceLoss.freeze_cm` makes the frozen payloads that the
 frozen-payload kernel and the XLA guidance loop read.  As in the JAX
 package, ``geometry_dtype`` is the dtype of the selection fields (the
-distances the argmins search) and of the stored payloads; every score and
-gradient is fp32 (the kernels require fp32 robustness,
-``Config.finalize``).
+distances the argmins search) and of the stored payloads, and
+``robustness_dtype`` the dtype of the soft-min / soft-max reductions (cast
+where the JAX package casts; the scores come out fp32).  The kernels
+require fp32 robustness (``Config.finalize``), so bf16 robustness runs on
+the XLA guidance loop only.
 """
 
 from __future__ import annotations
@@ -107,14 +109,19 @@ class CandMinorGuidanceLoss:
         # geometry dtype, rounded where pstl_tpu rounds them
         self.gdtype = torch.bfloat16 if cfg.geometry_dtype == "bfloat16" \
             else torch.float32
+        # the robustness reductions' dtype (the Adam math stays fp32)
+        self.dtype = torch.bfloat16 if cfg.robustness_dtype == "bfloat16" \
+            else torch.float32
         self._kernel_operands = None
 
     # ------------------------------------------------------------------
     def _alw(self, g, tau, dim=1):
+        g = g.to(self.dtype)
         return -_lse(-g * tau, dim) / tau
 
     def _ev_alw(self, g, tau):
         nt2 = self.cfg.nt // 2
+        g = g.to(self.dtype)
         suffix = -stl.logcumsumexp(-g * tau, dim=1, reverse=True) / tau
         return _lse(suffix[:, :nt2] * tau, 1) / tau
 
@@ -265,8 +272,8 @@ class CandMinorGuidanceLoss:
         P = lambda i: self.stlp_r[:, i][:, None, :]           # (bs,1,R)
         Ps = lambda i, sl: self.stlp_r[:, i, sl][:, None, :]
         sub = lambda f, sl: f[:, :, sl] if torch.is_tensor(f) else f
-        smin = lambda rows, dim: -_lse(torch.stack(rows, dim=dim) * tau,
-                                       dim) / tau
+        smin = lambda rows, dim: -_lse(
+            torch.stack(rows, dim=dim).to(self.dtype) * tau, dim) / tau
         alw_vmin = self._alw((v_s - P(I_VMIN)) / self.vf, tau)
         alw_vmax = self._alw((-v_s + P(I_VMAX)) / self.vf, tau)
         alw_safe = self._alw((mnd - P(I_DSAFE)) / self.sf, tau)
@@ -291,7 +298,8 @@ class CandMinorGuidanceLoss:
         ev_th = self._ev_alw((thc - th_all[..., cM]) / thc, tau)
         s_change = smin([-alw_vmin[:, cM], -alw_vmax[:, cM], -ev_d, -ev_th,
                          -alw_safe[:, cM]], 1)
-        return torch.cat([s_keep, s_change], dim=1)           # (bs, R)
+        return torch.cat([s_keep, s_change],
+                         dim=1).float()                       # (bs, R)
 
     def _to_cand_minor(self, mu: Tensor) -> Tensor:
         """(N, nt*2) m-major sampler layout -> (bs, T, 2, R) j-major."""
@@ -324,10 +332,10 @@ class CandMinorGuidanceLoss:
 def make_guidance_loss(batch: Dict[str, Tensor], dense: Dict[str, Tensor],
                        cfg: Config, states: Tensor, valid: Tensor,
                        n_randoms: Optional[int] = None):
-    """The candidate-minor guidance loss the sampler's guidance step uses."""
+    """The candidate-minor fused guidance loss when enabled, else None: the
+    sampler's guidance step then runs the rollout + ``score_rows`` fallback
+    loss (``diffusion.make_guidance_ctx``)."""
     if not (cfg.guidance_fused_loss and cfg.tiled_scorer):
-        raise NotImplementedError(
-            "the row-major guidance loss (guidance_fused_loss=False) is not "
-            "ported; the torch sampler runs the candidate-minor path only")
+        return None
     return CandMinorGuidanceLoss(batch, dense["stlp_dense"], states, valid,
                                  cfg, n_randoms=n_randoms)

@@ -283,8 +283,9 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
                  stlp_override: Optional[np.ndarray] = None):
     """Returns ``plan(obs, noise=None, generator=None, hint=None) ->
     (u0 (bs, 2), info)``: dense batching with the aggressive stlp override,
-    the candidates (the DDPM reverse pass with guidance, maximize,
-    ``noise`` in the sampler's layout, see ``diffusion.reverse_sample``;
+    the candidates (``diffusion.sample``'s configured sampler with
+    guidance, maximize, ``noise`` in the sampler's layout,
+    ``diffusion.n_draws`` / ``draw_layout``;
     the VAE decoder on a prior latent, ``noise`` (n, vae_dim); the BC head,
     no draw), under ``use_init_hint`` with ``hint`` (n, nt, 2) as the
     rows' control seeds (``hint_draws``), multi-cands + RefineNet +
@@ -341,21 +342,17 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         if cfg.diffusion:
             fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
                      if cfg.guidance else None)
+            ctx = (diffusion.make_guidance_ctx(score_rows, valid,
+                                               states_flat, fused)
+                   if cfg.guidance else None)
             cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature,
                                            cfg)
                      if cfg.cm_sampler and fused is not None else None)
-
-            def eps_fn(x, t):
-                """The unguided pass's eps: the diffusion forward (the JAX
-                planner's apply_fn)."""
-                ext = {"timestep": torch.full((n, 1), float(t), device=dev),
-                       "highlevel": highlevel, "noise": x}
-                return net(dense, ext, prev_feature=feature).reshape(
-                    n, cfg.nt * 2)
-
-            nn_controls, all_steps = diffusion.reverse_sample(
-                cm_fn, fused, cfg, coeffs, maximize=True, noise=noise,
-                generator=generator, eps_fn=eps_fn, n=n)
+            nn_controls, all_steps = diffusion.sample(
+                lambda e: net(dense, e, prev_feature=feature), highlevel,
+                cfg, coeffs, n, noise=noise, generator=generator,
+                stlp_dense=dense["stlp_dense"], guide=ctx, maximize=True,
+                cm_fn=cm_fn)
         else:
             nn_controls = decode_baseline(net, dense, feature, cfg, noise,
                                           generator)

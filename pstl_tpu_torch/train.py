@@ -49,13 +49,19 @@ updates them in place.  Checkpoints (``save_checkpoint``,
 ``load_checkpoint``, ``load_params_only``) are torch files under
 ``exps/<exp_name>/torch_models``.
 
+With ``guidance`` (``ours_guidance``, ``ours_guidance_sim``) the dense
+step's sampler is guided through a context with no fused loss, so it runs
+the row-major fallback loss at the threshold ``stl_nn_thres``, as the JAX
+step does.  ``train`` reads batches from the native shard store under
+``use_shard_store`` and logs per-section wall times under
+``time_profile``.
+
 Not ported (each raises, by name): ``grad_rollout`` on the dense
-diffusion step, guidance in the training sampler, the constant-velocity
-neighbor prediction (``gt_nei=False``), and the viz of an experiment
-directory (``exp_name`` with ``no_viz`` False; ROADMAP.md §1 item 12).
-The JAX package's device-side chunking (``train_chunk``) is exact by
-construction, so the port steps once per batch; its shard store is not
-ported.
+diffusion step, the constant-velocity neighbor prediction
+(``gt_nei=False``), and the viz of an experiment directory (``exp_name``
+with ``no_viz`` False; ROADMAP.md §1 item 5).  The JAX package's
+device-side chunking (``train_chunk``) is exact by construction, so the
+port steps once per batch.
 """
 
 from __future__ import annotations
@@ -69,13 +75,14 @@ import torch
 
 from pstl_tpu_torch import diffusion, losses, specs
 from pstl_tpu_torch.config import Config
-from pstl_tpu_torch.data.dataset import SceneDataset, batch_iterator
+from pstl_tpu_torch.data.dataset import (SceneDataset, batch_iterator,
+                                         shard_store_iterator, to_shard_store)
 from pstl_tpu_torch.device import resolve_device
 from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.models.net import Net, init_flax_like
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.utils.exp import MODELS_DIR, setup_exp_dir
-from pstl_tpu_torch.utils.meters import EtaEstimator, MeterDict
+from pstl_tpu_torch.utils.meters import EtaEstimator, MeterDict, Timer
 
 Tensor = torch.Tensor
 
@@ -226,10 +233,6 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
     if cfg.diffusion and cfg.grad_rollout and not cfg.rect_head:
         raise NotImplementedError("grad_rollout (training through the dense "
                                   "sampler) is not ported")
-    if cfg.diffusion and cfg.rect_head and cfg.guidance:
-        raise NotImplementedError(
-            "guidance in the training sampler (the row-major guided sampler, "
-            "ROADMAP.md §1 item 6) is not ported")
     if not (cfg.diffusion or cfg.vae or cfg.bc):
         raise NotImplementedError("the dense step needs a diffusion, VAE or "
                                   "BC head")
@@ -315,10 +318,16 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
         # the JAX step)
         with torch.no_grad():
             feat = feature.detach()
+            # guided (ours_guidance): the context carries no fused loss, so
+            # the guidance runs the row-major fallback loss, threshold
+            # stl_nn_thres (maximize=False)
+            ctx = (diffusion.make_guidance_ctx(score_rows, valid, states_flat)
+                   if cfg.guidance else None)
             nn_controls, all_steps = diffusion.sample(
                 lambda e: net(dense, e, prev_feature=feat), highlevel, cfg,
                 coeffs, n, noise=draws.get("sample_noise"),
-                generator=generator, stlp_dense=dense["stlp_dense"])
+                generator=generator, stlp_dense=dense["stlp_dense"],
+                guide=ctx)
             if cfg.multi_cands is not None:
                 nn_controls, prev_scores = diffusion.select_multi_cands(
                     all_steps, cfg.multi_cands, states_flat, score_rows, cfg)
@@ -514,7 +523,13 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     pass.  With ``cfg.exp_name`` the experiment directory is made
     (``utils.exp.setup_exp_dir``, no tee) and a checkpoint is written under
     ``exps/<exp_name>/torch_models`` every ``save_freq`` epochs and after
-    the last."""
+    the last.  ``cfg.use_shard_store``: the batches come from the native
+    shard store under ``exps/<exp_name or _tmp>/shard_store`` (written from
+    ``ds`` when it holds no ``meta.json``; the same batches as
+    ``batch_iterator``).  ``cfg.time_profile``: each pass also logs the
+    mean wall seconds between its marks ``data`` (the iterator), ``h2d``
+    (the copy to the device), ``step`` (the step, synchronized) and ``log``
+    (the metrics)."""
     if cfg.exp_name and not cfg.no_viz:
         raise NotImplementedError(
             "the viz of an experiment directory is not ported (ROADMAP.md "
@@ -534,31 +549,64 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     eval_step = make_eval_step(cfg, net, formulas, coeffs)
     if cfg.exp_name:
         ckpt_dir = os.path.join(setup_exp_dir(cfg, tee=False), MODELS_DIR)
+    store = None
+    if cfg.use_shard_store:
+        # the native data path: a memory-mapped column store, gathered by a
+        # C++ thread pool with double-buffered prefetch
+        from pstl_tpu_torch.runtime import ShardStore
+        sdir = os.path.join("exps", cfg.exp_name or "_tmp", "shard_store")
+        if not os.path.exists(os.path.join(sdir, "meta.json")):
+            to_shard_store(ds, sdir)
+        store = ShardStore(sdir)
+        store_cols = tuple(c for c in store.columns if c.startswith(COLS))
+
+    def make_iter(mode, epi):
+        if store is not None:
+            return shard_store_iterator(store, ds, mode, cfg.batch_size,
+                                        shuffle=(mode == "train"),
+                                        seed=cfg.seed, epoch=epi,
+                                        columns=store_cols)
+        return batch_iterator(ds, mode, cfg.batch_size,
+                              shuffle=(mode == "train"), seed=cfg.seed,
+                              epoch=epi)
+
     n_epochs = epochs if epochs is not None else cfg.epochs
     eta = EtaEstimator(n_epochs, ds.split_len("train") // cfg.batch_size,
                        ds.split_len("val") // cfg.batch_size, cfg.viz_freq)
     for epi in range(n_epochs):
         for mode in ("train", "val"):
             md = MeterDict()
+            it = make_iter(mode, epi)
             t0 = time.time()
             bi = -1
-            for bi, b in enumerate(batch_iterator(
-                    ds, mode, cfg.batch_size, shuffle=(mode == "train"),
-                    seed=cfg.seed, epoch=epi)):
+            timer = Timer() if cfg.time_profile else None
+            for bi, b in enumerate(it):
+                if timer:
+                    timer.add("data")
                 batch = to_device(b, dev)
+                if timer:
+                    timer.add("h2d")
                 if mode == "train":
                     rd = train_step(batch, generator=gen)
                     state = state._replace(step=state.step + 1)
                 else:
                     rd = eval_step(batch, generator=gen)
+                if timer:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    timer.add("step")
                 vals = {k: float(rd[k]) for k in METRIC_KEYS if k in rd}
                 for k, v in vals.items():
                     md.update(k, v)
                 if history is not None:
                     history.append((epi, mode, vals))
+                if timer:
+                    timer.add("log")
                 if (mode == "train" and cfg.print_freq > 0
                         and bi % cfg.print_freq == 0):
                     log(f"{mode:5s}[{epi:03d}|{bi:04d}] " + md.summary())
+            if timer:
+                log(f"profile[{epi:03d}|{mode}] " + timer.report())
             dur = time.time() - t0
             eta.update(mode, dur, n=max(bi + 1, 1))
             if mode == "val":
@@ -569,4 +617,6 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
             epoch_cb(epi, state)
         if cfg.exp_name and (epi % cfg.save_freq == 0 or epi == n_epochs - 1):
             save_checkpoint(ckpt_dir, state, epi)
+    if store is not None:
+        store.close()
     return state

@@ -23,7 +23,13 @@ Counts, under a ``TorchDispatchMode`` that skips views and metadata ops:
   head and no init hint; ``ctg`` with ``guidance_pallas_fuse_freeze``):
   a dense train step (forward, backward, Adam), an eval batch's timed
   region and a closed-loop step with ``record=True`` (not BC's, which no
-  Table-II row runs).
+  Table-II row runs);
+- a closed-loop step (``sim.make_closed_loop_step``) of each row of
+  ``chip_smoke.py``'s phase 30 (DDIM and DPM++ with 20 steps, DDIM on the
+  frozen route "1", the m-major DDPM chain, the parity schedule under
+  DDIM, route "0" with bf16 robustness) and of the DDPM chain on route
+  "2", each kernel call counted as one op; and a dense train step of
+  ``ours_guidance`` (the guided training sampler).
 
 Widths are cut (2 scenes, 4 seeds, hidden 32): the op count of these paths
 does not depend on the widths, except the hull area's chunk loop, which
@@ -255,6 +261,64 @@ def main():
         finally:
             gk.guidance_fused_plain = real
         print(f"{msg} eval timed region {timed} ops")
+
+    # the new samplers' closed-loop steps (chip_smoke.py phase 30's rows
+    # and the DDPM route "2" beside them) and the guided training step
+    real_frozen = gk.guidance_frozen_plain
+
+    def frozen_as_one(c):
+        def one_launch(*a):
+            c.paused += 1
+            try:
+                return real_frozen(*a)
+            finally:
+                c.paused -= 1
+                c.n += 1
+        return one_launch
+    rows30 = (
+        ("DDPM, route 2", "heavy", "2", {}),
+        ("DDIM 20, route 2", "heavy", "2",
+         {"sampler": "ddim", "ddim_steps": 20}),
+        ("DPM++ 20, route 2", "heavy", "2",
+         {"sampler": "dpmpp", "ddim_steps": 20}),
+        ("DDIM 20, route 1", "heavy", "1",
+         {"sampler": "ddim", "ddim_steps": 20}),
+        ("m-major DDPM, route 2", "heavy", "2", {"cm_sampler": False}),
+        ("parity DDIM 20, focus 0.5, route 2", "parity", "2",
+         {"sampler": "ddim", "ddim_steps": 20, "fast_guided_focus": 0.5}),
+        ("DDPM, route 0, bf16 robustness", "heavy", "0",
+         {"robustness_dtype": "bfloat16"}))
+    for name, mode, gp, kw in rows30:
+        cfg = bench_config(mode, gpallas=gp).with_(
+            n_randoms=4, hiddens=(32, 32), rect_hiddens=(32, 32), **kw)
+        net = Net(cfg)
+        init_flax_like(net, torch.Generator().manual_seed(0))
+        init_carry, step = sim.make_closed_loop_step(
+            scenes, cfg, net, diffusion.get_coeffs(cfg))
+        c = Count()
+        gk.guidance_fused_plain = kernel_as_one(c)
+        gk.guidance_frozen_plain = frozen_as_one(c)
+        try:
+            carry = step(init_carry(0))
+            with c:
+                step(carry)
+        finally:
+            gk.guidance_fused_plain = real
+            gk.guidance_frozen_plain = real_frozen
+        print(f"closed-loop step ({name}): {c.n} ops")
+    gcfg = PRESETS["ours_guidance"].with_(**small)
+    net = Net(gcfg)
+    init_flax_like(net, torch.Generator().manual_seed(0))
+    gds = SceneDataset.from_synthetic(gcfg, seed=0, n_scenes=2)
+    gds.ensure_random_params(0)
+    batch = to_device(gds.gather([0, 1]), "cpu")
+    tstep = train.make_train_step(gcfg, net, form, diffusion.get_coeffs(gcfg),
+                                  train.make_optimizer(gcfg, net))
+    gen = torch.Generator().manual_seed(0)
+    print(f"ours_guidance dense train step "
+          f"({int(diffusion._trigger_schedule(gcfg).sum())} of "
+          f"{gcfg.diffusion_steps - 1} denoise steps guided): "
+          f"{count(lambda: tstep(batch, generator=gen))} ops")
 
 
 if __name__ == "__main__":

@@ -6,13 +6,19 @@ synthetic scenes from seed 0) with the guidance route that ``--gpallas``
 picks, as ``BENCH_GPALLAS`` does (2: the fused guidance kernel, the default;
 3: the fold2 configuration; 4: the superstep kernel; 1 / 1f: the
 frozen-payload kernel; 2f: the folded fused kernel; 0: the XLA guidance
-loop).  With ``--train e2`` or ``--train e4``: train steps of
+loop), under ``--mode`` (heavy, or the parity schedule) and the sampler
+knobs ``bench.py`` reads: ``--sampler`` / ``--ddim-steps``
+(``BENCH_SAMPLER`` / ``BENCH_DDIM_STEPS``), ``--focus``
+(``fast_guided_focus``), ``--no-cm`` (``BENCH_NO_CM``) and ``--rob-dtype``
+(``BENCH_ROB_DTYPE``).  With ``--train e2`` or ``--train e4``: train steps of
 ``mono_config("e2_vae_mono")`` / ``("e4_ddpm_mono")`` at full width (128
 scenes x 64 rows a batch, random initialization from seed 1, synthetic scenes
 from seed 0), each on the next train batch; with ``--train e5`` or ``--train
 e7``: dense train steps of ``e5_ddpm`` / ``e7_ours`` (128 scenes x 64 x 3 =
 24,576 rows; e7 warm-started from the committed e5b_round5 base, its
-RefineNet head from seed 1); with ``--train e3``, ``e6`` or ``bc``: the
+RefineNet head from seed 1; ``--train og``: ``ours_guidance``, e7 with
+the guided training sampler, warm-started the same way); with ``--train
+e3``, ``e6`` or ``bc``: the
 baselines' dense train steps at that width (``e3_vae``, ``e6_trafficsim``,
 and BC: ``e3_vae`` with the BC head and no init hint, as the JAX package
 has no BC preset), from seed 1.  Either way ``--warmup`` untimed
@@ -27,8 +33,10 @@ checkout's package with this script (parent against change: unpack the
 parent under ``build/``).
 
     python scripts/profile_torch_step.py [--gpallas 0|1|1f|2f|2|3|4]
-        [--train e2|e4|e5|e7|e3|e6|bc] [--scenes 16] [--steps 3] [--repo DIR]
-        [--out build/profile_step.json]
+        [--mode heavy|parity] [--sampler ddpm|ddim|dpmpp] [--ddim-steps 20]
+        [--focus 0.5] [--no-cm] [--rob-dtype bfloat16]
+        [--train e2|e4|e5|e7|og|e3|e6|bc] [--scenes 16] [--steps 3]
+        [--repo DIR] [--out build/profile_step.json]
 """
 
 import argparse
@@ -41,6 +49,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: --train: (preset, overrides)
 TRAIN_PRESETS = {"e2": ("e2_vae_mono", {}), "e4": ("e4_ddpm_mono", {}),
                  "e5": ("e5_ddpm", {}), "e7": ("e7_ours", {}),
+                 "og": ("ours_guidance", {}),
                  "e3": ("e3_vae", {}), "e6": ("e6_trafficsim", {}),
                  "bc": ("e3_vae", {"vae": False, "bc": True,
                                    "use_init_hint": False})}
@@ -76,7 +85,10 @@ def closed_loop_step(args, dev):
 
     if args.gpallas not in GPALLAS:
         sys.exit(f"--gpallas must be one of {GPALLAS}")
-    cfg = bench_config("heavy", gpallas=args.gpallas)
+    cfg = bench_config(args.mode, gpallas=args.gpallas).with_(
+        sampler=args.sampler, ddim_steps=args.ddim_steps,
+        fast_guided_focus=args.focus, cm_sampler=not args.no_cm,
+        robustness_dtype=args.rob_dtype)
     data = synthetic.generate_dataset(0, args.scenes, cfg, scene_len=38)
     scenes = sim.scenes_from_dataset(data, device=dev)
     net = Net(cfg)
@@ -131,6 +143,14 @@ def train_step(args, dev):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gpallas", default="2")
+    ap.add_argument("--mode", default="heavy", choices=("heavy", "parity"))
+    ap.add_argument("--sampler", default="ddpm",
+                    choices=("ddpm", "ddim", "dpmpp"))
+    ap.add_argument("--ddim-steps", type=int, default=20)
+    ap.add_argument("--focus", type=float, default=0.0)
+    ap.add_argument("--no-cm", action="store_true")
+    ap.add_argument("--rob-dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     ap.add_argument("--train", choices=sorted(TRAIN_PRESETS))
     ap.add_argument("--scenes", type=int, default=16)
     ap.add_argument("--steps", type=int, default=3)
@@ -152,7 +172,9 @@ def main():
                                                                     dev)
     what = (f"{args.train} ({TRAIN_PRESETS[args.train][0]}) train step"
             if args.train
-            else f"BENCH_GPALLAS={args.gpallas}")
+            else f"BENCH_GPALLAS={args.gpallas} {args.mode} sampler="
+            f"{args.sampler} ddim_steps={args.ddim_steps} focus={args.focus} "
+            f"cm_sampler={not args.no_cm} robustness={args.rob_dtype}")
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
@@ -201,7 +223,10 @@ def main():
         out["other_device_ms_per_step"] = (
             busy_ms - sum(r["device_ms"] for r in clear)) / args.steps
     else:
-        out.update(scenes=args.scenes, gpallas=args.gpallas)
+        out.update(scenes=args.scenes, gpallas=args.gpallas, mode=args.mode,
+                   sampler=args.sampler, ddim_steps=args.ddim_steps,
+                   focus=args.focus, cm_sampler=not args.no_cm,
+                   robustness_dtype=args.rob_dtype)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

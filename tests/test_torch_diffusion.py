@@ -146,8 +146,9 @@ def test_select_multi_cands_matches_jax():
 def test_unported_sampler_options_raise():
     """Every guidance route of the candidate-minor loss is accepted (the
     fused and frozen-payload kernels, folded or not, and the XLA loop), and
-    so is the unguided row-major pass; the other samplers and guidance on
-    the row-major path raise."""
+    so are the unguided row-major pass, the fast samplers, the row-major
+    guided chain, the row-major guidance loss and bf16 robustness on the
+    XLA loop; bf16 robustness with a guidance kernel (fp32 only) raises."""
     cfg = TConfig(diffusion=True, guidance=True,
                   guidance_pallas_fuse_freeze=True).finalize()
     tdiff.check_supported(cfg)
@@ -156,11 +157,13 @@ def test_unported_sampler_options_raise():
                dict(guidance_pallas_fuse_freeze=False,
                     guidance_pallas_fold=True),
                dict(guidance_pallas=False, guidance_pallas_fuse_freeze=False),
-               dict(guidance=False, cm_sampler=False)):
-        tdiff.check_supported(cfg.with_(**kw))
-    for kw in (dict(sampler="ddim"), dict(sampler="dpmpp"),
-               dict(cm_sampler=False), dict(guidance_fused_loss=False),
+               dict(guidance=False, cm_sampler=False),
+               dict(sampler="ddim"), dict(sampler="dpmpp"),
+               dict(cm_sampler=False),
+               dict(guidance_pallas=False, guidance_pallas_fuse_freeze=False,
+                    guidance_fused_loss=False),
                dict(guidance_pallas=False, guidance_pallas_fuse_freeze=False,
                     robustness_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            tdiff.check_supported(cfg.with_(**kw))
+        tdiff.check_supported(cfg.with_(**kw))
+    with pytest.raises(NotImplementedError):
+        tdiff.check_supported(cfg.with_(robustness_dtype="bfloat16"))

@@ -245,14 +245,14 @@ def test_run_keys_and_refusals():
     assert sorted(out) == sorted(keys | {"time"})
     assert all(np.isfinite(v) for v in out.values()), out
     assert len(times) == 2 and 0 <= out["tj_acc"] <= 1
-    # the VAE and BC heads are accepted; no head, or an unported sampler,
-    # raises by name
+    # the VAE and BC heads and the fast samplers are accepted; no head, or
+    # the viz, raises by name
     for kw in (dict(diffusion=False, vae=True), dict(diffusion=False,
-                                                     bc=True)):
+                                                     bc=True),
+               dict(sampler="dpmpp"), dict(sampler="ddim")):
         teval.check_supported(cfg_t.with_(**kw))
     for kw, match in ((dict(viz_dir="x"), "viz"),
-                      (dict(cfg=cfg_t.with_(diffusion=False)), "head"),
-                      (dict(cfg=cfg_t.with_(sampler="dpmpp")), "dpmpp")):
+                      (dict(cfg=cfg_t.with_(diffusion=False)), "head")):
         args = dict(cfg=cfg_t, ds=ds, net=net, device="cpu")
         args.update(kw)
         with pytest.raises(NotImplementedError, match=match):

@@ -57,7 +57,8 @@ def test_package_import_loads_no_jax():
             "pstl_tpu_torch.train, pstl_tpu_torch.losses, "
             "pstl_tpu_torch.trajopt, pstl_tpu_torch.metrics, "
             "pstl_tpu_torch.eval_openloop, "
-            "pstl_tpu_torch.data.dataset, "
+            "pstl_tpu_torch.data.dataset, pstl_tpu_torch.diffusion, "
+            "pstl_tpu_torch.runtime, pstl_tpu_torch.runtime.shard_store, "
             "pstl_tpu_torch.ops.clearance_kernel, "
             "pstl_tpu_torch.models.convert; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

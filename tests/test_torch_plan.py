@@ -97,9 +97,10 @@ def test_plan_step_matches_jax():
 
 
 def test_unported_planner_options_raise():
-    """The backup controller, the refinement options, the VAE / BC planners
-    and the init hint are accepted; the unported samplers raise by name, as
-    do the configurations that cannot plan (no head, mono rows)."""
+    """The backup controller, the refinement options, the VAE / BC planners,
+    the init hint, the fast samplers and the row-major guided chain are
+    accepted; the configurations that cannot plan (no head, mono rows)
+    raise by name."""
     cfg = TConfig(**FLAGS).with_(guidance_pallas_fuse_freeze=True).finalize()
     tsim.check_supported(cfg)
     tsim.check_supported(cfg.with_(use_pallas_clearance=True))
@@ -108,10 +109,11 @@ def test_unported_planner_options_raise():
                dict(refinement=True, lite_refine=True),
                dict(diffusion=False, vae=True),
                dict(diffusion=False, vae=True, use_init_hint=True),
-               dict(diffusion=False, bc=True), dict(use_init_hint=True)):
+               dict(diffusion=False, bc=True), dict(use_init_hint=True),
+               dict(sampler="dpmpp"), dict(sampler="ddim"),
+               dict(cm_sampler=False)):
         tsim.check_supported(cfg.with_(**kw))
-    for kw, match in ((dict(sampler="dpmpp"), "dpmpp"),
-                      (dict(diffusion=False), "head"),
+    for kw, match in ((dict(diffusion=False), "head"),
                       (dict(gt_data_training=True), "gt_data_training")):
         with pytest.raises(NotImplementedError, match=match):
             tsim.check_supported(cfg.with_(**kw))

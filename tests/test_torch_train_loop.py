@@ -125,7 +125,8 @@ def test_refusals():
     with pytest.raises(NotImplementedError):
         train.attach_neighbors({"neighbors_traj": torch.zeros(1, 1, 2, 7)},
                                cfg.with_(gt_nei=False))
-    # the dense step: training through the sampler, guidance in it
+    # the dense step: training through the sampler raises; guidance in the
+    # sampler (ours_guidance) runs
     dense = PRESETS["e5_ddpm"].with_(
         exp_name=None, hiddens=(8,), rect_hiddens=(8,), n_randoms=2,
         n_shards=1, diffusion_steps=4, n_neighbors=3)
@@ -136,12 +137,16 @@ def test_refusals():
     e7 = PRESETS["e7_ours"].with_(**{k: getattr(dense, k) for k in (
         "exp_name", "hiddens", "rect_hiddens", "n_randoms", "n_shards",
         "diffusion_steps", "n_neighbors")})
-    for bad, what in ((dense.with_(grad_rollout=True), "grad_rollout"),
-                      (e7.with_(guidance=True), "guidance")):
+    for bad, what in ((dense.with_(grad_rollout=True), "grad_rollout"),):
         with pytest.raises(NotImplementedError, match=what):
             train.batch_forward_and_loss(
                 Net(bad), batch, bad, specs.build_scorer(bad),
                 diffusion.get_coeffs(bad), True)
+    guided = e7.with_(guidance=True, guidance_before=2)
+    loss, rd = train.batch_forward_and_loss(
+        Net(guided), batch, guided, specs.build_scorer(guided),
+        diffusion.get_coeffs(guided), True)
+    assert bool(torch.isfinite(loss)) and "loss_diversity" in rd
     # the baselines are accepted: the dense VAE (with and without the init
     # hint) and BC heads build, and their dense step runs
     for kw in (dict(use_init_hint=False), {},
