@@ -163,6 +163,15 @@ and no result line is printed:
    shuffled train batches against ``batch_iterator``'s bit for bit, and 4
    ``e5_ddpm`` steps through ``train.train(use_shard_store=True,
    time_profile=True)`` with the timer's sections.
+33. the command line on the card (``pstl_tpu_torch.cli.main`` in this
+   process, the card by default): ``data`` (256 synthetic scenes),
+   ``check``, ``trajopt`` (20 iterations), ``train --preset e2_vae_mono``
+   (kernels 6 / 7), ``eval`` of the guided Table-I row and ``sim`` of 16
+   scenes x 4 steps under bench.py's heavy contract given as ``--set``
+   (kernel 1 on every guided denoise step), with the e7_round5 weights;
+   every tensor on the card, the printed JSON finite, each command's
+   launches what its path needs; ``train -e`` draws its viz where
+   matplotlib is installed.
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's (kernel 1 on the closed loop's path, the
@@ -2220,8 +2229,9 @@ def keep_scores(info, cfg):
 
 
 class Recorder:
-    """Records the arguments of the first ``n`` calls of a module's
-    function while it runs (``with Recorder(module, name) as rec``)."""
+    """Records the first ``n`` calls of a module's function while it runs
+    (``with Recorder(module, name) as rec``): ``rec.calls`` holds (args,
+    kwargs, result) a call, its tensor arguments cloned before the call."""
 
     def __init__(self, module, name, n=1):
         self.module, self.name, self.n, self.calls = module, name, n, []
@@ -2231,10 +2241,12 @@ class Recorder:
         self.real = real = getattr(self.module, self.name)
 
         def record(*a, **kw):
-            if len(self.calls) < self.n:
-                self.calls.append((tuple(x.clone() if torch.is_tensor(x)
-                                         else x for x in a), dict(kw)))
-            return real(*a, **kw)
+            if len(self.calls) >= self.n:
+                return real(*a, **kw)
+            args = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            out = real(*a, **kw)
+            self.calls.append((args, dict(kw), out))
+            return out
 
         setattr(self.module, self.name, record)
         return self
@@ -2370,8 +2382,8 @@ def table2_reference_phase(dev):
     if not repairs > 0:
         raise RuntimeError("Table-II reference: the backup never fired")
 
-    (bk_args, _), = first[0]
-    (cv_args, cv_kw), = first[1]
+    (bk_args, _, _), = first[0]
+    (cv_args, cv_kw, _), = first[1]
     out = {}
     for d in ("cpu", dev):
         mv = lambda a: tuple(x.to(d) for x in a)
@@ -2992,6 +3004,174 @@ def shard_store_phase(dev, store, name_power):
         f"{time.time() - t0:.1f} s")
 
 
+#: phase 33, the command line on the card: the scenes of its ``data``
+#: command, the trajopt iterations, the closed loop's scenes and steps
+CLI_SCENES = 256
+CLI_TJ_ITERS = 20
+CLI_SIM_SCENES = 16
+CLI_SIM_STEPS = 4
+#: its working directory (made anew)
+CLI_WORK = os.path.join(HERE, "build", "cli_phase")
+#: bench.py's heavy contract as ``--set`` pairs: with no preset, the
+#: command line's config equals ``bench_config("heavy")`` field for field
+#: (tests/test_torch_cli.py)
+CLI_HEAVY = ("diffusion=true", "rect_head=true", "diverse_loss=true",
+             "multi_cands=10", "guidance=true", "guidance_niters=3",
+             "n_rolls=3", "n_randoms=64", "n_neighbors=8", "flex=true",
+             "guidance_pallas=true", "guidance_pallas_fuse_freeze=true",
+             "guidance_pallas_pack=2", "guidance_pallas_cols=0",
+             "guidance_reuse_selection=true", "clearance_coarse_pair=true",
+             "guidance_pallas_bf16_cumsum=true")
+
+
+def printed_json(text, what):
+    """The JSON object a command printed, every value finite."""
+    res = json.loads(text[text.index("{"):])
+    check_finite(res, what)
+    return res
+
+
+def cli_phase(dev, name_power, width=()):
+    """Phase 33: the port's command line (``pstl_tpu_torch.cli.main``) in
+    this process, on the card it picks by default (no ``--device``), in
+    CLI_WORK: ``data`` (CLI_SCENES synthetic scenes), ``check``,
+    ``trajopt`` (CLI_TJ_ITERS iterations), ``train --preset e2_vae_mono``
+    with the clearance kernels for one epoch, ``eval`` of the guided
+    Table-I row and ``sim`` of CLI_SIM_SCENES scenes x CLI_SIM_STEPS steps
+    under bench.py's heavy contract, both with the e7_round5 weights
+    (``--ckpt``).  Each command's tensors must lie on ``dev``, its printed
+    JSON be finite and its kernel launches (counts set to 0 just before it
+    and read just after) be what its path needs: kernels 6 / 7 once a
+    train / val step, kernel 1 once a guided denoise step of every eval
+    batch and of its warm-up, and of every closed-loop step.  Where
+    matplotlib is installed, one ``train -e`` epoch draws its viz.
+    ``width``: ``--set`` pairs appended to every command (a smaller size
+    for a rehearsal)."""
+    import contextlib
+    import importlib.util
+    import io
+    import math
+    import shutil
+    import torch
+    from pstl_tpu_torch import cli, diffusion, eval_openloop, sim, train
+    from pstl_tpu_torch import trajopt
+
+    t_phase = time.time()
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    os.makedirs(CLI_WORK)
+    ckpt = os.path.join(HERE, "pstl_tpu_torch", "weights", "e7_round5.npz")
+    on_dev = lambda x: (x.device if torch.is_tensor(x)
+                        else next(x.parameters()).device) == dev
+
+    def run(what, argv, sets=()):
+        """``cli.main(argv + --set sets + width)`` with the launch counts
+        set to 0 just before and read just after; its stdout is captured.
+        Returns (stdout, counts)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli.main(list(argv) + ["--set", *sets, *width])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        text = buf.getvalue()
+        tail = text.strip().splitlines()[-1] if text.strip() else ""
+        log(f"cli {what}: {time.time() - t0:.2f} s; launches {counts}; "
+            f"last line: {tail}")
+        return text, counts
+
+    cwd = os.getcwd()
+    os.chdir(CLI_WORK)
+    try:
+        with contextlib.ExitStack() as stack:
+            calls = {name: stack.enter_context(Recorder(mod, name)).calls
+                     for mod, name in ((cli, "check_batches"),
+                                       (trajopt, "augment_dataset"),
+                                       (train, "train"),
+                                       (eval_openloop, "run"),
+                                       (sim, "run_closed_loop_host"))}
+            _, counts = run("data", ["data", "--out", "cache.npz", "--scenes",
+                                     str(CLI_SCENES)])
+            check_counts(counts, {}, "cli data")
+            text, counts = run("check", ["check", "--cache", "cache.npz"])
+            check_counts(counts, {}, "cli check")
+            acc = float(text.strip().splitlines()[-1].split("ACC:")[1])
+            if not (0.0 <= acc <= 1.0) or not all(
+                    c[0][2] == dev for c in calls["check_batches"]):
+                raise RuntimeError(f"cli check: ACC {acc}, or off {dev}")
+            _, counts = run("trajopt", ["trajopt", "--cache", "cache.npz",
+                                        "--out", "aug.npz", "--iters",
+                                        str(CLI_TJ_ITERS)])
+            check_counts(counts, {}, "cli trajopt")
+            if calls["augment_dataset"][0][1]["device"] != dev:
+                raise RuntimeError(f"cli trajopt ran off {dev}")
+
+            _, counts = run("train", ["train", "--preset", "e2_vae_mono",
+                                      "--cache", "aug.npz", "--epochs", "1"],
+                            ["use_pallas_clearance=true", "no_viz=true"])
+            (cfg, ds), _, state = calls["train"][0]
+            n_tr = ds.split_len("train") // cfg.batch_size
+            n_va = ds.split_len("val") // cfg.batch_size
+            if n_tr == 0 or not on_dev(state.net):
+                raise RuntimeError(f"cli train: {n_tr} train batches, or off "
+                                   f"{dev}")
+            check_counts(counts, {"min_clearance_fwd": n_tr + n_va,
+                                  "min_clearance_bwd": n_tr}, "cli train")
+
+            text, counts = run("eval", ["eval", "--preset", "ours_guidance",
+                                        "--cache", "aug.npz", "--ckpt", ckpt,
+                                        "--trials", "1"],
+                               ["guidance_pallas_fuse_freeze=true"])
+            ev = printed_json(text, "cli eval")
+            (cfg, ds, net), kw, _ = calls["run"][0]
+            cfg = cfg.with_(run_sampling_test=True).finalize()
+            n_batches = min(math.ceil(ds.split_len("val") / cfg.batch_size), 2)
+            guided = int(diffusion._trigger_schedule(cfg).sum())
+            want = guided * (n_batches + 1)
+            if not (on_dev(net) and kw["device"] == dev and want > 0):
+                raise RuntimeError(f"cli eval ran off {dev}, or unguided")
+            check_counts(counts, {"guidance_fused": want}, "cli eval")
+
+            text, counts = run("sim", ["sim", "--scenes", str(CLI_SIM_SCENES),
+                                       "--steps", str(CLI_SIM_STEPS), "--ckpt",
+                                       ckpt], CLI_HEAVY)
+            res = printed_json(text, "cli sim")
+            (_, scenes, cfg, net, coeffs), _, out = calls[
+                "run_closed_loop_host"][0]
+            steps = int(out["traj_len"].max())
+            want = guided_steps(cfg) * steps
+            if not (on_dev(scenes.ego_full) and on_dev(net)
+                    and on_dev(coeffs.beta) and want > 0):
+                raise RuntimeError(f"cli sim ran off {dev}, or unguided")
+            check_counts(counts, {"guidance_fused": want}, "cli sim")
+            log(f"cli sim: kernel 1 launched {counts['guidance_fused']} "
+                f"times = {guided_steps(cfg)} guided denoise steps x "
+                f"{steps} steps of {len(scenes.ego_full)} scenes; "
+                f"stl_compliance="
+                f"{res['stl_acc']:.4f} collide={res['collide']:.4f} "
+                f"out_of_lane={res['out_of_lane']:.4f}; Table I guided "
+                f"nn_acc={ev['nn_acc']:.4f} nn_scene_acc="
+                f"{ev['nn_scene_acc']:.4f}")
+
+            if importlib.util.find_spec("matplotlib") is None:
+                log("cli train -e: matplotlib is not installed here, so the "
+                    "per-epoch viz is not drawn")
+            else:
+                run("train -e", ["train", "--preset", "e2_vae_mono", "-e",
+                                 "cli_viz", "--cache", "aug.npz", "--epochs",
+                                 "1"], ["use_pallas_clearance=true",
+                                        "num_viz=2"])
+                pngs = sorted(os.listdir(os.path.join("exps", "cli_viz",
+                                                      "viz")))
+                if pngs != ["epoch0000_scene00.png", "epoch0000_scene01.png"]:
+                    raise RuntimeError(f"cli train -e drew {pngs}")
+                log(f"cli train -e: drew {pngs}")
+    finally:
+        os.chdir(cwd)
+    log(f"cli: phase wall {time.time() - t_phase:.1f} s; {name_power}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "pstl_tpu_torch")):
         print("chip_smoke.py: the pstl_tpu_torch package is not beside this "
@@ -3113,6 +3293,7 @@ def main():
     t_ph = time.time()
     shard_store_phase(dev, store, name_power)
     log(f"phase 32 wall {time.time() - t_ph:.1f} s")
+    cli_phase(dev, name_power)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there

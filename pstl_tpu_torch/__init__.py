@@ -1,16 +1,18 @@
 """pstl_tpu_torch — the PyTorch + CUDA port of ``pstl_tpu``.
 
-The closed-loop planning step and the mono training step of the JAX
-package, ported to PyTorch for an NVIDIA H100: ``sim`` (observe -> plan ->
-env step), ``train`` (the ``gt_data_training`` step of ``e2_vae_mono`` /
-``e4_ddpm_mono`` and its epoch loop), ``diffusion`` (DDPM reverse pass
-with fused STL guidance, training-time noising), ``models`` (policy net
-with diffusion and VAE heads, RefineNet), ``specs`` (tiled robustness
-scorer, clause bank, pSTL calibration), ``losses``, ``ops`` (rollout,
-geometry, soft STL, the guidance loss, and the kernels in ``csrc/``),
-and the offline pipeline's two ends: ``trajopt`` (the augmentation that
-writes the training targets into the scene store) and ``eval_openloop``
-with ``metrics`` (the open-loop Table-I evaluation).
+Everything the JAX package runs, ported to PyTorch for an NVIDIA H100:
+``cli`` (the command line, ``python -m pstl_tpu_torch.cli``), ``sim`` (the
+closed-loop planner and the Table-II evaluation), ``train`` (every
+preset's train step and the epoch loop, checkpoints), ``trajopt`` (the
+augmentation that writes the training targets into the scene store),
+``eval_openloop`` with ``metrics`` (the open-loop Table-I evaluation),
+``diffusion`` (the DDPM, DDIM and DPM-Solver++ samplers with STL
+guidance), ``models`` (the policy net's heads and the RefineNet),
+``specs`` (robustness scorers, pSTL calibration), ``refine``, ``losses``,
+``viz`` (matplotlib figures, imported only when drawing), ``runtime``
+(the native shard store) and ``ops`` (rollout, geometry, soft STL, the
+guidance loss, and the kernels in ``csrc/``).  Not yet ported: ``parallel``
+(the mesh) and the NuScenes extraction.
 
 The package imports torch and numpy only — never jax or ``pstl_tpu``; the
 flag table and presets (``config``), the synthetic scene generator and the

@@ -353,9 +353,9 @@ PRESETS = {
 
 
 def mono_config(preset: str = "e2_vae_mono", **kw) -> Config:
-    """A mono training preset as the port runs it: the clearance kernels on
-    (``use_pallas_clearance``) and no experiment directory (checkpoints and
-    viz are not ported), plus any overrides."""
+    """A mono training preset with the clearance kernels on
+    (``use_pallas_clearance``) and no experiment directory (no checkpoints
+    or viz written), plus any overrides."""
     if preset not in ("e2_vae_mono", "e4_ddpm_mono"):
         raise ValueError(f"{preset!r} is not a mono training preset")
     return PRESETS[preset].with_(use_pallas_clearance=True, exp_name=None,

@@ -22,16 +22,17 @@ The draws of a batch (the two densify flex draws and the sampler's noise)
 are made before its warm-up, so the warm-up and the timed call compute the
 same thing, as the JAX package's two calls under one key do.  The functions
 take them as arguments (``flex``, ``noise``), so tests can hand in the JAX
-package's own.
-
-Refused by name: ``viz_dir`` (``viz.py`` is not ported).
+package's own.  ``run(viz_dir=...)`` draws the paper figures of the first
+batch outside the timer.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from pstl_tpu_torch import diffusion, metrics, refine, sim, specs
@@ -263,12 +264,11 @@ def run(cfg: Config, ds: SceneDataset, net: Net,
     batch's sampling runs once before the timer (warm-up).  Every draw comes
     from one generator on the device seeded with ``cfg.seed + 123``.  Runs
     on the card unless ``device`` says otherwise; ``net`` must be there.
-    ``times``, when given, receives each batch's timed seconds."""
+    ``times``, when given, receives each batch's timed seconds.  With
+    ``viz_dir``, the first six scenes of batch 0 are drawn there as
+    ``paper_scene{i:02d}.png``."""
     cfg = cfg.with_(run_sampling_test=True).finalize()
     check_supported(cfg)
-    if viz_dir:
-        raise NotImplementedError("viz_dir: the paper figures (viz.py) are "
-                                  "not ported")
     dev = resolve_device(device)
     p_dev = next(net.parameters()).device
     if p_dev != dev:
@@ -311,6 +311,8 @@ def run(cfg: Config, ds: SceneDataset, net: Net,
         if times is not None:
             times.append(dt)
         nn = _nn_metrics(nn, nn_controls, nn_trajs, valid, batch, cfg)
+        if viz_dir and bi == 0:
+            _paper_figures(viz_dir, ds, batch, nn, nn_trajs, cfg)
         for name, d in (("tj", tj), ("nn", nn)):
             for met in RUN_METRICS:
                 if met in d:
@@ -321,3 +323,29 @@ def run(cfg: Config, ds: SceneDataset, net: Net,
             f"vol:{md('nn_vol'):.3f} area:{md('nn_area'):.3f} "
             f"T:{md('time'):.3f}s")
     return {k: md.avg(k) for k in md.sum}
+
+
+def _paper_figures(viz_dir: str, ds: SceneDataset, batch: Dict[str, Tensor],
+                   nn: Dict[str, Tensor], nn_trajs: Tensor,
+                   cfg: Config) -> None:
+    """The paper figures of a batch's first six scenes (``plot_paper_scene``,
+    nusc_viz.py:111-202 / nusc_train.py:1145-1180).  The per-sample drivable
+    rasters come from the per-scene store through ``traj_i`` where the batch
+    holds it; as in the JAX package, the step's columns do not, so the
+    figures draw no backdrop."""
+    from pstl_tpu_torch import viz
+    S = cfg.sampling_size
+    bs_v = batch["ego_traj"].shape[0]
+    tr = nn_trajs[:, :-1].cpu().numpy().reshape(bs_v, S, 3, cfg.nt, 4)
+    sc = nn["scores"].cpu().numpy().reshape(bs_v, S, 3)
+    bnp = {k: v.cpu().numpy() for k, v in batch.items()}
+    sd = getattr(ds, "scene_data", {})
+    if "scene_drivable" in sd and "traj_i" in bnp:
+        ti = bnp["traj_i"].astype(int).reshape(-1)
+        for k2 in ("scene_drivable", "scene_drivable_origin",
+                   "scene_drivable_res"):
+            bnp[k2] = np.asarray(sd[k2])[ti]
+    for i in range(min(bs_v, 6)):
+        viz.plot_paper_scene(os.path.join(
+            viz_dir, f"paper_scene{i:02d}.png"), bnp, i,
+            nn_trajs=tr[i], nn_scores=sc[i])

@@ -20,8 +20,8 @@ seeded with it; the tests hand in the JAX key chain's draws as ``noise``.
 The planner runs every head: the diffusion policy, and the baselines'
 VAE (a prior latent decoded, with the init-hint draws under
 ``use_init_hint``) and BC heads, whose candidates go straight to the
-lane-keep argmax.  Refused by name: ``render_dir`` (``viz.py`` is not
-ported).
+lane-keep argmax.  ``run_closed_loop_host(render_dir=...)`` draws the
+recorded episodes' frames and GIFs with ``viz``.
 """
 
 from __future__ import annotations
@@ -651,12 +651,10 @@ def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
     candidate-area diversity ("area", nusc_sim.py:714-735) and the step
     times ("step_s": host clock around the step and its record, after a
     device sync), and ``area``, the mean over the steps.  ``t0``: per-scene
-    start frames; ``noise``: the plan's draws of each step.
-    ``render_dir`` is refused: the closed-loop frames need ``viz.py``,
-    which is not ported."""
-    if render_dir:
-        raise NotImplementedError("render_dir: the closed-loop frames "
-                                  "(viz.py) are not ported")
+    start frames; ``noise``: the plan's draws of each step.  With
+    ``record`` and ``render_dir``, the first four scenes' frames
+    (``frame_s{i:02d}_t{t:03d}.png``) and GIFs (``episode_{i:02d}.gif``)
+    are written there."""
     chunk = 1 if record else max(chunk, 1)
     init_carry, step = make_closed_loop_step(
         scenes, cfg, net, coeffs, with_info=record,
@@ -695,4 +693,33 @@ def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
     if record:
         out["history"] = hist
         out["area"] = float(np.mean(hist["area"])) if hist["area"] else 0.0
+    if render_dir and record:
+        _render_episodes(render_dir, scenes, cfg, hist)
     return out
+
+
+def _render_episodes(render_dir: str, scenes: SceneTensors, cfg: Config,
+                     hist: Dict[str, list]) -> None:
+    """The closed-loop frames of the first four scenes and their GIFs, from
+    a recorded history."""
+    from pstl_tpu_torch import viz
+    sc = {k: getattr(scenes, k).cpu().numpy()
+          for k in ("center_dense", "lane_valids", "nei_full", "drivable",
+                    "drivable_origin", "drivable_res")}
+    ego_hist = np.stack(hist["ego"], axis=1)         # (bs, S+1, 4)
+    for i in range(min(ego_hist.shape[0], 4)):
+        frames = []
+        for t in range(1, ego_hist.shape[1]):
+            path = f"{render_dir}/frame_s{i:02d}_t{t:03d}.png"
+            viz.render_closed_loop_frame(
+                path, sc["center_dense"][i], sc["lane_valids"][i],
+                ego_hist[i, :t + 1],
+                sc["nei_full"][i, :, min(t, sc["nei_full"].shape[2] - 1)],
+                hist["plan"][t - 1][i] if t - 1 < len(hist["plan"])
+                else None,
+                ego_LW=(cfg.ego_L, cfg.ego_W),
+                drivable=sc["drivable"][i],
+                drivable_origin=sc["drivable_origin"][i],
+                drivable_res=float(sc["drivable_res"][i]))
+            frames.append(path)
+        viz.generate_gif(f"{render_dir}/episode_{i:02d}.gif", frames)

@@ -54,14 +54,15 @@ step's sampler is guided through a context with no fused loss, so it runs
 the row-major fallback loss at the threshold ``stl_nn_thres``, as the JAX
 step does.  ``train`` reads batches from the native shard store under
 ``use_shard_store`` and logs per-section wall times under
-``time_profile``.
+``time_profile``.  With an ``exp_name`` and not ``no_viz`` it draws
+val scenes every ``viz_freq`` epochs and after the last
+(``_viz_epoch``, into ``exps/<exp_name>/viz``).
 
 Not ported (each raises, by name): ``grad_rollout`` on the dense
-diffusion step, the constant-velocity neighbor prediction
-(``gt_nei=False``), and the viz of an experiment directory (``exp_name``
-with ``no_viz`` False; ROADMAP.md §1 item 5).  The JAX package's
-device-side chunking (``train_chunk``) is exact by construction, so the
-port steps once per batch.
+diffusion step and the constant-velocity neighbor prediction
+(``gt_nei=False``).  The JAX package's device-side chunking
+(``train_chunk``) is exact by construction, so the port steps once per
+batch.
 """
 
 from __future__ import annotations
@@ -467,8 +468,14 @@ def _resolve_ckpt(ckpt_dir: str) -> str:
 
 
 def _read_checkpoint(path: str, device) -> dict:
-    return torch.load(_resolve_ckpt(path), map_location=device,
-                      weights_only=True)
+    resolved = _resolve_ckpt(path)
+    if os.path.isdir(resolved):
+        # an orbax checkpoint of the JAX package: a step directory
+        raise ValueError(
+            f"{path} is not a checkpoint of the port (an orbax directory?): "
+            "convert it to a flat .npz with scripts/export_torch_weights.py "
+            "where jax is installed")
+    return torch.load(resolved, map_location=device, weights_only=True)
 
 
 def load_checkpoint(ckpt_dir: str, state: TrainState) -> TrainState:
@@ -529,11 +536,9 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     ``batch_iterator``).  ``cfg.time_profile``: each pass also logs the
     mean wall seconds between its marks ``data`` (the iterator), ``h2d``
     (the copy to the device), ``step`` (the step, synchronized) and ``log``
-    (the metrics)."""
-    if cfg.exp_name and not cfg.no_viz:
-        raise NotImplementedError(
-            "the viz of an experiment directory is not ported (ROADMAP.md "
-            "§1 item 12): pass no_viz=True, or exp_name=None")
+    (the metrics).  With ``cfg.exp_name`` and not ``cfg.no_viz``,
+    ``_viz_epoch`` draws the first val scenes every ``viz_freq`` epochs and
+    after the last."""
     dev = resolve_device(device)
     formulas = specs.build_scorer(cfg)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
@@ -617,6 +622,115 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
             epoch_cb(epi, state)
         if cfg.exp_name and (epi % cfg.save_freq == 0 or epi == n_epochs - 1):
             save_checkpoint(ckpt_dir, state, epi)
+        if (cfg.exp_name and not cfg.no_viz
+                and (epi % cfg.viz_freq == 0 or epi == n_epochs - 1)):
+            _viz_epoch(cfg, ds, epi, net=net, formulas=formulas,
+                       coeffs=coeffs)
     if store is not None:
         store.close()
     return state
+
+
+# ---------------------------------------------------------------------------
+# per-epoch viz
+# ---------------------------------------------------------------------------
+
+#: the seed of ``_viz_sample``'s draws (the JAX package's PRNGKey(7))
+VIZ_SEED = 7
+
+
+def _viz_epoch(cfg: Config, ds: SceneDataset, epi: int,
+               net: Optional[Net] = None, formulas=None, coeffs=None,
+               n_nn: int = 8):
+    """Per-epoch scene plots (``plot_nuscene_viz``, nusc_viz.py:204-339):
+    for the first ``num_viz`` val scenes, the GT, the trajopt candidate fan
+    and, for the dense diffusion presets, ``n_nn`` sampled candidates per
+    maneuver (``_viz_sample``), with per-maneuver satisfaction in the
+    title, into ``exps/<exp_name>/viz/epoch{epi:04d}_scene{i:02d}.png``.
+    A failure
+    (matplotlib missing too) is printed as ``[viz] skipped: ...`` and not
+    raised: viz must never kill training."""
+    try:
+        from pstl_tpu_torch import viz
+        batch = next(batch_iterator(ds, "val", min(cfg.num_viz,
+                                                   ds.split_len("val")),
+                                    shuffle=False, drop_last=False))
+        bs = batch["ego_traj"].shape[0]
+        states = torch.as_tensor(batch["ego_traj"][:, 0, :4])
+        dense_states = states[:, None, None].expand(bs, cfg.n_randoms, 3, 4)
+        trajs = dyn.rollout(dense_states, torch.as_tensor(batch["params"]),
+                            cfg.dt).numpy()
+        scores = batch.get("tj_scores_prior")
+        nn_trajs = nn_scores = None
+        if (net is not None and cfg.multi_check and cfg.diffusion
+                and formulas is not None):
+            nn_trajs, nn_scores = _viz_sample(cfg, net, formulas, coeffs,
+                                              batch, n_nn)
+        batch = dict(batch)
+        # the drivable-raster backdrop: scene_* tensors live in the
+        # per-scene store, indexed per sample through traj_i
+        sd = getattr(ds, "scene_data", {})
+        if "scene_drivable" in sd and "traj_i" in batch:
+            ti = np.asarray(batch["traj_i"]).astype(int).reshape(-1)
+            for k2 in ("scene_drivable", "scene_drivable_origin",
+                       "scene_drivable_res"):
+                batch[k2] = np.asarray(sd[k2])[ti]
+        for i in range(min(bs, cfg.num_viz)):
+            viz.plot_training_viz(
+                os.path.join("exps", cfg.exp_name, "viz",
+                             f"epoch{epi:04d}_scene{i:02d}.png"),
+                batch, i, tj_trajs=trajs[i],
+                tj_scores=(np.asarray(scores[i]) if scores is not None
+                           else None),
+                nn_trajs=(nn_trajs[i] if nn_trajs is not None else None),
+                nn_scores=(nn_scores[i] if nn_scores is not None else None),
+                epoch=epi, split="val")
+    except Exception as e:   # viz must never kill training
+        print(f"[viz] skipped: {e}")
+
+
+@torch.no_grad()
+def _viz_sample(cfg: Config, net: Net, formulas, coeffs: diffusion.Coeffs,
+                batch: Dict[str, np.ndarray], S: int,
+                draws: Optional[Dict[str, Tensor]] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """``S`` sampled candidates per (scene, maneuver) of a numpy batch for
+    the viz, on the net's device: the densified batch at ``n_randoms=S``
+    under flex pSTL draws, the unguided sampler, the rollouts and their
+    scores.  The batch's ``pre_stlp`` column (n_randoms rows a scene) is
+    left out: the JAX function reshapes it to S rows and raises, so its viz
+    draws nothing on a trajopt store unless S = n_randoms.  ``draws``: "flex"
+    (``specs.flex_uniforms``) and "sample_noise" (the sampler's, see
+    ``diffusion.sample``); what is not given is drawn from a generator
+    seeded with ``VIZ_SEED``.  Returns numpy trajs (bs, S, 3, nt, 4) and
+    scores (bs, S, 3)."""
+    draws = draws or {}
+    dev = coeffs.beta.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(VIZ_SEED)
+    cfg_s = cfg.with_(n_randoms=S)
+    batch = attach_neighbors(to_device(
+        {k: v for k, v in batch.items() if k != "pre_stlp"}, dev), cfg_s)
+    gt_trajs = batch["ego_traj"][..., :4]
+    states = gt_trajs[:, 0, :4]
+    bs = states.shape[0]
+    n = bs * S * 3
+    gt_stlp = specs.calibrate_stlp(batch, gt_trajs, cfg_s)
+    dense = specs.densify_batch(batch, gt_stlp, cfg_s, flex=draws.get("flex"),
+                                generator=gen)
+    ext0 = {"timestep": torch.ones((n, 1), device=dev),
+            "highlevel": dense["highlevel_dense"],
+            "noise": torch.zeros((n, cfg.nt * 2), device=dev)}
+    _, feature = net(dense, ext0, get_feature=True, n_randoms=S)
+    controls, _ = diffusion.sample(
+        lambda e: net(dense, e, prev_feature=feature, n_randoms=S),
+        dense["highlevel_dense"], cfg_s, coeffs, n,
+        noise=draws.get("sample_noise"), generator=gen,
+        stlp_dense=dense["stlp_dense"])
+    states_flat = states[:, None, None].expand(bs, S, 3, 4).reshape(n, 4)
+    trajs = dyn.rollout(states_flat, controls, cfg_s.dt)[:, :-1]
+    score_rows = specs.make_score_rows(batch, dense, cfg_s, n_randoms=S,
+                                       formulas=formulas)
+    s = score_rows(trajs)
+    return (trajs.cpu().numpy().reshape(bs, S, 3, cfg.nt, 4),
+            s.cpu().numpy().reshape(bs, S, 3))

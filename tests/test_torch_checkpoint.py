@@ -161,11 +161,21 @@ def test_train_e7_warm_start_writes_a_checkpoint(tmp_path, monkeypatch):
             assert torch.equal(v.cpu(), src[k]), k
 
 
-def test_experiment_directory_refusals():
-    cfg = PRESETS["e7_ours"].with_(**dict(SMALL, exp_name="x"))
+def test_experiment_directory_refusals(tmp_path, monkeypatch):
+    """An orbax experiment directory of the JAX package is refused by name
+    as pretrained weights; an experiment of the port with its viz on
+    writes its checkpoint and its epoch figures."""
+    monkeypatch.chdir(tmp_path)
+    cfg = PRESETS["e7_ours"].with_(**dict(SMALL, exp_name="x"), num_viz=2)
     ds = SceneDataset.from_synthetic(cfg, n_scenes=6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.train(cfg, ds, device="cpu")
+    with pytest.raises(ValueError, match="export_torch_weights"):
+        train.train(cfg.with_(net_pretrained_path=os.path.join(
+            REPO, "checkpoints", "e7_round5")), ds, device="cpu")
+    train.train(cfg, ds, epochs=1, device="cpu", log=lambda s: None)
+    assert sorted(os.listdir(os.path.join("exps", "x", "viz"))) == [
+        "epoch0000_scene00.png", "epoch0000_scene01.png"]
+    assert os.path.exists(os.path.join("exps", "x", texp.MODELS_DIR,
+                                       "LAST"))
 
 
 def test_meters_match_jax():

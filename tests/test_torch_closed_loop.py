@@ -39,6 +39,7 @@ cells, to 1e-4 relative: a rollout 1e-4 away moves no cell here.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -331,9 +332,17 @@ def test_chunk_equals_single_steps(setup):
         np.testing.assert_array_equal(np_(out[k]), np_(v), err_msg=k)
 
 
-def test_render_dir_refused(setup):
+def test_render_dir_refused(setup, tmp_path):
+    """``render_dir`` draws only a recorded run, as in the JAX package: a
+    frame per step of each of the first four scenes and a GIF each."""
     _, cfg_t, _, sc_t, _, _, net_t = setup
-    with pytest.raises(NotImplementedError, match="viz"):
-        tsim.run_closed_loop_host(0, sc_t, cfg_t, net_t,
-                                  tdiff.get_coeffs(cfg_t), 2, record=True,
-                                  render_dir="frames")
+    coeffs = tdiff.get_coeffs(cfg_t)
+    tsim.run_closed_loop_host(0, sc_t, cfg_t, net_t, coeffs, 2,
+                              render_dir=str(tmp_path / "off"))
+    assert not (tmp_path / "off").exists()
+    tsim.run_closed_loop_host(0, sc_t, cfg_t, net_t, coeffs, 2, record=True,
+                              render_dir=str(tmp_path / "frames"))
+    bs = min(sc_t.ego_full.shape[0], 4)
+    assert sorted(os.listdir(tmp_path / "frames")) == sorted(
+        [f"frame_s{i:02d}_t{t:03d}.png" for i in range(bs) for t in (1, 2)]
+        + [f"episode_{i:02d}.gif" for i in range(bs)])

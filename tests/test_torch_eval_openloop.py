@@ -32,6 +32,7 @@ exact.  The metric tail on the same (JAX) inputs: rtol 1e-5 / atol 1e-6
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -231,9 +232,10 @@ def test_nn_metrics(route):
                                    rtol=1e-5, atol=1e-6, err_msg=k)
 
 
-def test_run_keys_and_refusals():
-    """``run`` at the tiny size on the CPU: every Table-I key, finite; the
-    refused options raise by name; without ``device`` it wants the card."""
+def test_run_keys_and_refusals(tmp_path):
+    """``run`` at the tiny size on the CPU: every Table-I key, finite; a
+    config without a head raises by name; ``viz_dir`` draws the paper
+    figures; without ``device`` it wants the card."""
     cfg_j, cfg_t = _cfgs("guided_kernel")
     b, p = _setup()
     ds = TDataset.from_synthetic(cfg_t, seed=0, n_scenes=12)
@@ -245,18 +247,20 @@ def test_run_keys_and_refusals():
     assert sorted(out) == sorted(keys | {"time"})
     assert all(np.isfinite(v) for v in out.values()), out
     assert len(times) == 2 and 0 <= out["tj_acc"] <= 1
-    # the VAE and BC heads and the fast samplers are accepted; no head, or
-    # the viz, raises by name
+    # the VAE and BC heads and the fast samplers are accepted; no head
+    # raises by name
     for kw in (dict(diffusion=False, vae=True), dict(diffusion=False,
                                                      bc=True),
                dict(sampler="dpmpp"), dict(sampler="ddim")):
         teval.check_supported(cfg_t.with_(**kw))
-    for kw, match in ((dict(viz_dir="x"), "viz"),
-                      (dict(cfg=cfg_t.with_(diffusion=False)), "head")):
-        args = dict(cfg=cfg_t, ds=ds, net=net, device="cpu")
-        args.update(kw)
-        with pytest.raises(NotImplementedError, match=match):
-            teval.run(**args)
+    with pytest.raises(NotImplementedError, match="head"):
+        teval.run(cfg_t.with_(diffusion=False), ds, net, device="cpu")
+    # viz_dir: the paper figures of batch 0's first scenes (up to six)
+    teval.run(cfg_t, ds, net, n_trials=0, log=lambda *a: None,
+              device="cpu", viz_dir=str(tmp_path))
+    n_fig = min(ds.split_len("val"), cfg_t.batch_size, 6)
+    assert sorted(os.listdir(tmp_path)) == [f"paper_scene{i:02d}.png"
+                                            for i in range(n_fig)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             teval.run(cfg_t, ds, net)

@@ -35,9 +35,11 @@ def _imported_modules(path):
 
 
 def test_package_imports_no_jax_ast():
-    """No module of the port (nor chip_smoke.py) names jax, flax, optax,
-    orbax or the JAX package in an import."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No module of the port (nor chip_smoke.py, nor the port's e2e
+    script) names jax, flax, optax, orbax or the JAX package in an
+    import."""
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "e2e_pipeline_torch.py")]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -60,9 +62,26 @@ def test_package_import_loads_no_jax():
             "pstl_tpu_torch.data.dataset, pstl_tpu_torch.diffusion, "
             "pstl_tpu_torch.runtime, pstl_tpu_torch.runtime.shard_store, "
             "pstl_tpu_torch.ops.clearance_kernel, "
-            "pstl_tpu_torch.models.convert; import sys; "
+            "pstl_tpu_torch.models.convert, pstl_tpu_torch.cli, "
+            "pstl_tpu_torch.viz; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_package_imports_without_matplotlib():
+    """With matplotlib and PIL missing (as on the card's host), the command
+    line, viz and the modules whose hooks draw still import, and import
+    neither."""
+    code = ("import sys; sys.modules.update({m: None for m in ("
+            "'matplotlib', 'matplotlib.pyplot', 'PIL', 'PIL.Image')}); "
+            "import pstl_tpu_torch.cli, pstl_tpu_torch.viz, "
+            "pstl_tpu_torch.train, pstl_tpu_torch.sim, "
+            "pstl_tpu_torch.eval_openloop; "
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            "m.split('.')[0] in ('matplotlib', 'PIL')]; assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

@@ -4,6 +4,8 @@ small size: one epoch of each mono preset, the clearance calls it makes
 seed, the flax-like initialization, and what the port refuses (the dense
 presets' loop: ``tests/test_torch_checkpoint.py``)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -120,8 +122,11 @@ def test_refusals():
         train.resolve_device(None)
     cfg = mono_config("e2_vae_mono", **SMALL)
     ds = SceneDataset.from_synthetic(cfg, n_scenes=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.train(PRESETS["e2_vae_mono"], ds, device="cpu")
+    # pretrained weights: an orbax directory of the JAX package is refused
+    with pytest.raises(ValueError, match="export_torch_weights"):
+        train.train(cfg.with_(net_pretrained_path=os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "checkpoints", "e7_round5")), ds, device="cpu")
     with pytest.raises(NotImplementedError):
         train.attach_neighbors({"neighbors_traj": torch.zeros(1, 1, 2, 7)},
                                cfg.with_(gt_nei=False))
