@@ -172,12 +172,26 @@ and no result line is printed:
    every tensor on the card, the printed JSON finite, each command's
    launches what its path needs; ``train -e`` draws its viz where
    matplotlib is installed.
+34. the parallel layer (``pstl_tpu_torch.parallel``): ``cli train --mesh
+   --preset e2_vae_mono`` at world 1 (NCCL) against the same command
+   without ``--mesh`` (kernels 6 / 7); then two gloo ranks of this script
+   on the one card (``--parallel-rank``): phase 16's fp32 e7_ours step
+   under a data mesh against the one-process step, one scene of the heavy
+   contract candidate-sharded (96 of 192 columns a rank; kernel 1 once a
+   denoise step on each rank, held to its plain version on the rank's
+   columns; the plan against the unsharded plan) and 4 scene-sharded
+   closed-loop steps of 16 scenes; the wall a step, sharded and not.
+35. the NuScenes extraction on this jax-free host: ``extract_dataset``
+   through the fake devkit of ``tests/torch_devkit_shim.py`` against the
+   committed golden capsule, and ``cli data --real`` writing a cache that
+   ``SceneDataset`` loads.
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's (kernel 1 on the closed loop's path, the
 ninth entry on the evaluation's, the tenth on the ref_parity Table-II
-row's, the eleventh on the ctg Table-I row's and the twelfth on the DDIM
-closed loop's) launches, error, times
+row's, the eleventh on the ctg Table-I row's, the twelfth on the DDIM
+closed loop's and the thirteenth on the candidate-sharded plan's, per
+rank) launches, error, times
 (``ms`` one eager call of its wrapper, ``graph_ms`` the kernel alone in a
 graph replay, see ``kernel_ms``; ``plain_ms`` the plain version) and its
 bound: the larger of its bytes (each input read once, each output written
@@ -820,16 +834,20 @@ def read_counts():
             "min_clearance_bwd": ck.bwd_launches}
 
 
-def run_loop(dev, net, cfg, steps):
-    """``steps`` closed-loop steps of the scenes under ``cfg``, with every
-    kernel's launch count set to 0 just before and read just after; every
-    metric must be finite.  Returns (counts, metrics, step seconds, wall)."""
+def run_loop(dev, net, cfg, steps, scenes=None, mesh=None):
+    """``steps`` closed-loop steps of the scenes under ``cfg`` (SCENES
+    synthetic ones unless given; this rank's share of them under ``mesh``,
+    whose metrics are every rank's), with every kernel's launch count set
+    to 0 just before and read just after; every metric must be finite.
+    Returns (counts, metrics, step seconds, wall)."""
     import torch
     from pstl_tpu_torch import diffusion, sim
 
-    scenes = scene_batch(cfg, dev)
+    if scenes is None:
+        scenes = scene_batch(cfg, dev)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
-    init_carry, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs)
+    init_carry, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs,
+                                                 mesh=mesh)
     c = init_carry(0)
     torch.cuda.synchronize()
     reset_counts()
@@ -842,7 +860,7 @@ def run_loop(dev, net, cfg, steps):
         step_s.append(time.time() - t0)
     wall = time.time() - t_all
     counts = read_counts()
-    m = {k: v.cpu() for k, v in sim._carry_metrics(c).items()}
+    m = {k: v.cpu() for k, v in sim._carry_metrics(c, mesh).items()}
     for k, v in m.items():
         if not torch.isfinite(v.float()).all():
             raise RuntimeError(f"closed-loop metric {k} is not finite")
@@ -3172,7 +3190,402 @@ def cli_phase(dev, name_power, width=()):
     log(f"cli: phase wall {time.time() - t_phase:.1f} s; {name_power}")
 
 
+# --------------------------------------------------------------------------
+# the parallel layer (phase 34) and the NuScenes extraction (phase 35)
+# --------------------------------------------------------------------------
+
+#: phase 34: ranks of its two-rank runs (gloo: NCCL refuses two ranks on
+#: one card, so these runs check what the sharding computes and are no
+#: scaling figure), scenes and steps of its scene-sharded closed loop,
+#: its work directory and the seconds its ranks may take
+PAR_WORLD = 2
+PAR_SCENES = 16
+PAR_STEPS = 4
+PAR_WORK = os.path.join(HERE, "build", "parallel_phase")
+PAR_TIMEOUT_S = 600
+#: phase 35's work directory
+EXTRACT_WORK = os.path.join(HERE, "build", "extract_phase")
+
+
+def par_dense_case():
+    """Phase 16's e7_ours step inputs (fp32, stl_weight 1, DENSE_REF_SCENES
+    scenes, e5b_round5 base, seeded draws), on the CPU: the same on every
+    process."""
+    import numpy as np
+    from pstl_tpu_torch.data.dataset import SceneDataset
+    cfg = dense_config("e7_ours", compute_dtype="float32",
+                       batch_size=DENSE_REF_SCENES, stl_weight=1.0)
+    ds = SceneDataset.from_synthetic(cfg, seed=5, n_scenes=cfg.batch_size)
+    ds.ensure_random_params(cfg.seed)
+    batch = with_gt_seed(ds.gather(np.arange(cfg.batch_size)), cfg)
+    net = dense_net(cfg, "cpu", seed=2, warm=True)
+    return cfg, batch, net, dense_draws(cfg, cfg.batch_size, seed=6)
+
+
+def par_plan_case(dev):
+    """Phase 34c's plan inputs, the same on every process: bench.py's heavy
+    contract with the e7_round5 weights, one synthetic scene observed at
+    t = 0, and the whole pinned noise of a plan (seeded)."""
+    import torch
+    from pstl_tpu_torch import diffusion, sim
+    from pstl_tpu_torch.config import bench_config
+    from pstl_tpu_torch.models import convert
+    from pstl_tpu_torch.models.net import Net
+    cfg = bench_config("heavy")
+    net = Net(cfg)
+    convert.load_weights(net, "e7_round5")
+    net = net.to(dev).eval()
+    scenes = scene_batch(cfg, dev, n_scenes=1)
+    obs = sim.observe(scenes, scenes.ego_full[:, 0],
+                      torch.zeros(1, dtype=torch.long, device=dev), cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    noise = torch.randn((diffusion.n_draws(cfg), *diffusion.draw_layout(
+        cfg, 1, 3 * cfg.n_randoms)), generator=g, device=dev)
+    return cfg, net, obs, noise
+
+
+def timed_plan(plan, obs, noise):
+    """One plan with the launch counts set to 0 just before and read just
+    after: (u0, info, counts, wall s)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    u, info = plan(obs, noise=noise)
+    torch.cuda.synchronize()
+    return u, info, read_counts(), time.time() - t0
+
+
+def parallel_worker(rank, run_dir):
+    """A rank of phase 34's two-rank runs on the card (``chip_smoke.py
+    --parallel-rank <rank> <dir>``): (b) the e7_ours step under a data
+    mesh, (c) the candidate-sharded plan (kernel 1 held to its plain
+    version on this rank's columns; rank 0 times it while rank 1 waits),
+    (d) the scene-sharded closed loop.  Writes its results to
+    ``<dir>/out<rank>.pt``."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+    from pstl_tpu_torch import diffusion, sim, specs, train
+    from pstl_tpu_torch.ops import _build
+    from pstl_tpu_torch.ops import guidance_kernel as gk
+    from pstl_tpu_torch.parallel import (candidate_sharding, init_multihost,
+                                         make_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.load_all(LIBS)
+    init_multihost(init_method="file://" + os.path.join(run_dir, "store"),
+                   world_size=PAR_WORLD, rank=rank, device=dev,
+                   backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    data_mesh = make_mesh((PAR_WORLD,), ("data",))
+    out = {}
+
+    cfg, batch, net, draws = par_dense_case()
+    net = net.to(dev)
+    step = train.make_train_step(cfg, net, specs.build_scorer(cfg),
+                                 diffusion.get_coeffs(cfg, device=dev),
+                                 train.make_optimizer(cfg, net),
+                                 mesh=data_mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    rd = step(train.to_device(batch, dev),
+              draws={k: v.to(dev) for k, v in draws.items()})
+    torch.cuda.synchronize()
+    out["e7"] = {"metrics": {k: float(v) for k, v in rd.items()},
+                 "counts": read_counts(),
+                 "grads": {k: (torch.zeros_like(p) if p.grad is None
+                               else p.grad).detach().cpu()
+                           for k, p in net.named_parameters()},
+                 "state": {k: v.detach().cpu()
+                           for k, v in net.state_dict().items()}}
+
+    cfg, net, obs, noise = par_plan_case(dev)
+    plan = sim.make_planner(cfg, net, diffusion.get_coeffs(cfg, device=dev))
+    with candidate_sharding(make_mesh((PAR_WORLD,), ("cand",)), "cand"):
+        timed_plan(plan, obs, noise)            # the warm-up
+        with Recorder(gk, "guidance_fused") as rec:
+            u, info, counts, wall = timed_plan(plan, obs, noise)
+    args = rec.calls[0][0]
+    if rank == 0:
+        k1 = recorded_kernel1(args, f"the candidate-sharded plan (rank "
+                                    f"{rank} of {PAR_WORLD})")
+    else:
+        ow, oa = gk.guidance_fused(*args)
+        pw, pa = gk.guidance_fused_plain(*args)
+        k1 = (check_guided(torch.stack([ow, oa]), torch.stack([pw, pa]),
+                           torch.stack([args[0], args[1]]),
+                           float(args[-2][0]),
+                           f"kernel 1 on the candidate-sharded plan (rank "
+                           f"{rank} of {PAR_WORLD})"),)
+    dist.barrier()
+    out["plan"] = {"u": u.cpu(), "plan_traj": info["plan_traj"].cpu(),
+                   "scores": info["scores"].cpu(), "counts": counts,
+                   "wall": wall, "columns": int(args[0].shape[-1]),
+                   "kernel1": k1}
+
+    scenes = sim.shard_scenes(scene_batch(cfg, dev, n_scenes=PAR_SCENES),
+                              data_mesh)
+    counts, m, walls, _ = run_loop(dev, net, cfg, PAR_STEPS, scenes,
+                                   data_mesh)
+    out["loop"] = {"metrics": m, "counts": counts, "walls": walls,
+                   "scenes": int(scenes.ego_full.shape[0])}
+    torch.save(out, os.path.join(run_dir, f"out{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_ranks(run_dir):
+    """Phase 34's ranks (b)-(d) as PAR_WORLD processes of this script on
+    the one card; their output is logged; every process is waited for or
+    killed.  Returns each rank's results and the wall s."""
+    import subprocess
+    import torch
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), run_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(PAR_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=PAR_TIMEOUT_S)[0],
+                         p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (text, rc) in enumerate(outs):
+        for ln in text.strip().splitlines():
+            log(f"parallel rank {r}: {ln}")
+        if rc != 0:
+            raise RuntimeError(f"parallel rank {r} exited with {rc}")
+    return ([torch.load(os.path.join(run_dir, f"out{r}.pt"),
+                        weights_only=False) for r in range(PAR_WORLD)],
+            time.time() - t0)
+
+
+def parallel_phase(dev, name_power):
+    """Phase 34: the parallel layer on the card.  (a) ``cli train --mesh
+    --preset e2_vae_mono --set use_pallas_clearance=true`` in this process
+    (a world-1 mesh, NCCL) for one epoch on phase 33's store: kernels 6 / 7
+    launched as without the mesh and every logged metric within MONO_RTOL
+    of the same command without ``--mesh``.  Then two gloo ranks of this
+    script share the card: (b) phase 16's fp32 e7_ours step under a data
+    mesh (4 scenes a rank) against the one-process step on the card
+    (DENSE_RTOL, DENSE_GRAD_TOL), both ranks with the same parameters
+    after it; (c) one scene of the heavy contract candidate-sharded (96
+    of the 192 columns a rank): kernel 1 launched once a denoise step on
+    every rank and held to its plain version on the rank's columns, the
+    chosen plan (first control and first states) within TABLE2_REF_TOL of
+    the unsharded plan's and the candidates' scores within
+    EVAL_SCORE_ATOL on all but TABLE2_MAX_OFF_SHARE of the rows; (d)
+    PAR_STEPS scene-sharded closed-loop steps of PAR_SCENES scenes, every
+    gathered metric finite and kernel 1 once a denoise step on each rank.
+    The wall a step, sharded and not, beside the card's name and power
+    limit.  Returns kernel 1's record on the candidate-sharded plan
+    (launches a rank, error, times, plain ms, bound)."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from pstl_tpu_torch import cli, diffusion, sim, train
+
+    t_phase = time.time()
+    runs = []
+    real = train.train
+
+    def recorded(*a, **kw):
+        hist = []
+        state = real(*a, history=hist, **kw)
+        runs.append((kw.get("mesh"), hist, read_counts()))
+        return state
+
+    argv = ["train", "--preset", "e2_vae_mono", "--cache", "aug.npz",
+            "--epochs", "1", "--set", "use_pallas_clearance=true",
+            "no_viz=true"]
+    cwd = os.getcwd()
+    os.chdir(CLI_WORK)
+    train.train = recorded
+    try:
+        for extra in ([], ["--mesh"]):
+            torch.cuda.synchronize()
+            reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv + extra)
+            torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        train.train = real
+        os.chdir(cwd)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (m0, h0, c0), (m1, h1, c1) = runs
+    if m0 is not None or m1 is None or m1.size(0) != 1 or backend != "nccl":
+        raise RuntimeError(f"cli train --mesh: mesh {m1}, backend {backend}")
+    if c1 != c0 or c1["min_clearance_bwd"] < 1 \
+            or c1["min_clearance_fwd"] < c1["min_clearance_bwd"]:
+        raise RuntimeError(f"cli train --mesh launched {c1}, without the "
+                           f"mesh {c0}")
+    err = max(abs(b[k] - a[k]) / (abs(a[k]) + 1e-6)
+              for (_, _, a), (_, _, b) in zip(h0, h1) for k in a)
+    if len(h1) != len(h0) or not err <= MONO_RTOL:
+        raise RuntimeError(f"cli train --mesh: metrics {h1} against {h0}")
+    log(f"parallel (a): cli train --mesh --preset e2_vae_mono at world 1 "
+        f"({backend}): {len(h1)} batches, kernels 6 / 7 launched "
+        f"{c1['min_clearance_fwd']} / {c1['min_clearance_bwd']} times as "
+        f"without the mesh; worst metric rel err {err:.3e} (tolerance "
+        f"{MONO_RTOL}); loss {h1[0][2]['loss']:.6f}")
+
+    shutil.rmtree(PAR_WORK, ignore_errors=True)
+    os.makedirs(PAR_WORK)
+    torch.cuda.empty_cache()        # the ranks share the card with us
+    outs, wall = run_parallel_ranks(PAR_WORK)
+    r0 = outs[0]
+
+    cfg, batch, net, draws = par_dense_case()
+    m_one, g_one = dense_step(cfg, net, batch, draws, dev)
+    for k, v in r0["e7"]["state"].items():
+        if not torch.equal(v, outs[1]["e7"]["state"][k]):
+            raise RuntimeError(f"the ranks' {k} differ after the e7 step")
+    m_err = max(abs(r0["e7"]["metrics"][k] - m_one[k]) / (abs(m_one[k])
+                                                          + 1e-6)
+                for k in m_one)
+    g_err = grad_err(r0["e7"]["grads"], g_one)
+    check_counts(r0["e7"]["counts"], {}, "the sharded e7 step")
+    log(f"parallel (b): e7_ours step (fp32, {cfg.batch_size} scenes over "
+        f"{PAR_WORLD} gloo ranks) against the one-process step on the card: "
+        f"loss {r0['e7']['metrics']['loss']:.6f} vs {m_one['loss']:.6f}; "
+        f"worst metric rel err {m_err:.3e} (tolerance {DENSE_RTOL}); worst "
+        f"gradient err {g_err:.3e} of its tensor's largest entry (tolerance "
+        f"{DENSE_GRAD_TOL}); the ranks' parameters equal")
+    if not (m_err <= DENSE_RTOL and g_err <= DENSE_GRAD_TOL):
+        raise RuntimeError("the sharded and one-process e7 steps disagree")
+
+    cfg, net, obs, noise = par_plan_case(dev)
+    plan = sim.make_planner(cfg, net, diffusion.get_coeffs(cfg, device=dev))
+    timed_plan(plan, obs, noise)
+    u1, info1, c_one, w_one = timed_plan(plan, obs, noise)
+    want = guided_steps(cfg)
+    check_counts(c_one, {"guidance_fused": want}, "the unsharded plan")
+    for r, o in enumerate(outs):
+        p = o["plan"]
+        check_counts(p["counts"], {"guidance_fused": want},
+                     f"the candidate-sharded plan on rank {r}")
+        du = float((p["u"] - u1.cpu()).abs().max())
+        dp = float((p["plan_traj"][:, :3] - info1["plan_traj"][:, :3].cpu()
+                    ).abs().max())
+        off = float(((p["scores"] - info1["scores"].cpu()).abs()
+                     > EVAL_SCORE_ATOL).float().mean())
+        log(f"parallel (c): rank {r}: kernel 1 launched "
+            f"{p['counts']['guidance_fused']} times a plan step on "
+            f"{p['columns']} of {3 * cfg.n_randoms} columns (kernel vs "
+            f"plain max err {p['kernel1'][0]:.3e}); chosen plan against "
+            f"the unsharded plan: first control {du:.3e}, first states "
+            f"{dp:.3e} (tolerance {TABLE2_REF_TOL}); scores off by more "
+            f"than {EVAL_SCORE_ATOL} on {off:.4f} of the rows (allowed "
+            f"{TABLE2_MAX_OFF_SHARE})")
+        if not (du <= TABLE2_REF_TOL and dp <= TABLE2_REF_TOL
+                and off <= TABLE2_MAX_OFF_SHARE):
+            raise RuntimeError(f"the candidate-sharded plan (rank {r}) "
+                               f"disagrees with the unsharded plan")
+
+    c_loop, m_one, w_loop, _ = run_loop(
+        dev, net, cfg, PAR_STEPS, scene_batch(cfg, dev, n_scenes=PAR_SCENES))
+    check_counts(c_loop, {"guidance_fused": want * PAR_STEPS},
+                 "the unsharded closed loop")
+    for r, o in enumerate(outs):
+        lp = o["loop"]
+        check_counts(lp["counts"], {"guidance_fused": want * PAR_STEPS},
+                     f"the scene-sharded closed loop on rank {r}")
+        for k, v in lp["metrics"].items():
+            if v.shape != m_one[k].shape:
+                raise RuntimeError(f"scene-sharded metric {k}: {v}")
+    lp = r0["loop"]
+    log(f"parallel (d): {PAR_SCENES} scenes x {PAR_STEPS} steps over "
+        f"{PAR_WORLD} gloo ranks ({lp['scenes']} a rank, kernel 1 "
+        f"{lp['counts']['guidance_fused']} times on each): stl_compliance "
+        f"{float(lp['metrics']['stl_acc'].mean()):.4f} (unsharded "
+        f"{float(m_one['stl_acc'].mean()):.4f}), collide "
+        f"{float(lp['metrics']['collide'].mean()):.4f}, out_of_lane "
+        f"{float(lp['metrics']['out_of_lane'].mean()):.4f}; every metric "
+        f"finite")
+    log(f"parallel: wall a step on {name_power}: closed loop {PAR_SCENES} "
+        f"scenes unsharded {median(w_loop) * 1e3:.1f} ms, scene-sharded "
+        f"over {PAR_WORLD} ranks {median(lp['walls']) * 1e3:.1f} ms; one "
+        f"heavy plan of 1 scene unsharded {w_one * 1e3:.1f} ms, "
+        f"candidate-sharded {r0['plan']['wall'] * 1e3:.1f} ms (two ranks "
+        f"on one card through the host: a correctness check, not a "
+        f"scaling figure); ranks' run {wall:.1f} s; phase wall "
+        f"{time.time() - t_phase:.1f} s")
+    err, ms, plain_ms, bnd = r0["plan"]["kernel1"]
+    return r0["plan"]["counts"]["guidance_fused"], err, ms, plain_ms, bnd
+
+
+def extract_phase(dev, name_power):
+    """Phase 35: the port's NuScenes extraction on this host, which has no
+    jax: ``extract_dataset`` through the jax-free fake devkit
+    (``tests/torch_devkit_shim.py``) against the committed golden capsule
+    (every array within 1e-6, same dtypes and shapes), then ``cli data
+    --real`` under it, whose cache ``SceneDataset`` loads and the closed
+    loop's scene tensors take onto the card."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_devkit_shim as shim
+    from pstl_tpu_torch import cli, sim
+    from pstl_tpu_torch.config import Config
+    from pstl_tpu_torch.data import extract
+    from pstl_tpu_torch.data.dataset import SceneDataset
+
+    t0 = time.time()
+    shutil.rmtree(EXTRACT_WORK, ignore_errors=True)
+    os.makedirs(EXTRACT_WORK)
+    out = os.path.join(EXTRACT_WORK, "golden.npz")
+    with shim.fake_devkit_ctx():
+        extract.extract_dataset(Config(**shim.GOLDEN_CFG).finalize(),
+                                version="v1.0-mini", dataroot=None,
+                                out_path=out,
+                                sample_stride=shim.GOLDEN_STRIDE,
+                                table_cache_path=None)
+    got = dict(np.load(out, allow_pickle=False))
+    want = dict(np.load(shim.GOLDEN, allow_pickle=False))
+    if sorted(got) != sorted(want) or any(
+            got[k].dtype != want[k].dtype or got[k].shape != want[k].shape
+            for k in want):
+        raise RuntimeError("the extraction's arrays differ from the "
+                           "golden capsule's in keys, dtypes or shapes")
+    err = max((float(np.max(np.abs(got[k].astype(np.float64)
+                                   - want[k].astype(np.float64))))
+               if want[k].size else 0.0) for k in want)
+    if not err <= 1e-6:
+        raise RuntimeError(f"the extraction is {err:.3e} off the golden "
+                           f"capsule")
+    real = os.path.join(EXTRACT_WORK, "real.npz")
+    with shim.fake_devkit_ctx(), contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["data", "--real", "--out", real, "--version", "v1.0-mini",
+                  "--dataroot", EXTRACT_WORK, "--t-stride", "6", "--set",
+                  "n_neighbors=2"])
+    cfg = Config(n_neighbors=2).finalize()
+    ds = SceneDataset.load(real, cfg)
+    scenes = sim.scenes_from_dataset(dict(np.load(real)), device=dev)
+    if len(ds) < 1 or scenes.ego_full.device != dev:
+        raise RuntimeError(f"cli data --real: {len(ds)} samples")
+    log(f"extract: {len(want)} arrays of the golden capsule reproduced "
+        f"(max err {err:.1e}, tolerance 1e-6); cli data --real wrote "
+        f"{len(ds)} samples of {scenes.ego_full.shape[0]} scenes, loaded "
+        f"by SceneDataset and onto {dev}; phase wall "
+        f"{time.time() - t0:.1f} s; {name_power}")
+
+
 def main():
+    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
+        return parallel_worker(int(sys.argv[2]), sys.argv[3])
     if not os.path.isdir(os.path.join(HERE, "pstl_tpu_torch")):
         print("chip_smoke.py: the pstl_tpu_torch package is not beside this "
               "script", file=sys.stderr)
@@ -3294,6 +3707,11 @@ def main():
     shard_store_phase(dev, store, name_power)
     log(f"phase 32 wall {time.time() - t_ph:.1f} s")
     cli_phase(dev, name_power)
+    t_ph = time.time()
+    pr_launches, pr_err, pr_ms, pr_plain_ms, pr_bound = parallel_phase(
+        dev, name_power)
+    log(f"phase 34 wall {time.time() - t_ph:.1f} s")
+    extract_phase(dev, name_power)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there
@@ -3331,7 +3749,9 @@ def main():
         entry(fused, "guidance_fused.cu", at + "396", cg_launches, cg_err,
               cg_ms, cg_plain_ms, cg_bound),
         entry(fused, "guidance_fused.cu", at + "396", dd_launches, dd_err,
-              dd_ms, dd_plain_ms, dd_bound)]}),
+              dd_ms, dd_plain_ms, dd_bound),
+        entry(fused, "guidance_fused.cu", at + "396", pr_launches, pr_err,
+              pr_ms, pr_plain_ms, pr_bound)]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@ augmentation that writes the training targets into the scene store),
 guidance), ``models`` (the policy net's heads and the RefineNet),
 ``specs`` (robustness scorers, pSTL calibration), ``refine``, ``losses``,
 ``viz`` (matplotlib figures, imported only when drawing), ``runtime``
-(the native shard store) and ``ops`` (rollout, geometry, soft STL, the
-guidance loss, and the kernels in ``csrc/``).  Not yet ported: ``parallel``
-(the mesh) and the NuScenes extraction.
+(the native shard store), ``parallel`` (data-parallel training and
+scene- or candidate-sharded planning over ``torch.distributed``),
+``data`` (the scene store, the synthetic generator and the NuScenes
+extraction) and ``ops`` (rollout, geometry, soft STL, the guidance loss,
+and the kernels in ``csrc/``).
 
 The package imports torch and numpy only — never jax or ``pstl_tpu``; the
 flag table and presets (``config``), the synthetic scene generator and the

@@ -23,9 +23,14 @@ What differs from the JAX command line:
 - ``train`` writes its checkpoints under ``exps/<exp_name>/torch_models``.
 - Seeds replace JAX keys: the closed loop runs from seed 0 and the net is
   initialized from ``cfg.seed``.
-- Refused by name: ``data --real`` (or ``synthetic=False``; the NuScenes
-  extraction is not ported) and ``train --mesh`` (``parallel`` is not
-  ported).
+- ``data --real`` (or ``synthetic=False``) runs the port's own copy of the
+  NuScenes extraction (``data/extract.py``; it needs ``nuscenes-devkit``
+  and the dataset on that machine).
+- ``train --mesh`` trains data-parallel over ``torch.distributed``
+  (``parallel``): under ``torchrun --nproc_per_node=N -m
+  pstl_tpu_torch.cli train --mesh ...`` one process a card (NCCL; gloo
+  with ``--device cpu``), or in one process at world 1, where it computes
+  what ``train`` computes.
 """
 
 from __future__ import annotations
@@ -123,9 +128,14 @@ def cmd_data(args):
     cfg = build_config(args).with_(collect_data=True).finalize()
     from pstl_tpu_torch.data.dataset import SceneDataset
     if args.real or not cfg.synthetic:
-        raise NotImplementedError(
-            "data --real / synthetic=False: the NuScenes extraction "
-            "(pstl_tpu/data/extract.py) is not ported")
+        from pstl_tpu_torch.data import extract
+        out = extract.extract_dataset(cfg, version=args.version,
+                                      dataroot=args.dataroot,
+                                      out_path=args.out,
+                                      sample_stride=args.t_stride,
+                                      anno_dir=args.anno_dir)
+        print(f"extracted NuScenes cache -> {out}")
+        return
     from pstl_tpu_torch.data import synthetic
     data = synthetic.generate_dataset(cfg.seed, args.scenes, cfg,
                                       scene_len=args.scene_len,
@@ -155,17 +165,22 @@ def cmd_train(args):
     cfg = build_config(args)
     if args.ckpt:
         cfg = cfg.with_(net_pretrained_path=args.ckpt)
-    if args.mesh:
-        raise NotImplementedError("train --mesh: the mesh (pstl_tpu/"
-                                  "parallel) is not ported")
     from pstl_tpu_torch import train
     from pstl_tpu_torch.device import resolve_device
+    from pstl_tpu_torch.parallel import init_multihost, make_mesh
     from pstl_tpu_torch.utils.exp import setup_exp_dir
+    mesh, rank = None, 0
+    if args.mesh:
+        # torchrun's environment, when set, makes one process a card
+        rank = init_multihost(device=args.device)
     dev = resolve_device(args.device)
-    if cfg.exp_name:
+    if args.mesh:
+        mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
+                         device_type=dev.type)
+    if cfg.exp_name and rank == 0:
         setup_exp_dir(cfg)
     ds = load_dataset(cfg, args)
-    train.train(cfg, ds, epochs=args.epochs, device=dev)
+    train.train(cfg, ds, epochs=args.epochs, device=dev, mesh=mesh)
 
 
 def cmd_eval(args):
@@ -335,7 +350,7 @@ def main(argv=None):
                         "on multiple (scene, t) rows)")
     d.add_argument("--t-stride", type=int, default=4)
     d.add_argument("--real", action="store_true",
-                   help="extract from real NuScenes (not ported: raises)")
+                   help="extract from real NuScenes (needs the devkit)")
     d.add_argument("--version", default="v1.0-trainval")
     d.add_argument("--dataroot", default=None)
     d.add_argument("--anno-dir", default=None,
@@ -353,8 +368,8 @@ def main(argv=None):
     add_common(tr)
     tr.add_argument("--epochs", type=int, default=None)
     tr.add_argument("--mesh", action="store_true",
-                    help="shard batches over all local devices (not "
-                         "ported: raises)")
+                    help="shard batches over the processes' cards "
+                         "(torch.distributed; one process at world 1)")
     tr.set_defaults(fn=cmd_train)
 
     ev = sub.add_parser("eval", help="open-loop evaluation")

@@ -7,11 +7,13 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as given; by default the card, and an error without one
-    (pass ``device="cpu"`` to run the plain versions on the CPU)."""
+    """``device`` as given; by default the card (this process's current
+    one: ``parallel.init_multihost`` selects it under ``torchrun``), and an
+    error without one (pass ``device="cpu"`` to run the plain versions on
+    the CPU)."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
                            "the argument device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())

@@ -53,7 +53,8 @@ import torch
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import guidance_kernel, superstep_kernel
-from pstl_tpu_torch.ops.guidance_loss import mask_mean
+from pstl_tpu_torch.ops.guidance_loss import row_loss
+from pstl_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -120,11 +121,18 @@ def prep(dense_controls: Tensor, cfg: Config, coeffs: Coeffs,
     cmd = normalize_controls(cmd.reshape(n, cfg.nt, 2),
                              cfg).reshape(n, cfg.nt * 2)
     dev = dense_controls.device
+    # under a data sharding (parallel.mesh) the draws are the whole batch's,
+    # of which this rank keeps its rows
     if noise is None:
-        noise = torch.randn((n, cfg.nt * 2), generator=generator, device=dev)
+        noise = mesh.draw(lambda s: torch.randn(s, generator=generator,
+                                                device=dev), (n, cfg.nt * 2))
+    else:
+        noise = mesh.local_part(noise)
     if t is None:
-        t = torch.randint(1, cfg.diffusion_steps, (n,), generator=generator,
-                          device=dev)
+        t = mesh.draw(lambda s: torch.randint(
+            1, cfg.diffusion_steps, s, generator=generator, device=dev), (n,))
+    else:
+        t = mesh.local_part(t)
     sa = torch.sqrt(coeffs.alpha_hat[t])[:, None]
     sb = torch.sqrt(1 - coeffs.alpha_hat[t])[:, None]
     return noise, t[:, None], sa * cmd + sb * noise
@@ -287,7 +295,7 @@ def _guidance_step(mu: Tensor, beta_t: Tensor, guide, cfg: Config,
             u = denormalize_controls(mu_flat, cfg, clip=False)
             trajs = dyn.rollout(ctx.states_flat, u, cfg.dt)
             scores = ctx.score_rows(trajs[:, :-1])
-            return mask_mean(torch.relu(thres - scores), ctx.valid)
+            return row_loss(torch.relu(thres - scores), ctx.valid)
 
         return _adam_loop(mu.detach(), beta_t, loss_fn, cfg)
 
@@ -345,13 +353,23 @@ def _adam_loop(mu0: Tensor, beta_t: Tensor, loss_fn: Callable,
 
 def _drawer(noise: Optional[Tensor], count: int, shape, generator, dev):
     """draw(j) -> the j-th of ``count`` draws of ``shape``: ``noise[j]`` when
-    pinned (checked against (count, *shape)), else a fresh normal draw."""
+    pinned (checked against (count, *shape)), else a fresh normal draw.
+    Under a sharding (``parallel.mesh``) ``shape`` is this rank's part: the
+    draw (and a pinned ``noise``) is the whole one, of which the rank keeps
+    its scenes and candidates (``constrain_candidates``; the candidate axis
+    is the last of a (bs, nt, 2, R) draw, else the dense rows)."""
+    cm = len(shape) == 4
+    part = ((lambda x: mesh.constrain_candidates(x, -1, batch_dim=0)) if cm
+            else (lambda x: mesh.constrain_candidates(x, 0)))
     if noise is not None:
-        if tuple(noise.shape) != (count,) + tuple(shape):
-            raise ValueError(f"noise must be {(count,) + tuple(shape)}, got "
+        whole = (count,) + mesh.whole_shape(shape, 0, -1 if cm else None)
+        if tuple(noise.shape) != whole:
+            raise ValueError(f"noise must be {whole}, got "
                              f"{tuple(noise.shape)}")
-        return lambda j: noise[j]
-    return lambda j: torch.randn(shape, generator=generator, device=dev)
+        return lambda j: part(noise[j])
+    return lambda j: mesh.draw(
+        lambda s: torch.randn(s, generator=generator, device=dev), shape, 0,
+        -1 if cm else None)
 
 
 def reverse_sample(cm_fn: Optional[Callable], guide, cfg: Config,

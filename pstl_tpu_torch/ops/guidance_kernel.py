@@ -74,6 +74,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -168,7 +169,11 @@ def kernel_operands(fused_loss, cfg: Config) -> Operands:
         scal=torch.stack([fused_loss.th0.reshape(bs),
                           fused_loss.v0.reshape(bs)], dim=1).to(f32)
         .contiguous(),
-        gscale=1.0 / (bs * R * torch.clamp(torch.mean(valid), min=1e-2)))
+        # the hinge's mean over every row: under a sharding (parallel.mesh)
+        # over the rows of all ranks, so each column's gradient is the
+        # whole batch's
+        gscale=1.0 / (bs * R * mesh.shard_world() * torch.clamp(
+            mesh.shard_mean(torch.mean(valid)), min=1e-2)))
     fused_loss._kernel_operands = ops
     return ops
 

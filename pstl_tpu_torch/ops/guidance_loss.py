@@ -26,6 +26,7 @@ import torch
 
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import stl
+from pstl_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -35,11 +36,24 @@ I_VAL = 0
 
 
 def mask_mean(x: Tensor, mask: Tensor, dim=None) -> Tensor:
-    """mean(x * mask) / clip(mean(mask), 1e-2)."""
+    """mean(x * mask) / clip(mean(mask), 1e-2).  Over every row (``dim``
+    None) under a sharding (``parallel.mesh``) the rows are this rank's
+    share: the mask's mean is taken over all ranks, so the mean over ranks
+    of the result is the whole batch's value."""
     if dim is None:
-        return torch.mean(x * mask) / torch.clamp(torch.mean(mask), min=1e-2)
+        den = mesh.shard_mean(torch.mean(mask))
+        return torch.mean(x * mask) / torch.clamp(den, min=1e-2)
     return (torch.mean(x * mask, dim=dim)
             / torch.clamp(torch.mean(mask, dim=dim), min=1e-2))
+
+
+def row_loss(x: Tensor, mask: Tensor) -> Tensor:
+    """``mask_mean(x, mask)`` for a loss whose gradient moves the rows
+    themselves (guidance, refinement): under a sharding it is scaled by
+    1 / (ranks sharing the rows), so each row's gradient is the whole
+    batch's."""
+    w = mesh.shard_world()
+    return mask_mean(x, mask) if w == 1 else mask_mean(x, mask) / w
 
 
 def _lse(x: Tensor, dim: int) -> Tensor:
@@ -324,9 +338,10 @@ class CandMinorGuidanceLoss:
 
     def loss_cm(self, muT: Tensor, thres: float,
                 tau: Optional[float] = None, frozen=None) -> Tensor:
-        """Hinge loss mask_mean(relu(thres - scores), valid) on (bs,T,2,R)."""
+        """Hinge loss mask_mean(relu(thres - scores), valid) on (bs,T,2,R)
+        (``row_loss``: under a sharding, this rank's share of it)."""
         scores = self.scores_r(muT, tau, frozen=frozen)
-        return mask_mean(torch.relu(thres - scores), self.valid_r)
+        return row_loss(torch.relu(thres - scores), self.valid_r)
 
 
 def make_guidance_loss(batch: Dict[str, Tensor], dense: Dict[str, Tensor],

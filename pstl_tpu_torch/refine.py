@@ -33,7 +33,7 @@ from pstl_tpu_torch import optim
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import geometry as geom
-from pstl_tpu_torch.ops.guidance_loss import mask_mean
+from pstl_tpu_torch.ops.guidance_loss import row_loss
 
 Tensor = torch.Tensor
 
@@ -94,8 +94,8 @@ def convex_refinement(nn_controls: Tensor, all_steps: Tensor,
         return base * (1 - violated) + violated * mix
 
     def loss_fn(lamdas):
-        return mask_mean(torch.relu(stl_thres - score(combine(lamdas))),
-                         valid)
+        return row_loss(torch.relu(stl_thres - score(combine(lamdas))),
+                        valid)
 
     lam0 = torch.ones((N, len(idx) + 1), device=base.device)
     lam = _adam_loop(lam0, loss_fn, lr, n_iters)
@@ -116,8 +116,8 @@ def raw_refinement(nn_controls: Tensor, states_flat: Tensor, score_rows,
     violated = _violated(base, score, valid)
 
     def loss_fn(res):
-        return mask_mean(torch.relu(stl_thres - score(base + violated * res)),
-                         valid)
+        return row_loss(torch.relu(stl_thres - score(base + violated * res)),
+                        valid)
 
     res = _adam_loop(torch.zeros_like(base), loss_fn, lr, n_iters)
     return base + violated * res

@@ -39,6 +39,7 @@ from pstl_tpu_torch.models import net as models
 from pstl_tpu_torch.models.net import Net
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import geometry as geom
+from pstl_tpu_torch.parallel import mesh as pmesh
 
 Tensor = torch.Tensor
 
@@ -273,8 +274,11 @@ def hint_draws(n: int, cfg: Config, generator: Optional[torch.Generator],
     """The planner's init hint (``use_init_hint``): a control seed a row as
     the dataset's random seeds are drawn (``pstl_tpu/sim.py:275-286``),
     steering uniform in +-mul_w_max times 0.1 and acceleration uniform in
-    +-mul_a_max, (n, nt, 2)."""
-    u = torch.rand((2, n, cfg.nt), generator=generator, device=device)
+    +-mul_a_max, (n, nt, 2).  Under a data sharding (``parallel.mesh``)
+    ``n`` is this rank's rows, drawn as the whole batch's."""
+    u = pmesh.draw(lambda s: torch.rand(s, generator=generator,
+                                        device=device), (2, n, cfg.nt),
+                   rows=1)
     return torch.stack([(u[0] * 2 - 1) * cfg.mul_w_max * 0.1,
                         (u[1] * 2 - 1) * cfg.mul_a_max], dim=-1)
 
@@ -324,8 +328,8 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         if cfg.use_init_hint:
             # the closed loop has no trajopt seeds: draw them as the dataset
             # draws its random ones
-            dense["params_init"] = (hint if hint is not None else
-                                    hint_draws(n, cfg, generator, dev))
+            dense["params_init"] = (pmesh.local_part(hint) if hint is not None
+                                    else hint_draws(n, cfg, generator, dev))
         highlevel = dense["highlevel_dense"]
         valid = dense["valids_dense"].reshape(-1)
         states_flat = torch.repeat_interleave(states, M * 3, 0)
@@ -338,21 +342,12 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
 
         # the scene feature, tiled to the n candidate rows (the JAX planner
         # reads it from Net.__call__(get_feature=True))
-        feature = torch.repeat_interleave(net.encode(dense), M * 3, 0)
+        enc = net.encode(dense)
+        feature = torch.repeat_interleave(enc, M * 3, 0)
         if cfg.diffusion:
-            fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
-                     if cfg.guidance else None)
-            ctx = (diffusion.make_guidance_ctx(score_rows, valid,
-                                               states_flat, fused)
-                   if cfg.guidance else None)
-            cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature,
-                                           cfg)
-                     if cfg.cm_sampler and fused is not None else None)
-            nn_controls, all_steps = diffusion.sample(
-                lambda e: net(dense, e, prev_feature=feature), highlevel,
-                cfg, coeffs, n, noise=noise, generator=generator,
-                stlp_dense=dense["stlp_dense"], guide=ctx, maximize=True,
-                cm_fn=cm_fn)
+            nn_controls, all_steps = _candidates(
+                net, obs, dense, gt_stlp, states, states_flat, enc, feature,
+                score_rows, cfg, coeffs, noise, generator)
         else:
             nn_controls = decode_baseline(net, dense, feature, cfg, noise,
                                           generator)
@@ -375,9 +370,9 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
                 # lite_refine (nusc_sim.py:554-557): skip the repair when a
                 # lane-keep candidate of the batch already satisfies its
                 # spec (the JAX package's lax.cond; here a host sync)
-                if not cfg.lite_refine or float(torch.amax(
+                if not cfg.lite_refine or float(pmesh.shard_max(torch.amax(
                         score_controls(controls)[0].reshape(bs, M, 3)[
-                            :, :, 0])) <= 0:
+                            :, :, 0]))) <= 0:
                     controls = _refine(controls, all_steps, states_flat,
                                        score_rows, valid, cfg)
         else:
@@ -405,6 +400,67 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
     return plan
 
 
+def _sample(net: Net, obs, dense, states: Tensor, states_flat: Tensor,
+            feature: Tensor, score_rows, cfg: Config,
+            coeffs: diffusion.Coeffs, noise, generator):
+    """The guided diffusion sampler on the dense rows of ``dense``
+    (``cfg.n_randoms`` seeds a scene and maneuver; ``states_flat``,
+    ``feature`` the start states and scene feature tiled to them,
+    ``score_rows`` their robustness): (controls, all_steps) as
+    ``diffusion.sample`` returns them."""
+    M = cfg.n_randoms
+    n = states.shape[0] * M * 3
+    highlevel = dense["highlevel_dense"]
+    valid = dense["valids_dense"].reshape(-1)
+    fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
+             if cfg.guidance else None)
+    ctx = (diffusion.make_guidance_ctx(score_rows, valid, states_flat, fused)
+           if cfg.guidance else None)
+    cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
+             if cfg.cm_sampler and fused is not None else None)
+    return diffusion.sample(
+        lambda e: net(dense, e, prev_feature=feature, n_randoms=M),
+        highlevel, cfg, coeffs, n, noise=noise, generator=generator,
+        stlp_dense=dense["stlp_dense"], guide=ctx, maximize=True,
+        cm_fn=cm_fn)
+
+
+def _candidates(net: Net, obs, dense, gt_stlp: Tensor, states: Tensor,
+                states_flat: Tensor, enc: Tensor, feature: Tensor,
+                score_rows, cfg: Config, coeffs: diffusion.Coeffs, noise,
+                generator):
+    """The sampler's candidates (controls, all_steps) of every dense row.
+    Inside ``parallel.candidate_sharding`` this rank samples its share of
+    every scene's seeds (M' = n_randoms / world of them, a valid layout of
+    3*M' candidate columns: the kernels run unchanged) from its part of the
+    whole draws, and the decodings are gathered: every rank returns all
+    rows, and the selection after it runs replicated."""
+    ax = pmesh.candidate_axis()
+    if ax is None or ax.world == 1:
+        return _sample(net, obs, dense, states, states_flat, feature,
+                       score_rows, cfg, coeffs, noise, generator)
+    if cfg.n_randoms % ax.world:
+        raise ValueError(f"candidate sharding splits the n_randoms "
+                         f"({cfg.n_randoms}) seeds of a scene over the "
+                         f"{ax.world} ranks of its axis: it must divide")
+    cfg_l = cfg.with_(n_randoms=cfg.n_randoms // ax.world)
+    with pmesh.candidate_share(ax, cfg_l.n_randoms):
+        dense_l = specs.densify_batch(
+            obs, gt_stlp, cfg_l, pmesh.candidate_part(dense["stlp_dense"]))
+        if "params_init" in dense:
+            dense_l["params_init"] = pmesh.candidate_part(
+                dense["params_init"])
+        rows = cfg_l.n_randoms * 3
+        _, steps_l = _sample(
+            net, obs, dense_l, states,
+            torch.repeat_interleave(states, rows, 0),
+            torch.repeat_interleave(enc, rows, 0),
+            specs.make_score_rows(obs, dense_l, cfg_l), cfg_l, coeffs, noise,
+            generator)
+        all_steps = pmesh.gather_candidates(steps_l, rows=1)
+    return all_steps[-1], all_steps
+
+
 def decode_baseline(net: Net, dense, feature: Tensor, cfg: Config,
                      z: Optional[Tensor],
                      generator: Optional[torch.Generator],
@@ -416,8 +472,11 @@ def decode_baseline(net: Net, dense, feature: Tensor, cfg: Config,
     if not cfg.vae:
         return net(dense, ext, prev_feature=feature, n_randoms=n_randoms)
     if z is None:
-        z = torch.randn((feature.shape[0], cfg.vae_dim),
-                        generator=generator, device=feature.device)
+        z = pmesh.draw(lambda s: torch.randn(s, generator=generator,
+                                             device=feature.device),
+                       (feature.shape[0], cfg.vae_dim))
+    else:
+        z = pmesh.local_part(z)
     return net(dense, ext, prev_feature=feature, n_randoms=n_randoms,
                sample=z)[0]
 
@@ -572,9 +631,12 @@ def _make_body(scenes: SceneTensors, cfg: Config, plan, with_info=False):
     return body
 
 
-def _carry_metrics(c: Carry) -> Dict[str, Tensor]:
+def _carry_metrics(c: Carry, mesh=None) -> Dict[str, Tensor]:
+    """The per-scene metrics of a carry; with a ``mesh`` (a carry of this
+    rank's scenes, ``make_closed_loop_step(mesh=...)``) those of every
+    rank's scenes, gathered in rank order, the whole batch's order."""
     steps = torch.clamp(c.steps, min=1.0)
-    return {
+    out = {
         "collide": c.collide.float(),
         "out_of_lane": c.out_of_lane.float(),
         "traj_len": c.steps,
@@ -583,22 +645,50 @@ def _carry_metrics(c: Carry) -> Dict[str, Tensor]:
         "agent_steps": torch.sum(c.steps),
         "repairs": c.repairs,
     }
+    if mesh is None:
+        return out
+    out = {k: v if k == "agent_steps" else pmesh.gather_rows(v, mesh)
+           for k, v in out.items()}
+    out["agent_steps"] = torch.sum(out["traj_len"])
+    return out
+
+
+def shard_scenes(scenes: SceneTensors, mesh) -> SceneTensors:
+    """This rank's scenes of ``scenes`` over the "data" axis of ``mesh`` (an
+    equal share a rank; ValueError if the scene count does not divide)."""
+    world = pmesh.axis_of(mesh, "data").world
+    if scenes.ego_full.shape[0] % world:
+        raise ValueError(f"{scenes.ego_full.shape[0]} scenes do not split "
+                         f"over the {world} ranks of the data axis")
+    return SceneTensors(**pmesh.shard_batch(scenes._asdict(), mesh))
 
 
 def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
                           coeffs: diffusion.Coeffs, with_info: bool = False,
-                          stlp_override=None, chunk: int = 1):
+                          stlp_override=None, chunk: int = 1, mesh=None):
     """Returns (init_carry, step).  ``init_carry(seed=0, t0=None)`` starts
     the episodes at frames ``t0`` (bs,) (default 0; the planner draws its
     noise from a device generator seeded with ``seed``).  ``step(carry,
     noise=None)`` runs ``chunk`` replanning steps for every scene (done
     scenes are masked, not skipped); ``noise`` pins the plan's draws (see
     ``_make_body``): one for a step, a sequence of ``chunk`` for a chunk.
-    ``with_info`` forces chunk 1 and returns (carry, the plan's info)."""
+    ``with_info`` forces chunk 1 and returns (carry, the plan's info).
+
+    ``mesh``: ``scenes`` are this rank's share of the whole batch over its
+    "data" axis (``shard_scenes``), every rank starting from the same seed; a
+    step draws the whole batch's noise (pinned ``noise`` is the whole
+    batch's too) and keeps its scenes' part, so each scene runs as it runs
+    unsharded.  ``_carry_metrics(carry, mesh)`` gathers the metrics."""
     dev = scenes.ego_full.device
     check_devices(dev, net, coeffs)
     plan = make_planner(cfg, net, coeffs, stlp_override=stlp_override)
     body = _make_body(scenes, cfg, plan, with_info=with_info)
+    if mesh is not None:
+        local_body = body
+
+        def body(c: Carry, noise=None):
+            with pmesh.data_sharding(mesh):
+                return local_body(c, noise)
 
     if with_info or chunk <= 1:
         step = body

@@ -24,6 +24,7 @@ from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import clearance_kernel
 from pstl_tpu_torch.ops import geometry as geom
 from pstl_tpu_torch.ops import stl
+from pstl_tpu_torch.parallel import mesh
 from pstl_tpu_torch.ops.guidance_loss import (  # noqa: F401
     I_DMAX, I_DMIN, I_DSAFE, I_THMAX, I_VAL, I_VMAX, I_VMIN,
     CandMinorGuidanceLoss, make_guidance_loss, mask_mean)
@@ -307,8 +308,10 @@ def flex_uniforms(bs: int, generator: Optional[torch.Generator] = None,
                   device=None) -> Tensor:
     """The uniforms of ``get_dense_stlp``'s three ``generate_flex_pstl``
     calls: (3, 6, bs, 1), entry [j, i] in the range ``FLEX_RANGES`` gives
-    maneuver j's i-th draw."""
-    u = torch.rand((3, 6, bs, 1), generator=generator, device=device)
+    maneuver j's i-th draw.  Under a data sharding (``parallel.mesh``)
+    ``bs`` is this rank's scenes, drawn as the whole batch's."""
+    u = mesh.draw(lambda s: torch.rand(s, generator=generator,
+                                       device=device), (3, 6, bs, 1), rows=2)
     lo = torch.tensor([[r[0] for r in FLEX_RANGES["keep" if j == 0
                                                    else "change"]]
                        for j in range(3)], device=u.device)
@@ -363,6 +366,8 @@ def get_dense_stlp(gt_high_level: Tensor, the_stlp: Tensor, cfg: Config,
     if cfg.flex:
         if flex is None:
             flex = flex_uniforms(bs, generator, the_stlp.device)
+        else:
+            flex = mesh.local_part(flex, rows=2)
         d = [generate_flex_pstl(stlp_mid, j, n_randoms, flex[j])
              for j in range(3)]
         hlf = hl.to(dt)

@@ -67,12 +67,14 @@ batch.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pstl_tpu_torch import diffusion, losses, specs
 from pstl_tpu_torch.config import Config
@@ -82,6 +84,7 @@ from pstl_tpu_torch.device import resolve_device
 from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.models.net import Net, init_flax_like
 from pstl_tpu_torch.ops import dynamics as dyn
+from pstl_tpu_torch.parallel import mesh as pmesh
 from pstl_tpu_torch.utils.exp import MODELS_DIR, setup_exp_dir
 from pstl_tpu_torch.utils.meters import EtaEstimator, MeterDict, Timer
 
@@ -135,6 +138,18 @@ def attach_neighbors(batch: Dict[str, Tensor],
     batch["neighbors"] = batch["neighbors_traj"][:, :, 0, :]
     batch["neighbor_trajs_aug"] = batch["neighbors_traj"]
     return batch
+
+
+def _vae_noise(draws: Dict[str, Tensor], n: int, cfg: Config,
+               generator: Optional[torch.Generator], dev) -> Tensor:
+    """The VAE's latent noise (n, vae_dim): ``draws["vae_noise"]`` or drawn
+    from ``generator``; under a data sharding (``parallel.mesh``) the whole
+    batch's, of which this rank keeps its rows."""
+    noise = draws.get("vae_noise")
+    if noise is not None:
+        return pmesh.local_part(noise)
+    return pmesh.draw(lambda s: torch.randn(s, generator=generator,
+                                            device=dev), (n, cfg.vae_dim))
 
 
 def _mono_forward_and_loss(net: Net, batch, cfg: Config, formulas,
@@ -198,10 +213,7 @@ def _mono_forward_and_loss(net: Net, batch, cfg: Config, formulas,
         rd["loss"] = rd["loss_diffusion"] + (rd["loss_stl"]
                                              if cfg.grad_rollout else 0.0)
     elif cfg.vae:
-        noise = draws.get("vae_noise")
-        if noise is None:
-            noise = torch.randn((n, cfg.vae_dim), generator=generator,
-                                device=dev)
+        noise = _vae_noise(draws, n, cfg, generator, dev)
         ext = {"gt_stlp": gt_stlp, "highlevel": hl,
                "gt_controls": gt_controls, "noise": noise}
         controls_mul, (mean, logstd, std) = net(batch, ext)
@@ -277,10 +289,7 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
         # the BC head, trained on the hinge of its own controls' scores,
         # the target MSE and the collision loss
         if cfg.vae:
-            noise = draws.get("vae_noise")
-            if noise is None:
-                noise = torch.randn((n, cfg.vae_dim), generator=generator,
-                                    device=states.device)
+            noise = _vae_noise(draws, n, cfg, generator, states.device)
             nn_controls, latent_stats = net(dense, {
                 "highlevel": highlevel, "noise": noise,
                 "trajopt_controls": dense_controls})
@@ -386,37 +395,67 @@ def batch_forward_and_loss(params: Net, batch: Dict[str, Tensor],
                   draws or {}, generator)
 
 
+def _placed(batch: Dict[str, Tensor], mesh):
+    """(this rank's rows of ``batch``, the placement to run them under): the
+    data sharding when the batch's rows divide by the "data" axis, else the
+    whole batch replicated, as JAX's ``shard_batch`` places it."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % pmesh.axis_of(mesh, "data").world:
+        return batch, pmesh.replicate(mesh)
+    return pmesh.shard_batch(batch, mesh), pmesh.data_sharding(mesh)
+
+
 def make_train_step(cfg: Config, net: Net, formulas,
-                    coeffs: diffusion.Coeffs, opt: torch.optim.Optimizer):
+                    coeffs: diffusion.Coeffs, opt: torch.optim.Optimizer,
+                    mesh=None):
     """``train_step(batch, draws=None, generator=None) -> metrics``: loss,
     gradients of every parameter (left in their ``.grad``) and one Adam
-    update by ``opt`` of the parameters it holds, in place."""
+    update by ``opt`` of the parameters it holds, in place.
+
+    With a ``mesh`` every rank takes the same whole batch, draws and seeded
+    generator, and computes the unsharded step: it runs its rows of the
+    batch along the mesh's "data" axis (``parallel.mesh``: whole draws
+    sliced, masked means over every rank's rows), averages the gradients
+    over the axis (one all-reduce a dtype) before the update, and returns
+    the metrics averaged over the axis, the whole batch's."""
 
     def train_step(batch: Dict[str, Tensor],
                    draws: Optional[Dict[str, Tensor]] = None,
                    generator: Optional[torch.Generator] = None):
         net.zero_grad(set_to_none=True)
-        with torch.enable_grad():
+        place = contextlib.nullcontext()
+        if mesh is not None:
+            batch, place = _placed(batch, mesh)
+        with place, torch.enable_grad():
             loss, rd = batch_forward_and_loss(net, batch, cfg, formulas,
                                               coeffs, True, draws, generator)
             loss.backward()
+        rd = {k: v.detach() for k, v in rd.items()}
+        if mesh is not None:
+            pmesh.all_reduce_grads(net.parameters(), mesh)
+            rd = pmesh.psum_metrics(rd, mesh)
         opt.step()
-        return {k: v.detach() for k, v in rd.items()}
+        return rd
 
     return train_step
 
 
 def make_eval_step(cfg: Config, net: Net, formulas,
-                   coeffs: diffusion.Coeffs):
+                   coeffs: diffusion.Coeffs, mesh=None):
     """``eval_step(batch, draws=None, generator=None) -> metrics``, without
-    gradient."""
+    gradient; with a ``mesh`` as :func:`make_train_step` runs it."""
 
     def eval_step(batch: Dict[str, Tensor],
                   draws: Optional[Dict[str, Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
+        place = contextlib.nullcontext()
+        if mesh is not None:
+            batch, place = _placed(batch, mesh)
+        with place, torch.no_grad():
             _, rd = batch_forward_and_loss(net, batch, cfg, formulas, coeffs,
                                            False, draws, generator)
+        if mesh is not None:
+            rd = pmesh.psum_metrics(rd, mesh)
         return rd
 
     return eval_step
@@ -514,9 +553,13 @@ def load_params_only(path: str, state: TrainState) -> TrainState:
 # training loop
 # ---------------------------------------------------------------------------
 
+def _quiet(*_args, **_kw) -> None:
+    """The log of a rank other than 0 under a mesh."""
+
 def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
           device=None, log: Callable = print,
-          history: Optional[list] = None, epoch_cb=None) -> TrainState:
+          history: Optional[list] = None, epoch_cb=None,
+          mesh=None) -> TrainState:
     """The epoch loop over {train, val} with one step per batch
     (``pstl_tpu/train.py:train``): flax-like initialization from
     ``cfg.seed``, then ``cfg.net_pretrained_path``'s weights
@@ -538,7 +581,19 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     (the copy to the device), ``step`` (the step, synchronized) and ``log``
     (the metrics).  With ``cfg.exp_name`` and not ``cfg.no_viz``,
     ``_viz_epoch`` draws the first val scenes every ``viz_freq`` epochs and
-    after the last."""
+    after the last.
+
+    ``mesh`` (``parallel.make_mesh``; one process a card, e.g. under
+    ``torchrun``): data parallelism over its "data" axis.  Every rank reads the
+    same batches and draws from the same seeded generator; a step runs its
+    rows and averages the gradients and the metrics over the axis
+    (``make_train_step``), so the run computes what the unsharded run
+    computes.  The parameters are broadcast from rank 0 at the start; only
+    the process of rank 0 logs and writes the experiment directory, the
+    checkpoints, the viz and the shard store (the others wait for it)."""
+    lead = mesh is None or dist.get_rank() == 0
+    if not lead:
+        log = _quiet
     dev = resolve_device(device)
     formulas = specs.build_scorer(cfg)
     coeffs = diffusion.get_coeffs(cfg, device=dev)
@@ -549,10 +604,14 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
     state = init_state(cfg, net, gen)
     if cfg.net_pretrained_path:
         state = load_params_only(cfg.net_pretrained_path, state)
+    if mesh is not None:
+        pmesh.broadcast_module(net, mesh)
     state = TrainState(net, make_optimizer(cfg, net), 0)
-    train_step = make_train_step(cfg, net, formulas, coeffs, state.opt)
-    eval_step = make_eval_step(cfg, net, formulas, coeffs)
-    if cfg.exp_name:
+    train_step = make_train_step(cfg, net, formulas, coeffs, state.opt,
+                                 mesh=mesh)
+    eval_step = make_eval_step(cfg, net, formulas, coeffs, mesh=mesh)
+    write = cfg.exp_name and lead
+    if write:
         ckpt_dir = os.path.join(setup_exp_dir(cfg, tee=False), MODELS_DIR)
     store = None
     if cfg.use_shard_store:
@@ -560,8 +619,10 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
         # C++ thread pool with double-buffered prefetch
         from pstl_tpu_torch.runtime import ShardStore
         sdir = os.path.join("exps", cfg.exp_name or "_tmp", "shard_store")
-        if not os.path.exists(os.path.join(sdir, "meta.json")):
+        if lead and not os.path.exists(os.path.join(sdir, "meta.json")):
             to_shard_store(ds, sdir)
+        if mesh is not None and dist.get_world_size() > 1:
+            dist.barrier()
         store = ShardStore(sdir)
         store_cols = tuple(c for c in store.columns if c.startswith(COLS))
 
@@ -620,9 +681,9 @@ def train(cfg: Config, ds: SceneDataset, epochs: Optional[int] = None,
                 + f" T:{dur:.1f}s ETA:{eta.eta_str()}")
         if epoch_cb is not None:
             epoch_cb(epi, state)
-        if cfg.exp_name and (epi % cfg.save_freq == 0 or epi == n_epochs - 1):
+        if write and (epi % cfg.save_freq == 0 or epi == n_epochs - 1):
             save_checkpoint(ckpt_dir, state, epi)
-        if (cfg.exp_name and not cfg.no_viz
+        if (write and not cfg.no_viz
                 and (epi % cfg.viz_freq == 0 or epi == n_epochs - 1)):
             _viz_epoch(cfg, ds, epi, net=net, formulas=formulas,
                        coeffs=coeffs)

@@ -225,6 +225,7 @@ def test_train_wiring(cache, monkeypatch, argv):
     assert ta[0].to_dict() == ja[0].to_dict()
     same_dataset(ja[1], ta[1])
     assert jk.pop("mesh") is None
+    assert tk.pop("mesh") is None
     assert tk.pop("device") == torch.device("cpu")
     assert tk == jk
     if ja[0].exp_name:
@@ -390,14 +391,23 @@ def test_orbax_ckpt_raises_by_name(workdir, cache):
                    *TINY, "--device", "cpu"])
 
 
-def test_unported_commands_raise_by_name(workdir, cache):
-    with pytest.raises(NotImplementedError, match="extraction"):
+def test_unported_commands_raise_by_name(workdir, cache, monkeypatch):
+    """The two commands that raised until the extraction and ``parallel``
+    were ported: without the devkit, ``data --real`` (and
+    ``synthetic=false``) raises naming it, as the JAX command line does;
+    ``train --mesh`` reaches ``train.train`` with a world-1 mesh."""
+    with pytest.raises(RuntimeError, match="nuscenes-devkit"):
         tcli.main(["data", "--out", "x.npz", "--real"])
-    with pytest.raises(NotImplementedError, match="extraction"):
+    with pytest.raises(RuntimeError, match="nuscenes-devkit"):
         tcli.main(["data", "--out", "x.npz", "--set", "synthetic=false"])
-    with pytest.raises(NotImplementedError, match="parallel"):
+    tc = spy(monkeypatch, ttrain, "train")
+    try:
         tcli.main(["train", "--cache", cache, "--mesh", "--set", *SMALL,
                    "--device", "cpu"])
+    finally:
+        torch.distributed.destroy_process_group()
+    mesh = tc[0][1]["mesh"]
+    assert mesh.mesh_dim_names == ("data",) and mesh.size(0) == 1
 
 
 def test_commands_default_to_the_card(cache, monkeypatch):

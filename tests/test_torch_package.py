@@ -35,11 +35,13 @@ def _imported_modules(path):
 
 
 def test_package_imports_no_jax_ast():
-    """No module of the port (nor chip_smoke.py, nor the port's e2e
-    script) names jax, flax, optax, orbax or the JAX package in an
+    """No module of the port (nor chip_smoke.py, the port's e2e script, or
+    the test helpers the card's host runs) names jax, flax, optax, orbax or the JAX package in an
     import."""
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "e2e_pipeline_torch.py")]
+             os.path.join(REPO, "scripts", "e2e_pipeline_torch.py"),
+             os.path.join(REPO, "tests", "torch_devkit_shim.py"),
+             os.path.join(REPO, "tests", "torch_parallel_case.py")]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -63,7 +65,8 @@ def test_package_import_loads_no_jax():
             "pstl_tpu_torch.runtime, pstl_tpu_torch.runtime.shard_store, "
             "pstl_tpu_torch.ops.clearance_kernel, "
             "pstl_tpu_torch.models.convert, pstl_tpu_torch.cli, "
-            "pstl_tpu_torch.viz; import sys; "
+            "pstl_tpu_torch.viz, pstl_tpu_torch.parallel, "
+            "pstl_tpu_torch.data.extract; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
