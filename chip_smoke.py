@@ -185,13 +185,28 @@ and no result line is printed:
    through the fake devkit of ``tests/torch_devkit_shim.py`` against the
    committed golden capsule, and ``cli data --real`` writing a cache that
    ``SceneDataset`` loads.
+36. the formula tree, the constant-velocity neighbors and training through
+   the sampler: (a) ``specs.build_formulas`` against the ``ClauseBank`` on
+   phase 20's layout (1,024 scenes x 64 x 3 = 196,608 rows), scores soft and
+   hard and the trajopt hinge's gradient, then 20 ``trajopt.optimize``
+   iterations with each (ms an iteration, device launches, peak memory);
+   (b) phase 14's card-vs-CPU step under ``gt_nei=False`` on scenes whose
+   neighbor leaves the ego's track while its constant-velocity prediction
+   stays on it, then ``cli train --preset e2_vae_mono --set gt_nei=false``
+   for 8 steps on phase 33's store, kernels 6 / 7 once a step, each held
+   against its plain version on the first step's inputs and timed there;
+   (c) phase 16's card-vs-CPU step on ``e5_ddpm`` with ``grad_rollout`` and
+   stl_weight 1, then ``cli train --preset e5_ddpm --set grad_rollout=true
+   stl_weight=1.0`` for 4 steps of 24,576 rows (median step, device
+   launches, peak memory).
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's (kernel 1 on the closed loop's path, the
 ninth entry on the evaluation's, the tenth on the ref_parity Table-II
 row's, the eleventh on the ctg Table-I row's, the twelfth on the DDIM
-closed loop's and the thirteenth on the candidate-sharded plan's, per
-rank) launches, error, times
+closed loop's, the thirteenth on the candidate-sharded plan's, per
+rank, and the fourteenth and fifteenth kernels 6 / 7 on the
+constant-velocity neighbors of phase 36) launches, error, times
 (``ms`` one eager call of its wrapper, ``graph_ms`` the kernel alone in a
 graph replay, see ``kernel_ms``; ``plain_ms`` the plain version) and its
 bound: the larger of its bytes (each input read once, each output written
@@ -1108,6 +1123,25 @@ def straight_scenes(batch, cfg):
     return b
 
 
+def swerving_neighbor(batch, cfg, drift=0.4):
+    """``straight_scenes``' batch with neighbor 0's GT track sidestepping
+    to the ego's left by ``drift`` metres a frame after frame 0 (heading
+    and speed kept): its constant-velocity prediction from frame 0
+    (``gt_nei=False``) stays on the ego's track, where the safety clause
+    binds, while the GT track leaves it.  (The synthetic generator's
+    neighbors drive at constant speed and heading, so there the prediction
+    reproduces the GT tracks.)"""
+    import numpy as np
+    b = {k: v.copy() for k, v in batch.items()}
+    nei = b["neighbors_traj"]
+    th = nei[:, 0, :, 3]
+    off = drift * np.arange(nei.shape[2], dtype=np.float32)
+    nei[:, 0, :, 1] -= off * np.sin(th)
+    nei[:, 0, :, 2] += off * np.cos(th)
+    b["neighbors"] = nei[:, :, 0].copy()
+    return b
+
+
 def clearance_random_inputs(n, K, T, seed=0, clip_region=True):
     """tests/test_pallas_kernels.py-style clearance inputs as CPU tensors:
     about 30 % invalid neighbors; with ``clip_region`` the neighbors of
@@ -1310,13 +1344,16 @@ def grad_err(ga, gb):
                / max(float(gb[k].abs().max()), 1e-30) for k in gb)
 
 
-def mono_reference_phase(dev):
+def mono_reference_phase(dev, swerve=False, what="mono reference step",
+                         **kw):
     """Phase 14: one fp32 e2 train step with stl_weight 1 on the card
     (kernels) against the CPU (plain versions), same parameters, batch and
     draws, on scenes where the safety clause binds: the metrics, every
     parameter's gradient and the backward kernel's own output, d ego.  A
     third step, on the card with that output zeroed, shows how far the
-    parameter gradients alone can see the backward kernel."""
+    parameter gradients alone can see the backward kernel.  Phase 36 runs
+    it with ``gt_nei=False`` (``kw``: config overrides) on the
+    ``swerving_neighbor`` scenes (``swerve``)."""
     import copy
     import numpy as np
     import torch
@@ -1326,9 +1363,11 @@ def mono_reference_phase(dev):
     from pstl_tpu_torch.ops import clearance_kernel as ck
 
     cfg = mono_config("e2_vae_mono", stl_weight=1.0, compute_dtype="float32",
-                      batch_size=16)
+                      batch_size=16, **kw)
     ds = SceneDataset.from_synthetic(cfg, seed=3, n_scenes=cfg.batch_size)
     batch = straight_scenes(ds.gather(np.arange(cfg.batch_size)), cfg)
+    if swerve:
+        batch = swerving_neighbor(batch, cfg)
     net_cpu = mono_net(cfg, "cpu")
     with torch.no_grad():   # a near-zero control head: near-straight rollouts
         net_cpu.policy_net.layers[-1].weight.mul_(0.01)
@@ -1363,11 +1402,10 @@ def mono_reference_phase(dev):
             torch.cuda.synchronize()
             if not zero_vjp:
                 check_counts(read_counts(), {"min_clearance_fwd": 1,
-                                             "min_clearance_bwd": 1},
-                             "mono reference step")
+                                             "min_clearance_bwd": 1}, what)
         if len(seen) != 1:
-            raise RuntimeError(f"mono reference step: {len(seen)} clearance "
-                               f"VJP calls, expected 1")
+            raise RuntimeError(f"{what}: {len(seen)} clearance VJP calls, "
+                               f"expected 1")
         return ({k: float(v) for k, v in rd.items()},
                 {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
                 seen[0])
@@ -1383,8 +1421,8 @@ def mono_reference_phase(dev):
     zero_err = grad_err(g_zero, g_cpu)
     ego_diff = float((ego_dev - ego).abs().max())
     d_scale = float(d_cpu.abs().max())
-    log(f"mono reference step (e2, fp32, stl_weight 1, {cfg.batch_size} "
-        f"scenes x {cfg.n_randoms}): card loss {m_dev['loss']:.6f} vs cpu "
+    log(f"{what} (e2, fp32, stl_weight 1, gt_nei {cfg.gt_nei}, "
+        f"{cfg.batch_size} scenes x {cfg.n_randoms}): card loss {m_dev['loss']:.6f} vs cpu "
         f"{m_cpu['loss']:.6f}; worst metric rel err {m_err:.3e} (tolerance "
         f"{MONO_RTOL}); worst gradient err {g_err:.3e} of its tensor's "
         f"largest entry (tolerance {MONO_GRAD_TOL}; {zero_err:.3e} with the "
@@ -1392,12 +1430,13 @@ def mono_reference_phase(dev):
         f"max |g| card {float(cot_dev.abs().max()):.3e}, cpu "
         f"{float(cot.abs().max()):.3e}; its inputs differ by {ego_diff:.3e} m")
     if not (m_err <= MONO_RTOL and g_err <= MONO_GRAD_TOL):
-        raise RuntimeError("card and cpu mono train steps disagree")
+        raise RuntimeError(f"{what}: card and cpu mono train steps "
+                           f"disagree")
     if not ego_diff <= MONO_TIE_M / 10:
         raise RuntimeError("the backward kernel's inputs differ between card "
                            "and cpu beyond its near-tie margin")
     clearance_check(
-        "mono reference backward kernel output (card vs cpu)", d_dev, d_cpu,
+        f"{what}: backward kernel output (card vs cpu)", d_dev, d_cpu,
         MONO_GRAD_TOL, clearance_near_ties(ego, nei, cfg.ego_L, cfg.ego_W,
                                            cfg.refined_nL, MONO_TIE_M, rows),
         atol=MONO_GRAD_TOL * d_scale, max_share=MONO_MAX_OFF_SHARE)
@@ -3049,6 +3088,34 @@ def printed_json(text, what):
     return res
 
 
+def cli_run(what, argv, sets=()):
+    """``cli.main(argv + --set sets)`` in CLI_WORK with the launch counts
+    set to 0 just before and read just after; its stdout is captured.
+    Returns (stdout, counts, wall s)."""
+    import contextlib
+    import io
+    import torch
+    from pstl_tpu_torch import cli
+    cwd = os.getcwd()
+    os.chdir(CLI_WORK)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli.main(list(argv) + ["--set", *sets])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        os.chdir(cwd)
+    counts = read_counts()
+    text = buf.getvalue()
+    tail = text.strip().splitlines()[-1] if text.strip() else ""
+    log(f"cli {what}: {wall:.2f} s; launches {counts}; last line: {tail}")
+    return text, counts, wall
+
+
 def cli_phase(dev, name_power, width=()):
     """Phase 33: the port's command line (``pstl_tpu_torch.cli.main``) in
     this process, on the card it picks by default (no ``--device``), in
@@ -3067,7 +3134,6 @@ def cli_phase(dev, name_power, width=()):
     for a rehearsal)."""
     import contextlib
     import importlib.util
-    import io
     import math
     import shutil
     import torch
@@ -3082,21 +3148,8 @@ def cli_phase(dev, name_power, width=()):
                         else next(x.parameters()).device) == dev
 
     def run(what, argv, sets=()):
-        """``cli.main(argv + --set sets + width)`` with the launch counts
-        set to 0 just before and read just after; its stdout is captured.
-        Returns (stdout, counts)."""
-        torch.cuda.synchronize()
-        reset_counts()
-        buf = io.StringIO()
-        t0 = time.time()
-        with contextlib.redirect_stdout(buf):
-            cli.main(list(argv) + ["--set", *sets, *width])
-        torch.cuda.synchronize()
-        counts = read_counts()
-        text = buf.getvalue()
-        tail = text.strip().splitlines()[-1] if text.strip() else ""
-        log(f"cli {what}: {time.time() - t0:.2f} s; launches {counts}; "
-            f"last line: {tail}")
+        """``cli_run`` with ``width`` appended: (stdout, counts)."""
+        text, counts, _ = cli_run(what, argv, (*sets, *width))
         return text, counts
 
     cwd = os.getcwd()
@@ -3583,6 +3636,307 @@ def extract_phase(dev, name_power):
         f"{time.time() - t0:.1f} s; {name_power}")
 
 
+# --------------------------------------------------------------------------
+# the formula tree, constant-velocity neighbors and grad_rollout (phase 36)
+# --------------------------------------------------------------------------
+
+#: phase 36: trajopt iterations a scorer; epochs of the command-line runs
+#: on phase 33's store (one train batch of 128 scenes an epoch, no full val
+#: batch): e2 under gt_nei=False, e5 under grad_rollout
+TREE_ITERS = 20
+CV_EPOCHS = 8
+GR_EPOCHS = 4
+# the tree against the bank (phase 36 (a)): tests/test_clause_bank.py's
+# tolerances, scores 2e-4 and the hinge's gradient rtol 1e-3 / atol 1e-5
+# element by element.  The bank takes an Always(0, T) clause's soft min in
+# one logsumexp where the tree reads the first entry of a reverse
+# logcumsumexp, so their gradients round differently, and where a control's
+# gradient is a sum of clause terms that cancel (rows near satisfaction)
+# that rounding stays at the terms' scale.  At 196,608 rows (7.9 M gradient
+# elements) on an H100 80GB HBM3 at 700 W, 1 element (on the random seeds)
+# and 2,069 (share 2.6e-4, on the optimized controls, where more rows sit
+# near satisfaction) lay beyond the per-element bound, all within 1.2e-4 of
+# the largest entry.  So at most TREE_MAX_OFF_SHARE of the elements may (the
+# kernels' MAX_OFF_SHARE), and every element must lie within TREE_GRAD_RTOL
+# of the largest entry
+TREE_SCORE_ATOL = 2e-4
+TREE_GRAD_RTOL, TREE_GRAD_ATOL = 1e-3, 1e-5
+TREE_MAX_OFF_SHARE = MAX_OFF_SHARE
+
+
+def tree_phase(dev, store, name_power):
+    """Phase 36 (a): ``specs.build_formulas``' tree against the
+    ``ClauseBank`` on phase 20's layout (the store's first e1_trajopt batch
+    of 1,024 scenes x 64 x 3 rows, K flex draws): on its optimized controls
+    and on its random control seeds, the three formulas' scores soft and
+    hard and the gradient of the summed trajopt hinge with respect to the
+    controls; then, from the seeds, TREE_ITERS
+    ``trajopt.optimize`` iterations with each, timed (host clock + sync),
+    device launches and ms an iteration (profiled apart), peak memory."""
+    import numpy as np
+    import torch
+    from pstl_tpu_torch import specs, trajopt
+    from pstl_tpu_torch.ops import dynamics as dyn
+
+    t0 = time.time()
+    cfg = e1_config()
+    K, M, nt = cfg.trajopt_robust_draws, cfg.n_randoms, cfg.nt
+    b = store.gather(np.arange(cfg.batch_size))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    p_opt, st, sb, hl, stack, valid = trajopt_inputs(
+        cfg, b, trajopt.batch_draws(cfg.batch_size, K, gen, dev), dev)
+    p0 = torch.as_tensor(b["params_init"], device=dev)
+    n = valid.shape[0]
+    states = torch.repeat_interleave(st, M * 3, 0)
+    scorers = {"bank": specs.build_scorer(cfg),
+               "tree": specs.build_formulas(cfg)}
+
+    def scores_grad(form, hard, p):
+        x = p.reshape(n, nt, 2).detach().requires_grad_(not hard)
+        trajs = dyn.rollout(states, x, cfg.dt)
+        sl, s, _ = specs.compute_scores(dict(sb, ego_traj=trajs[:, :-1]),
+                                        form, hl, valid, cfg, hard=hard)
+        g = None if hard else torch.autograd.grad(
+            torch.relu(cfg.stl_trajopt_thres - s).sum(), x)[0]
+        return torch.stack(sl[:3]).detach(), g
+
+    torch.cuda.reset_peak_memory_stats()
+    for what, p in (("optimized", p_opt), ("seeds", p0)):
+        for hard in (False, True):
+            (s_b, g_b), (s_t, g_t) = (scores_grad(f, hard, p)
+                                      for f in scorers.values())
+            err = float((s_t - s_b).abs().max())
+            log(f"tree vs bank ({what} controls, "
+                f"{'hard' if hard else 'soft'}, {n} rows): scores "
+                f"max_abs_err={err:.3e} (tolerance {TREE_SCORE_ATOL}); "
+                f"satisfied {float((s_b > 0).float().mean()):.4f} of the "
+                f"(row, formula) pairs")
+            if not (torch.isfinite(s_t).all() and err <= TREE_SCORE_ATOL):
+                raise RuntimeError("the formula tree's scores disagree with "
+                                   "the clause bank's")
+            if hard:
+                continue
+            d = (g_t - g_b).abs()
+            off = d > TREE_GRAD_ATOL + TREE_GRAD_RTOL * g_b.abs()
+            top = float(g_b.abs().max())
+            share = float(off.float().mean())
+            worst = int(torch.argmax(
+                d / (TREE_GRAD_ATOL + TREE_GRAD_RTOL * g_b.abs())))
+            row_top = g_b.abs().flatten(1).amax(1)
+            row_err = float((d.flatten(1).amax(1)
+                             / (row_top + TREE_GRAD_ATOL)).max())
+            log(f"tree vs bank gradient of the summed hinge ({what}): "
+                f"max_abs_err={float(d.max()):.3e} (largest entry "
+                f"{top:.3e}, tolerance {TREE_GRAD_RTOL} of it); beyond rtol "
+                f"{TREE_GRAD_RTOL} / atol {TREE_GRAD_ATOL}: {int(off.sum())} "
+                f"of {off.numel()} (share {share:.2e}, allowed "
+                f"{TREE_MAX_OFF_SHARE}); the element furthest beyond it "
+                f"{float(g_t.flatten()[worst]):.6e} against "
+                f"{float(g_b.flatten()[worst]):.6e}; the worst row's error "
+                f"{row_err:.3e} of its largest entry")
+            if (not top > 0 or float(d.max()) > TREE_GRAD_RTOL * top
+                    or share > TREE_MAX_OFF_SHARE):
+                raise RuntimeError("the formula tree's gradient disagrees "
+                                   "with the clause bank's")
+            del g_b, g_t, d, off
+    log(f"tree vs bank: peak device memory of the comparison "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    res = {}
+    for name, form in scorers.items():
+        iter_s, mark = [], [None]
+
+        def on_iter(i):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if i > 0:
+                iter_s.append(now - mark[0])
+            mark[0] = now
+
+        run = lambda iters, hook=None: trajopt.optimize(
+            p0, st, sb, hl, form, cfg, iters=iters, stlp_draws=stack,
+            on_iter=hook)
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        _, scores, _ = run(TREE_ITERS, on_iter)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_counts(read_counts(), {}, f"trajopt with the {name}")
+        if not torch.isfinite(scores).all():
+            raise RuntimeError(f"trajopt with the {name}: scores not finite")
+        prof = {k: profile_calls(lambda: run(k), 1) for k in (1, 3)}
+        res[name] = (median(iter_s) * 1e3, (prof[3][0] - prof[1][0]) / 2,
+                     (prof[3][1] - prof[1][1]) / 2, peak,
+                     valid_rate(scores, valid))
+        log(f"trajopt with the {name} ({n} rows, K={K}, {TREE_ITERS} "
+            f"iterations): median iteration {res[name][0]:.2f} ms (host "
+            f"clock + sync), {res[name][1]:.0f} device launches and "
+            f"{res[name][2]:.2f} device ms an iteration (profiled apart), "
+            f"peak device memory {peak:.2f} GiB, satisfaction after "
+            f"{res[name][4]:.4f}; {name_power}")
+    if abs(res["tree"][4] - res["bank"][4]) > 0.01:
+        raise RuntimeError("trajopt with the tree and with the bank reach "
+                           "different satisfaction")
+    log(f"formula tree: {res['tree'][0] / res['bank'][0]:.2f}x the bank's "
+        f"iteration, peak memory {res['tree'][3]:.2f} against "
+        f"{res['bank'][3]:.2f} GiB; phase wall {time.time() - t0:.1f} s")
+
+
+def cv_phase(dev, name_power, width=()):
+    """Phase 36 (b), the constant-velocity neighbors (``gt_nei=False``):
+    phase 14's card-vs-CPU e2 step on the ``swerving_neighbor`` scenes,
+    then ``cli train --preset e2_vae_mono --set gt_nei=false`` for
+    CV_EPOCHS epochs on phase 33's store: kernels 6 / 7 once a train step,
+    each then held against its plain version on the first step's own
+    inputs (phase 13's tolerances) and timed there.  Returns per kernel
+    (launches, max error, times, plain ms, bound).  ``width``: ``--set``
+    pairs appended (a smaller size for a rehearsal)."""
+    import torch
+    from pstl_tpu_torch import train
+    from pstl_tpu_torch.ops import clearance_kernel as ck
+
+    t0 = time.time()
+    mono_reference_phase(dev, swerve=True, gt_nei=False,
+                         what="constant-velocity reference step")
+    with Recorder(ck, "min_clearance_fwd") as rf, \
+            Recorder(ck, "min_clearance_bwd") as rb, \
+            Recorder(train, "train") as rt:
+        _, counts, wall = cli_run(
+            "train (gt_nei=false)",
+            ["train", "--preset", "e2_vae_mono", "--cache", "aug.npz",
+             "--epochs", str(CV_EPOCHS)],
+            ["gt_nei=false", "use_pallas_clearance=true", "no_viz=true",
+             *width])
+    (cfg, ds), _, _ = rt.calls[0]
+    n_tr = ds.split_len("train") // cfg.batch_size
+    n_va = ds.split_len("val") // cfg.batch_size
+    if cfg.gt_nei or n_tr == 0:
+        raise RuntimeError(f"cli train ran gt_nei={cfg.gt_nei}, {n_tr} "
+                           f"train batches")
+    check_counts(counts, {"min_clearance_fwd": (n_tr + n_va) * CV_EPOCHS,
+                          "min_clearance_bwd": n_tr * CV_EPOCHS},
+                 "cli train (gt_nei=false)")
+    (ego, nei, L, W, nL, m), _, _ = rf.calls[0]
+    (ego_b, nei_b, g, *_), _, _ = rb.calls[0]
+    n = ego.shape[0]
+    if not (torch.equal(ego, ego_b) and torch.equal(nei, nei_b)):
+        raise RuntimeError("the clearance kernels read different inputs in "
+                           "one step")
+    res = {}
+    for k, call, plain, operands, rtol, near in (
+            ("fwd", lambda: ck.min_clearance_fwd(ego, nei, L, W, nL, m),
+             lambda: ck.min_clearance_fwd_plain(ego, nei, L, W, nL, m),
+             (ego, nei), CLEAR_FWD_RTOL, None),
+            ("bwd", lambda: ck.min_clearance_bwd(ego, nei, g, L, W, nL, m),
+             lambda: ck.min_clearance_bwd_plain(ego, nei, g, L, W, nL, m),
+             (ego, nei, g), CLEAR_BWD_RTOL,
+             clearance_near_ties(ego, nei, L, W, nL, CLEAR_TIE_M, m))):
+        out, ref = call(), plain()
+        torch.cuda.synchronize()
+        err = clearance_check(f"constant-velocity clearance {k} (cli train "
+                              f"step inputs)", out, ref, rtol, near)
+        n_bytes = nbytes(*operands, out)
+        ops = clearance_ops(n, nei.shape[1], cfg.nt, nL, k == "bwd", m)
+        ms, plain_ms, bnd = kernel_ms(call), time_cuda(plain), bound(
+            n_bytes, ops)
+        res[k] = (counts[f"min_clearance_{k}"], err, ms, plain_ms, bnd)
+        log(f"constant-velocity clearance {k} (n={n}, {n // m} neighbor "
+            f"sets x {m} rows): kernel {ms['graph_ms']:.4f} ms (graph "
+            f"replay), one eager call {ms['ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}); "
+            f"launches {res[k][0]}")
+    log(f"cli train (gt_nei=false): {n_tr * CV_EPOCHS} train steps of "
+        f"{cfg.batch_size} scenes x {cfg.n_randoms} in {wall:.2f} s; "
+        f"{name_power}; phase wall {time.time() - t0:.1f} s")
+    return res
+
+
+class StepTimer:
+    """``train.make_train_step``'s steps timed while it runs (``with
+    StepTimer() as st``): ``st.step_s`` holds each step's host clock with a
+    device sync after it, ``st.last`` the last (step, batch)."""
+
+    def __enter__(self):
+        import torch
+        from pstl_tpu_torch import train
+        self.step_s, self.last = [], None
+        self.real = real = train.make_train_step
+
+        def make(*a, **kw):
+            step = real(*a, **kw)
+
+            def timed(batch, *sa, **skw):
+                t0 = time.time()
+                out = step(batch, *sa, **skw)
+                torch.cuda.synchronize()
+                self.step_s.append(time.time() - t0)
+                self.last = (step, batch)
+                return out
+            return timed
+
+        train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from pstl_tpu_torch import train
+        train.make_train_step = self.real
+
+
+def grad_rollout_phase(dev, name_power, width=()):
+    """Phase 36 (c), training through the sampler (``grad_rollout``):
+    phase 16's card-vs-CPU step on e5_ddpm with grad_rollout and stl_weight
+    1 (its scenes, weights, pinned draws and tolerances), then ``cli train
+    --preset e5_ddpm --set grad_rollout=true stl_weight=1.0`` for GR_EPOCHS
+    epochs on phase 33's store (128 scenes x 64 x 3 = 24,576 rows a step,
+    99 differentiated denoise steps): the median step, device launches a
+    step (one more step, profiled), peak memory; no kernel launches.
+    Phase 16's tolerances hold through the 99 differentiated steps: on the
+    CPU a one-ulp move of every nonzero weight moves this step's metrics by
+    2.2e-6 and its gradients by 3.6e-5 of their tensors' largest entries
+    (``scripts/ulp_sensitivity.py --set grad_rollout=true
+    stl_weight=1.0``).
+    ``width``: ``--set`` pairs appended (a smaller size for a rehearsal)."""
+    import torch
+    from pstl_tpu_torch import train
+
+    t0 = time.time()
+    dense_reference_phase(dev, (("e5_ddpm grad_rollout", "e5_ddpm", {
+        "grad_rollout": True, "stl_weight": 1.0}),),
+        "grad_rollout reference")
+    torch.cuda.reset_peak_memory_stats()
+    with StepTimer() as st, Recorder(train, "train") as rt:
+        _, counts, wall = cli_run(
+            "train (grad_rollout)",
+            ["train", "--preset", "e5_ddpm", "--cache", "aug.npz", "--epochs",
+             str(GR_EPOCHS)],
+            ["grad_rollout=true", "stl_weight=1.0", "no_viz=true", *width])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_counts(counts, {}, "cli train (grad_rollout)")
+        (cfg, ds), _, state = rt.calls[0]
+        step, batch = st.last
+        launches, dev_ms, prof_wall, _ = profile_calls(lambda: step(batch),
+                                                       1)
+    vals = {k: float(v) for k, v in step(batch).items()}
+    check_finite(vals, "grad_rollout step")
+    n_tr = ds.split_len("train") // cfg.batch_size
+    if not (cfg.grad_rollout and vals["loss_stl"] > 0
+            and len(st.step_s) == n_tr * GR_EPOCHS):
+        raise RuntimeError(f"cli train (grad_rollout): grad_rollout "
+                           f"{cfg.grad_rollout}, loss_stl "
+                           f"{vals['loss_stl']}, {len(st.step_s)} steps")
+    rows = cfg.batch_size * cfg.n_randoms * 3
+    log(f"cli train (grad_rollout): {len(st.step_s)} steps of {rows} rows, "
+        f"{cfg.diffusion_steps - 1} differentiated denoise steps: median step "
+        f"{median(st.step_s) * 1e3:.1f} ms (host clock + sync; "
+        f"first {st.step_s[0] * 1e3:.1f} ms), {launches:.0f} device launches "
+        f"and {dev_ms:.1f} device ms a step (busy {dev_ms / prof_wall:.3f}, "
+        f"profiled apart), peak device memory {peak:.2f} GiB; last "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(vals.items()))
+        + f"; {name_power}; phase wall {time.time() - t0:.1f} s")
+
+
 def main():
     if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
         return parallel_worker(int(sys.argv[2]), sys.argv[3])
@@ -3712,6 +4066,11 @@ def main():
         dev, name_power)
     log(f"phase 34 wall {time.time() - t_ph:.1f} s")
     extract_phase(dev, name_power)
+    t_ph = time.time()
+    tree_phase(dev, store, name_power)
+    cv = cv_phase(dev, name_power)
+    grad_rollout_phase(dev, name_power)
+    log(f"phase 36 wall {time.time() - t_ph:.1f} s; {name_power}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         # no single PyTorch call computes any of these functions, so there
@@ -3751,7 +4110,11 @@ def main():
         entry(fused, "guidance_fused.cu", at + "396", dd_launches, dd_err,
               dd_ms, dd_plain_ms, dd_bound),
         entry(fused, "guidance_fused.cu", at + "396", pr_launches, pr_err,
-              pr_ms, pr_plain_ms, pr_bound)]}),
+              pr_ms, pr_plain_ms, pr_bound),
+        entry("min_clearance_fwd", "min_clearance.cu", pk + "167",
+              *cv["fwd"]),
+        entry("min_clearance_bwd", "min_clearance.cu", pk + "193",
+              *cv["bwd"])]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 (port of ``pstl_tpu/ops/dynamics.py``).
 
 State s = (x, y, theta, v); control u = (omega, a); dt seconds per step.
+``neighbor_rollout`` predicts neighbor tracks at constant velocity.
 """
 
 from __future__ import annotations
@@ -47,3 +48,22 @@ def rollout(s0: Tensor, us: Tensor, dt: float) -> Tensor:
     y = s0[..., 1:2] + torch.cumsum(dy, dim=-1)
     tail = torch.stack([x, y, th, v], dim=-1)
     return torch.cat([s0[..., None, :], tail], dim=-2)
+
+
+#: the reference's name for :func:`rollout`
+generate_trajs = rollout
+
+
+def neighbor_rollout(neighbors: Tensor, nt: int, dt: float,
+                     full: bool = False) -> Tensor:
+    """Constant-velocity neighbor prediction: each neighbor's current state
+    rolled out with zero controls.  neighbors: (..., k, 7) rows (valid, x,
+    y, th, v, L, W).  Returns (..., k, nt, 5) of (valid, x, y, th, v), or
+    (..., k, nt, 7) with (L, W) appended when ``full``."""
+    zeros = neighbors.new_zeros(neighbors.shape[:-1] + (nt - 1, 2))
+    trajs = rollout(neighbors[..., 1:5], zeros, dt)     # (..., k, nt, 4)
+    valid = neighbors[..., None, 0:1].expand(trajs.shape[:-1] + (1,))
+    if full:
+        lw = neighbors[..., None, 5:7].expand(trajs.shape[:-1] + (2,))
+        return torch.cat([valid, trajs, lw], dim=-1)
+    return torch.cat([valid, trajs], dim=-1)

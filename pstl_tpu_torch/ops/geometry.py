@@ -247,3 +247,16 @@ def min_clearance_pre(ego_xyth: Tensor, discs: NeighborDiscs, ego_L: float,
     (n, K, T, ...); returns (n, T).  ``min_clearance_tiled`` with R = 1."""
     return min_clearance_tiled(ego_xyth[:, None], discs, ego_L, ego_W,
                                num_L)[:, 0]
+
+
+def bbox_corners(x: Tensor, y: Tensor, theta: Tensor, L: Tensor,
+                 W: Tensor) -> Tensor:
+    """Oriented box corners (..., 4, 2): front-left, front-right,
+    rear-right, rear-left of the box of length L and width W centred at
+    (x, y) with heading theta."""
+    lx = torch.stack([L / 2, L / 2, -L / 2, -L / 2], dim=-1)
+    ly = torch.stack([W / 2, -W / 2, -W / 2, W / 2], dim=-1)
+    c, s = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
+    gx = lx * c - ly * s + x[..., None]
+    gy = lx * s + ly * c + y[..., None]
+    return torch.stack([gx, gy], dim=-1)

@@ -343,6 +343,17 @@ class CandMinorGuidanceLoss:
         scores = self.scores_r(muT, tau, frozen=frozen)
         return row_loss(torch.relu(thres - scores), self.valid_r)
 
+    def freeze(self, mu: Tensor) -> Dict[str, Dict[str, Tensor]]:
+        """:meth:`freeze_cm` from the sampler's m-major (N, nt*2) layout."""
+        return self.freeze_cm(self._to_cand_minor(mu))
+
+    def __call__(self, mu: Tensor, thres: float,
+                 tau: Optional[float] = None, frozen=None) -> Tensor:
+        """:meth:`loss_cm` of ``mu`` (N, nt*2) normalized, m-major (the
+        sampler's layout)."""
+        return self.loss_cm(self._to_cand_minor(mu), thres, tau,
+                            frozen=frozen)
+
 
 def make_guidance_loss(batch: Dict[str, Tensor], dense: Dict[str, Tensor],
                        cfg: Config, states: Tensor, valid: Tensor,

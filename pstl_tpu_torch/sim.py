@@ -284,7 +284,7 @@ def hint_draws(n: int, cfg: Config, generator: Optional[torch.Generator],
 
 
 def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
-                 stlp_override: Optional[np.ndarray] = None):
+                 stlp_override: Optional[np.ndarray] = None, formulas=None):
     """Returns ``plan(obs, noise=None, generator=None, hint=None) ->
     (u0 (bs, 2), info)``: dense batching with the aggressive stlp override,
     the candidates (``diffusion.sample``'s configured sampler with
@@ -302,7 +302,11 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
     ``stlp_override`` (bs, 6): per-scene stlp rows (the ``--test_aggressive``
     presets, ``TEST_AGGRESSIVE_STLPS``).  As in the JAX package, each
     scene's candidate rows take its own row, while the scene-level stlp
-    takes the override's last row for every scene."""
+    takes the override's last row for every scene.
+
+    ``formulas``: what ``specs.make_score_rows`` scores with under
+    ``tiled_scorer=False`` (the ``ClauseBank`` of ``build_scorer`` when
+    None, or ``specs.build_formulas``'s tree, the same numbers)."""
     check_supported(cfg)
     M = cfg.n_randoms
     override_np = np.asarray(stlp_override if stlp_override is not None
@@ -333,7 +337,8 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         highlevel = dense["highlevel_dense"]
         valid = dense["valids_dense"].reshape(-1)
         states_flat = torch.repeat_interleave(states, M * 3, 0)
-        score_rows = specs.make_score_rows(obs, dense, cfg)
+        score_rows = specs.make_score_rows(obs, dense, cfg,
+                                           formulas=formulas)
 
         def score_controls(u):
             trajs = dyn.rollout(states_flat, u, cfg.dt)
@@ -347,7 +352,7 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
         if cfg.diffusion:
             nn_controls, all_steps = _candidates(
                 net, obs, dense, gt_stlp, states, states_flat, enc, feature,
-                score_rows, cfg, coeffs, noise, generator)
+                score_rows, cfg, coeffs, noise, generator, formulas)
         else:
             nn_controls = decode_baseline(net, dense, feature, cfg, noise,
                                           generator)
@@ -428,7 +433,7 @@ def _sample(net: Net, obs, dense, states: Tensor, states_flat: Tensor,
 def _candidates(net: Net, obs, dense, gt_stlp: Tensor, states: Tensor,
                 states_flat: Tensor, enc: Tensor, feature: Tensor,
                 score_rows, cfg: Config, coeffs: diffusion.Coeffs, noise,
-                generator):
+                generator, formulas=None):
     """The sampler's candidates (controls, all_steps) of every dense row.
     Inside ``parallel.candidate_sharding`` this rank samples its share of
     every scene's seeds (M' = n_randoms / world of them, a valid layout of
@@ -455,8 +460,8 @@ def _candidates(net: Net, obs, dense, gt_stlp: Tensor, states: Tensor,
             net, obs, dense_l, states,
             torch.repeat_interleave(states, rows, 0),
             torch.repeat_interleave(enc, rows, 0),
-            specs.make_score_rows(obs, dense_l, cfg_l), cfg_l, coeffs, noise,
-            generator)
+            specs.make_score_rows(obs, dense_l, cfg_l, formulas=formulas),
+            cfg_l, coeffs, noise, generator)
         all_steps = pmesh.gather_candidates(steps_l, rows=1)
     return all_steps[-1], all_steps
 
@@ -665,7 +670,8 @@ def shard_scenes(scenes: SceneTensors, mesh) -> SceneTensors:
 
 def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
                           coeffs: diffusion.Coeffs, with_info: bool = False,
-                          stlp_override=None, chunk: int = 1, mesh=None):
+                          stlp_override=None, chunk: int = 1, mesh=None,
+                          formulas=None):
     """Returns (init_carry, step).  ``init_carry(seed=0, t0=None)`` starts
     the episodes at frames ``t0`` (bs,) (default 0; the planner draws its
     noise from a device generator seeded with ``seed``).  ``step(carry,
@@ -678,10 +684,12 @@ def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
     "data" axis (``shard_scenes``), every rank starting from the same seed; a
     step draws the whole batch's noise (pinned ``noise`` is the whole
     batch's too) and keeps its scenes' part, so each scene runs as it runs
-    unsharded.  ``_carry_metrics(carry, mesh)`` gathers the metrics."""
+    unsharded.  ``_carry_metrics(carry, mesh)`` gathers the metrics.
+    ``formulas``: the planner's (``make_planner``)."""
     dev = scenes.ego_full.device
     check_devices(dev, net, coeffs)
-    plan = make_planner(cfg, net, coeffs, stlp_override=stlp_override)
+    plan = make_planner(cfg, net, coeffs, stlp_override=stlp_override,
+                        formulas=formulas)
     body = _make_body(scenes, cfg, plan, with_info=with_info)
     if mesh is not None:
         local_body = body
@@ -708,13 +716,15 @@ def make_closed_loop_step(scenes: SceneTensors, cfg: Config, net: Net,
 
 def run_closed_loop(seed: int, scenes: SceneTensors, cfg: Config, net: Net,
                     coeffs: diffusion.Coeffs, max_steps: int,
-                    noise: Optional[Sequence] = None
+                    noise: Optional[Sequence] = None, formulas=None
                     ) -> Dict[str, Tensor]:
     """``max_steps`` done-masked replanning steps of every scene (no early
     exit); returns the per-scene metrics: collide, out_of_lane, traj_len,
     progress, stl_acc (mean over active steps), agent_steps, repairs.
-    ``noise``: the plan's draws of each step (see ``_make_body``)."""
-    init_carry, step = make_closed_loop_step(scenes, cfg, net, coeffs)
+    ``noise``: the plan's draws of each step (see ``_make_body``);
+    ``formulas``: the planner's (``make_planner``)."""
+    init_carry, step = make_closed_loop_step(scenes, cfg, net, coeffs,
+                                             formulas=formulas)
     c = init_carry(seed)
     for i in range(max_steps):
         c = step(c, None if noise is None else noise[i])
@@ -731,7 +741,7 @@ def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
                          record: bool = False,
                          render_dir: Optional[str] = None,
                          stlp_override=None, chunk: int = 1, t0=None,
-                         noise: Optional[Sequence] = None
+                         noise: Optional[Sequence] = None, formulas=None
                          ) -> Dict[str, object]:
     """The closed-loop Table-II evaluation: ``run_closed_loop``'s metrics
     over up to ``max_steps`` steps (``chunk`` a call), stopping early once
@@ -741,14 +751,15 @@ def run_closed_loop_host(seed: int, scenes: SceneTensors, cfg: Config,
     candidate-area diversity ("area", nusc_sim.py:714-735) and the step
     times ("step_s": host clock around the step and its record, after a
     device sync), and ``area``, the mean over the steps.  ``t0``: per-scene
-    start frames; ``noise``: the plan's draws of each step.  With
+    start frames; ``noise``: the plan's draws of each step; ``formulas``:
+    the planner's (``make_planner``).  With
     ``record`` and ``render_dir``, the first four scenes' frames
     (``frame_s{i:02d}_t{t:03d}.png``) and GIFs (``episode_{i:02d}.gif``)
     are written there."""
     chunk = 1 if record else max(chunk, 1)
     init_carry, step = make_closed_loop_step(
         scenes, cfg, net, coeffs, with_info=record,
-        stlp_override=stlp_override, chunk=chunk)
+        stlp_override=stlp_override, chunk=chunk, formulas=formulas)
     dev = scenes.ego_full.device
     c = init_carry(seed, t0=t0)
     bs = scenes.ego_full.shape[0]

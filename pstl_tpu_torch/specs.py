@@ -10,8 +10,12 @@ The 6-dim pSTL parameter vector is
 ``stlp = (v_min, v_max, d_min, d_max, d_safe, th_max)``.  The flex draws
 are injectable: :func:`flex_uniforms` makes the (3, 6, bs, 1) tensor of
 uniforms the JAX package draws per maneuver and parameter (in each draw's
-own range), and every function that draws takes it as ``flex=``.  Not
-ported yet: the formula tree (``build_formulas``, ROADMAP.md).
+own range), and every function that draws takes it as ``flex=``.
+
+``build_formulas`` gives the three maneuver formulas as trees of
+``ops/stl.py``; ``ClauseBank`` computes their robustness at t = 0 with
+each clause once (the production scorer), and every function that takes
+``formulas`` takes either.
 """
 
 from __future__ import annotations
@@ -118,6 +122,59 @@ def prep_signals(x: Dict[str, Tensor], cfg: Config,
 
 
 # ---------------------------------------------------------------------------
+# the maneuver formulas
+# ---------------------------------------------------------------------------
+
+def build_formulas(cfg: Config) -> List[stl.ListAnd]:
+    """The three maneuver formulas [keep, left-change, right-change]
+    (``pstl_tpu.specs.build_formulas``): each a ``ListAnd`` of Always /
+    Eventually clauses on the speed band, the signed lane-offset band, the
+    heading and the neighbor clearance, divided by the ``norm_stl``
+    factors when set; the heading clauses are always divided by th_max.
+    They read the signals of :func:`prep_signals`, ``stlp`` as (n, 1, 6)
+    so that a parameter broadcasts over T."""
+    nt = cfg.nt
+
+    def P(i):
+        return lambda x: x["stlp"][..., i]
+
+    if cfg.norm_stl:
+        vf = lambda x: x["v_factor"]
+        df = lambda x: x["d_factor"]
+        sf = lambda x: x["safe_factor"]
+    else:
+        vf = df = sf = lambda x: 1.0
+    alw = lambda expr, name="": stl.Always(0, nt, stl.AP(expr, name))
+    keep_v_min = alw(lambda x: (x["ego_traj"][..., 3] - P(I_VMIN)(x))
+                     / vf(x), "vmin")
+    keep_v_max = alw(lambda x: (-x["ego_traj"][..., 3] + P(I_VMAX)(x))
+                     / vf(x), "vmax")
+    keep_d_min = alw(lambda x: (x["x2curr_d"] - P(I_DMIN)(x)) / df(x),
+                     "dmin")
+    keep_d_max = alw(lambda x: (-x["x2curr_d"] + P(I_DMAX)(x)) / df(x),
+                     "dmax")
+    safe = alw(lambda x: (x["min_nei_d"] - P(I_DSAFE)(x)) / sf(x), "safe")
+    keep_th_max = alw(lambda x: (P(I_THMAX)(x) - x["x2curr_th"])
+                      / P(I_THMAX)(x), "thmax")
+
+    def reach_d(side):
+        return stl.Eventually(0, nt // 2, stl.Always(0, nt, stl.And(
+            stl.AP(lambda x: (x[f"x2{side}_d"] - P(I_DMIN)(x)) / df(x)),
+            stl.AP(lambda x: (-x[f"x2{side}_d"] + P(I_DMAX)(x)) / df(x)))))
+
+    def reach_th(side):
+        return stl.Eventually(0, nt // 2, stl.Always(0, nt, stl.AP(
+            lambda x: (P(I_THMAX)(x) - x[f"x2{side}_th"]) / P(I_THMAX)(x))))
+
+    return [stl.ListAnd([keep_v_min, keep_v_max, keep_d_min, keep_d_max,
+                         keep_th_max, safe]),
+            stl.ListAnd([keep_v_min, keep_v_max, reach_d("left"),
+                         reach_th("left"), safe]),
+            stl.ListAnd([keep_v_min, keep_v_max, reach_d("right"),
+                         reach_th("right"), safe])]
+
+
+# ---------------------------------------------------------------------------
 # the fused clause-bank scorer
 # ---------------------------------------------------------------------------
 
@@ -144,6 +201,17 @@ class ClauseBank:
             return torch.amax(suffix[..., :nt2], dim=-1)
         suffix = -stl.logcumsumexp(-g * tau, dim=-1, reverse=True) / tau
         return stl.soft_max(suffix[..., :nt2], tau, dim=-1, dtype=self.dtype)
+
+    #: the clauses of :meth:`_clauses`, in order
+    CLAUSES = ("alw_vmin", "alw_vmax", "alw_dmin", "alw_dmax", "alw_th",
+               "alw_safe", "reach_left_d", "reach_left_th", "reach_right_d",
+               "reach_right_th")
+
+    def clause_breakdown(self, x: Dict[str, Tensor], tau: float,
+                         hard: bool = False) -> Dict[str, Tensor]:
+        """Each clause's robustness at t = 0 (the ``ListAnd(full=True)``
+        diagnostic), keyed by clause name."""
+        return dict(zip(self.CLAUSES, self._clauses(x, tau, hard)))
 
     def _clauses(self, x, tau, hard):
         cfg = self.cfg
@@ -202,32 +270,42 @@ def select_scores(scores_list: Sequence[Tensor], stl_idx: Tensor) -> Tensor:
     return out
 
 
-def compute_scores(signals: Dict[str, Tensor], formulas: ClauseBank,
-                   stl_idx: Tensor, mask: Tensor, cfg: Config,
-                   tau: Optional[float] = None, hard: bool = False,
-                   scene: bool = False):
-    """Evaluate the three formulas, select per row (label 3: +1), masked
-    accuracy.  ``signals`` are prepared here when the lane distances are
-    missing.  stl_idx (n,) or (n, 1); mask (n,).  Returns (scores_list,
-    scores (n,), acc), and with ``scene`` a fourth value, ``scene_acc``: the
-    share of (scene, maneuver) pairs, masked by their first row, whose best
-    score over the n_randoms rows of the pair is positive.  (The JAX
-    function's ``oracle_filter`` and ``n_group`` options are not
-    ported.)"""
-    if not isinstance(formulas, ClauseBank):
-        raise NotImplementedError("the formula tree (build_formulas) is not "
-                                  "ported; score with build_scorer(cfg)")
+def compute_scores(signals: Dict[str, Tensor], formulas, stl_idx: Tensor,
+                   mask: Tensor, cfg: Config, tau: Optional[float] = None,
+                   hard: bool = False, scene: bool = False,
+                   tj_scores: Optional[Tensor] = None,
+                   n_group: Optional[int] = None):
+    """Evaluate the three formulas (a ``ClauseBank`` or the list of
+    :func:`build_formulas`), select per row (label 3: +1), masked accuracy.
+    ``signals`` are prepared here when the lane distances are missing.
+    stl_idx (n,) or (n, 1); mask (n,).  Under ``cfg.oracle_filter`` with
+    ``tj_scores`` (n,) the accuracy also masks out the (scene, maneuver)
+    pairs of n_randoms rows whose best trajopt score is not positive.
+    Returns (scores_list, scores (n,), acc), and with ``scene`` a fourth
+    value, ``scene_acc``: the share of (scene, maneuver) pairs of
+    ``n_group`` rows (n_randoms by default), masked by their first row,
+    whose best score is positive."""
     if tau is None:
         tau = cfg.smoothing_factor
     if "x2curr_d" not in signals:
         signals = prep_signals(signals, cfg)
-    scores_list = formulas.scores(signals, tau, hard)
+    if isinstance(formulas, ClauseBank):
+        scores_list = formulas.scores(signals, tau, hard)
+    else:
+        scores_list = [f(signals, tau, hard)[:, 0] for f in formulas]
     scores_list = scores_list + [scores_list[-1].detach() * 0.0 + 1.0]
     scores = select_scores(scores_list, stl_idx.reshape(-1))
-    acc = mask_mean((scores > 0).to(scores.dtype), mask.reshape(-1))
+    mask_flat = mask.reshape(-1)
+    if cfg.oracle_filter and tj_scores is not None:
+        tj = torch.amax(tj_scores.reshape(-1, cfg.n_randoms, 3), dim=1,
+                        keepdim=True)
+        mask_flat = mask_flat * (tj > 0).to(scores.dtype).expand(
+            tj.shape[0], cfg.n_randoms, 3).reshape(-1)
+    acc = mask_mean((scores > 0).to(scores.dtype), mask_flat)
     if scene:
-        sc = scores.reshape(-1, cfg.n_randoms, 3)
-        mc = mask.reshape(-1, cfg.n_randoms, 3)
+        g = n_group or cfg.n_randoms
+        sc = scores.reshape(-1, g, 3)
+        mc = mask.reshape(-1, g, 3)
         scene_acc = mask_mean(
             (torch.amax(sc, dim=1) > 0).to(scores.dtype), mc[:, 0, :])
         return scores_list, scores, acc, scene_acc
@@ -578,11 +656,13 @@ class TiledScorer:
 
 def make_score_rows(batch: Dict[str, Tensor], dense: Dict[str, Tensor],
                     cfg: Config, n_randoms: Optional[int] = None,
-                    formulas: Optional[ClauseBank] = None):
+                    formulas=None):
     """Per-row robustness function for the canonical dense layout:
     ``score_rows(ego_states (N, T, >=4)) -> (N,)``.  ``TiledScorer`` by
-    default; ``cfg.tiled_scorer=False`` scores with the ``ClauseBank`` over
-    the pre-tiled signals of ``dense_signal_input`` (the same numbers)."""
+    default; ``cfg.tiled_scorer=False`` scores with ``formulas`` (a
+    ``ClauseBank`` or :func:`build_formulas`'s list; the ``ClauseBank`` when
+    None) over the pre-tiled signals of ``dense_signal_input`` (the same
+    numbers)."""
     if cfg.tiled_scorer:
         return TiledScorer(batch, dense["stlp_dense"], cfg, n_randoms)
     if formulas is None:

@@ -19,7 +19,10 @@ for two kinds of preset:
   ``tj_scores_prior`` column, else the rollout of ``params`` scored on the
   "discs" route) and, for the diffusion head, the epsilon-MSE of the
   noised targets, masked to the satisfying rows (``stl_bc_mask``).  Plain
-  DDPM (e5) stops there.  With
+  DDPM (e5) stops there; with ``grad_rollout`` (and no ``rect_head``) it
+  also trains through the whole sampler, adding the STL hinge of the
+  sampled controls (and their collision loss), autograd differentiating
+  every unguided denoise step (a guided step carries no gradient).  With
   ``rect_head`` (e7 / e8) the step also runs the full unguided sampler
   without gradient, picks the best of the last ``multi_cands`` decodings
   under the ``TiledScorer``, rectifies them with ``Net.rect`` and scores the
@@ -58,11 +61,11 @@ step does.  ``train`` reads batches from the native shard store under
 val scenes every ``viz_freq`` epochs and after the last
 (``_viz_epoch``, into ``exps/<exp_name>/viz``).
 
-Not ported (each raises, by name): ``grad_rollout`` on the dense
-diffusion step and the constant-velocity neighbor prediction
-(``gt_nei=False``).  The JAX package's device-side chunking
-(``train_chunk``) is exact by construction, so the port steps once per
-batch.
+``attach_neighbors`` gives every step its neighbor tracks: the GT tracks,
+or under ``gt_nei=False`` the current frame at constant velocity
+(``dynamics.neighbor_rollout``), which the mono presets' clearance kernels
+then read.  The JAX package's device-side chunking (``train_chunk``) is
+exact by construction, so the port steps once per batch.
 """
 
 from __future__ import annotations
@@ -129,14 +132,16 @@ def init_state(cfg: Config, net: Net,
 
 def attach_neighbors(batch: Dict[str, Tensor],
                      cfg: Config) -> Dict[str, Tensor]:
-    """Current-frame neighbors and the GT neighbor tracks (``gt_nei``)."""
-    if not cfg.gt_nei:
-        raise NotImplementedError("the constant-velocity neighbor "
-                                  "prediction (neighbor_rollout) is not "
-                                  "ported")
+    """Current-frame neighbors and the neighbor tracks the step scores
+    against: the GT tracks (``gt_nei``), else the current frame rolled out
+    at constant velocity (``dynamics.neighbor_rollout``)."""
     batch = dict(batch)
     batch["neighbors"] = batch["neighbors_traj"][:, :, 0, :]
-    batch["neighbor_trajs_aug"] = batch["neighbors_traj"]
+    if cfg.gt_nei:
+        batch["neighbor_trajs_aug"] = batch["neighbors_traj"]
+    else:
+        batch["neighbor_trajs_aug"] = dyn.neighbor_rollout(
+            batch["neighbors"], cfg.nt, cfg.dt, full=True)
     return batch
 
 
@@ -243,9 +248,6 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
     the sampler, the multi-candidate selection and the RefineNet; the VAE
     (``e3_vae``, ``e6_trafficsim``) and BC heads on the trajopt targets
     (``pstl_tpu/train.py:batch_forward_and_loss``)."""
-    if cfg.diffusion and cfg.grad_rollout and not cfg.rect_head:
-        raise NotImplementedError("grad_rollout (training through the dense "
-                                  "sampler) is not ported")
     if not (cfg.diffusion or cfg.vae or cfg.bc):
         raise NotImplementedError("the dense step needs a diffusion, VAE or "
                                   "BC head")
@@ -363,6 +365,21 @@ def _dense_forward_and_loss(net: Net, batch, cfg: Config, formulas,
             rd["loss_coll"] = coll_loss(rect_controls)
             rd["loss"] = (rd["loss_stl"] + rd["loss_reg"]
                           + rd["extra_loss_reg"] + rd["loss_coll"])
+    elif cfg.grad_rollout:
+        # train through the whole reverse sampler on the STL hinge of the
+        # sampled controls; guided steps carry no gradient, as in the JAX
+        # step (diffusion._guidance_step)
+        ctx = (diffusion.make_guidance_ctx(score_rows, valid, states_flat)
+               if cfg.guidance else None)
+        nn_controls, _ = diffusion.sample(
+            lambda e: net(dense, e, prev_feature=feature), highlevel, cfg,
+            coeffs, n, noise=draws.get("sample_noise"), generator=generator,
+            stlp_dense=dense["stlp_dense"], guide=ctx)
+        scores, acc = score_controls(nn_controls)
+        rd["loss_stl"] = losses.stl_hinge(scores, valid, cfg.stl_nn_thres,
+                                          cfg.stl_weight)
+        rd["loss_coll"] = coll_loss(nn_controls)
+        rd["loss"] = rd["loss_stl"] + rd["loss_diffusion"] + rd["loss_coll"]
     else:
         # plain DDPM: the STL hinge of the targets' scores is a metric only
         acc = specs.mask_mean((dense_scores > 0).float(), valid)

@@ -5,8 +5,8 @@ calibration to 1e-5, and the same arguments handed to each command's
 callee (``trajopt.augment_dataset``, ``train.train``,
 ``eval_openloop.run``, ``sim.run_closed_loop_host``, monkeypatched in both
 packages); then real runs of every command on the CPU at a tiny width,
-what the port refuses by name, and chip_smoke.py's phase 33 rehearsed on
-the CPU."""
+what the port refuses by name, and chip_smoke.py's phases 33 and 36
+rehearsed on the CPU."""
 
 import argparse
 import json
@@ -420,11 +420,12 @@ def test_commands_default_to_the_card(cache, monkeypatch):
             tcli.main(argv)
 
 
-def test_chip_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
-    """chip_smoke.py's phase 33 at a small size on the CPU: the launch
-    counts it expects, read from the plain versions' calls (a wrapper runs
-    its plain version for CPU tensors; the fused plain version calls the
-    frozen one, which is not counted here)."""
+def _rehearsal(tmp_path, monkeypatch):
+    """chip_smoke.py on the CPU at a small size: the launch counts it
+    expects read from the plain versions' calls (a wrapper runs its plain
+    version for CPU tensors; the fused plain version calls the frozen one,
+    which is not counted here), the device syncs and the device-only
+    timers stubbed, its log collected.  Returns (chip_smoke, log lines)."""
     import chip_smoke as cs
     from pstl_tpu_torch import device as devmod
     from pstl_tpu_torch.ops import clearance_kernel as ck
@@ -446,6 +447,15 @@ def test_chip_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "read_counts",
                         lambda: {k: calls.get(k, 0) for k in keys})
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    for name, stub in (("profile_calls", lambda fn, n: (fn(), 0, 0.0, 1.0,
+                                                        {})[1:]),
+                       ("kernel_ms", lambda fn: (fn(), {"ms": 0.0,
+                                                        "graph_ms": 0.0})[1]),
+                       ("time_cuda", lambda fn, n=20, warm=3: (fn(), 0.0)[1])):
+        monkeypatch.setattr(cs, name, stub)
     real = devmod.resolve_device
     monkeypatch.setattr(devmod, "resolve_device",
                         lambda device=None: real(device or "cpu"))
@@ -455,7 +465,45 @@ def test_chip_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(cs, k, v)
     lines = []
     monkeypatch.setattr(cs, "log", lines.append)
+    return cs, lines
+
+
+def test_chip_phase_rehearsed_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 33 at a small size on the CPU."""
+    cs, lines = _rehearsal(tmp_path, monkeypatch)
     cs.cli_phase(torch.device("cpu"), "cpu", width=(
         "n_randoms=4", "batch_size=8", "sampling_size=4"))
     sim_line = [ln for ln in lines if "kernel 1 launched" in ln][0]
     assert "= 99 guided denoise steps x 2 steps of 2 scenes" in sim_line
+
+
+def test_chip_phase_36_rehearsed_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 36 at a small size on the CPU, on phase 33's
+    store: the tree against the bank and trajopt with each (a small
+    e1_trajopt batch), the gt_nei=False step card-vs-CPU path and ``cli
+    train`` with the clearance calls it must make, and the grad_rollout
+    step and ``cli train``."""
+    from pstl_tpu_torch.data.dataset import SceneDataset
+
+    cs, lines = _rehearsal(tmp_path, monkeypatch)
+    width = ("n_randoms=4", "batch_size=8")
+    cs.cli_phase(torch.device("cpu"), "cpu", width=width + (
+        "sampling_size=4",))
+    real_e1 = cs.e1_config
+    monkeypatch.setattr(cs, "e1_config", lambda **kw: real_e1(
+        batch_size=8, n_randoms=4, **kw))
+    for k, v in (("TREE_ITERS", 2), ("CV_EPOCHS", 2), ("GR_EPOCHS", 2),
+                 ("DENSE_REF_SCENES", 2)):
+        monkeypatch.setattr(cs, k, v)
+    store = SceneDataset.from_synthetic(cs.e1_config(), n_scenes=8)
+    store.ensure_random_params(0)
+    cpu = torch.device("cpu")
+    cs.tree_phase(cpu, store, "cpu")
+    cv = cs.cv_phase(cpu, "cpu", width=width)
+    cs.grad_rollout_phase(cpu, "cpu", width=width + ("diffusion_steps=6",))
+    # 16 train and 8 val scenes of 24: two train batches and a val batch
+    # an epoch, 2 epochs
+    assert cv["fwd"][0] == 6 and cv["bwd"][0] == 4
+    assert cv["fwd"][1] == 0.0 and cv["bwd"][1] == 0.0
+    assert any("trajopt with the tree" in ln for ln in lines)
+    assert any("cli train (grad_rollout): 4 steps" in ln for ln in lines)

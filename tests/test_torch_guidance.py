@@ -97,6 +97,35 @@ def test_loss_matches_jax(coarse):
     _close(ft._from_cand_minor(mu_t), mu, 0, 0)
 
 
+@pytest.mark.parametrize("coarse", [False, True])
+def test_m_major_wrappers_match_jax(coarse):
+    """``__call__`` and ``freeze``, the sampler-layout (N, nt*2) wrappers of
+    ``loss_cm`` / ``freeze_cm``: against JAX's, and equal to the
+    candidate-minor calls on the transposed mean; the loss's gradient
+    reaches the m-major mean as loss_cm's, transposed."""
+    cfg_j, cfg_t, fj, ft, mu = _build(seed=4, clearance_coarse_pair=coarse)
+    mu_t = torch.as_tensor(mu)
+    frz_j, frz_t = fj.freeze(jnp.asarray(mu)), ft.freeze(mu_t)
+    cm = ft.freeze_cm(ft._to_cand_minor(mu_t))
+    for part in ("lane", "clear"):
+        for k in frz_j[part]:
+            _close(frz_t[part][k], frz_j[part][k], 1e-6, 1e-6)
+            assert torch.equal(frz_t[part][k], cm[part][k])
+    for frozen_t, frozen_j in ((None, None), (frz_t, frz_j)):
+        _close(ft(mu_t, 100.0, frozen=frozen_t),
+               fj(jnp.asarray(mu), 100.0, frozen=frozen_j), 1e-5, 1e-6)
+        assert torch.equal(ft(mu_t, 0.5, frozen=frozen_t), ft.loss_cm(
+            ft._to_cand_minor(mu_t), 0.5, frozen=frozen_t))
+    # its gradient is loss_cm's (held to JAX's by test_loss_matches_jax),
+    # brought back to the m-major layout
+    m = mu_t.clone().requires_grad_(True)
+    g_t, = torch.autograd.grad(ft(m, 100.0, frozen=frz_t), m)
+    m_cm = ft._to_cand_minor(mu_t).requires_grad_(True)
+    g_cm, = torch.autograd.grad(ft.loss_cm(m_cm, 100.0, frozen=frz_t), m_cm)
+    assert tuple(g_t.shape) == mu.shape and float(g_t.abs().max()) > 0
+    assert torch.equal(g_t, ft._from_cand_minor(g_cm))
+
+
 @pytest.mark.parametrize("case", [
     dict(), dict(norm_stl=True), dict(guidance_positive_offset_quirk=True),
     dict(inline=True, clip_dist=True), dict(clearance_coarse_pair=True),

@@ -43,6 +43,27 @@ def test_rollout_matches_jax_and_scan():
            jdyn.dynamics(jnp.asarray(s0), jnp.asarray(us[:, 0])), 0, 1e-6)
 
 
+def test_bbox_corners_matches_jax():
+    """Oriented box corners (..., 4, 2) of boxes with any leading shape."""
+    rng = np.random.RandomState(3)
+    x, y = (rng.uniform(-30, 30, (4, 5)).astype(F32) for _ in range(2))
+    th = rng.uniform(-np.pi, np.pi, (4, 5)).astype(F32)
+    L, W = rng.uniform(3.5, 5.5, (4, 5)).astype(F32), \
+        rng.uniform(1.5, 2.2, (4, 5)).astype(F32)
+    got = tgeom.bbox_corners(*(torch.as_tensor(v) for v in (x, y, th, L, W)))
+    want = jgeom.bbox_corners(*(jnp.asarray(v) for v in (x, y, th, L, W)))
+    assert tuple(got.shape) == (4, 5, 4, 2)
+    _close(got, want, 1e-6, 1e-5)
+    # the corners lie L and W apart around the centre
+    g = np_(got)
+    np.testing.assert_allclose(np.linalg.norm(g[..., 0, :] - g[..., 3, :],
+                                              axis=-1), L, rtol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(g[..., 0, :] - g[..., 1, :],
+                                              axis=-1), W, rtol=1e-5)
+    np.testing.assert_allclose(g.mean(-2), np.stack([x, y], -1), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("hard", [False, True])
 def test_soft_reductions_match_jax(hard):
     rng = np.random.RandomState(1)

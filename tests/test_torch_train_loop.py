@@ -115,7 +115,9 @@ def test_init_flax_like_matches_flax_statistics():
 
 def test_refusals():
     """What the port does not run raises, naming what is missing; the
-    baselines' heads, once refused here, are accepted."""
+    baselines' heads, the dense grad_rollout step and the constant-velocity
+    neighbors (gt_nei=False), once refused here, run and give finite
+    losses."""
     if torch.cuda.is_available():
         pytest.skip("the no-card refusal needs a host without CUDA")
     with pytest.raises(RuntimeError):
@@ -127,11 +129,13 @@ def test_refusals():
         train.train(cfg.with_(net_pretrained_path=os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             "checkpoints", "e7_round5")), ds, device="cpu")
-    with pytest.raises(NotImplementedError):
-        train.attach_neighbors({"neighbors_traj": torch.zeros(1, 1, 2, 7)},
-                               cfg.with_(gt_nei=False))
-    # the dense step: training through the sampler raises; guidance in the
-    # sampler (ours_guidance) runs
+    # the constant-velocity neighbors, once refused here, run
+    cv = train.attach_neighbors({"neighbors_traj": torch.ones(1, 1, 2, 7)},
+                                cfg.with_(gt_nei=False))
+    assert tuple(cv["neighbor_trajs_aug"].shape) == (1, 1, cfg.nt, 7)
+    assert bool(torch.isfinite(cv["neighbor_trajs_aug"]).all())
+    # the dense step: training through the sampler, once refused here, and
+    # guidance in the sampler (ours_guidance) run
     dense = PRESETS["e5_ddpm"].with_(
         exp_name=None, hiddens=(8,), rect_hiddens=(8,), n_randoms=2,
         n_shards=1, diffusion_steps=4, n_neighbors=3)
@@ -142,11 +146,15 @@ def test_refusals():
     e7 = PRESETS["e7_ours"].with_(**{k: getattr(dense, k) for k in (
         "exp_name", "hiddens", "rect_hiddens", "n_randoms", "n_shards",
         "diffusion_steps", "n_neighbors")})
-    for bad, what in ((dense.with_(grad_rollout=True), "grad_rollout"),):
-        with pytest.raises(NotImplementedError, match=what):
-            train.batch_forward_and_loss(
-                Net(bad), batch, bad, specs.build_scorer(bad),
-                diffusion.get_coeffs(bad), True)
+    for ok in (dense.with_(grad_rollout=True, stl_weight=1.0),
+               cfg.with_(gt_nei=False)):
+        b = (batch if not ok.gt_data_training else train.to_device(next(
+            batch_iterator(ds, "train", 2, shuffle=False)), "cpu"))
+        loss, rd = train.batch_forward_and_loss(
+            Net(ok), b, ok, specs.build_scorer(ok), diffusion.get_coeffs(ok),
+            True)
+        assert bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(v)) for v in rd.values())
     guided = e7.with_(guidance=True, guidance_before=2)
     loss, rd = train.batch_forward_and_loss(
         Net(guided), batch, guided, specs.build_scorer(guided),

@@ -152,8 +152,8 @@ def setup(preset, case="flex", **kw):
     output layer scaled by 0.01 and its acceleration biases -1) or "near"
     (as "flex", neighbor 0 NEAR_OFF to the ego's left).  The control head is
     scaled by 0.01 and, in "flex", the RefineNet's output layer by 0.1:
-    mild corrections."""
-    cfg = PRESETS[preset].with_(**SMALL, **kw)
+    mild corrections.  ``kw`` overrides SMALL and the preset."""
+    cfg = PRESETS[preset].with_(**{**SMALL, **kw})
     ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=12)
     ds.ensure_random_params(cfg.seed)
     off = NEAR_OFF if case == "near" else 3.5

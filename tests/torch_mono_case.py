@@ -50,7 +50,7 @@ from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.models.net import Net as TNet
 from pstl_tpu_torch.ops import clearance_kernel as ck
 
-from chip_smoke import straight_scenes
+from chip_smoke import straight_scenes, swerving_neighbor
 from torch_parity import jax_cm_noise
 
 SMALL = dict(exp_name=None, use_pallas_clearance=True, pallas_interpret=True,
@@ -58,8 +58,10 @@ SMALL = dict(exp_name=None, use_pallas_clearance=True, pallas_interpret=True,
              n_neighbors=3)
 
 
-def jax_draws(cfg, key, bs):
-    """The draws of pstl_tpu.train._mono_forward_and_loss under ``key``."""
+def jax_draws(cfg, key, bs, sample_scale=1.0):
+    """The draws of pstl_tpu.train._mono_forward_and_loss under ``key``
+    (the sampler's scaled by ``sample_scale``, as ``run_train_steps`` scales
+    the JAX sampler's)."""
     n = bs * cfg.n_randoms
     k_prep, k_sample, k_vae = jax.random.split(key, 3)
     if cfg.vae:
@@ -70,23 +72,29 @@ def jax_draws(cfg, key, bs):
                 jax.random.normal(k_noise, (n, cfg.nt * 2)))),
             "prep_t": torch.as_tensor(np.array(jax.random.randint(
                 k_t, (n,), 1, cfg.diffusion_steps))).long(),
-            "sample_noise": jax_cm_noise(k_sample, cfg.diffusion_steps,
-                                         (n, cfg.nt * 2))}
+            "sample_noise": sample_scale * jax_cm_noise(
+                k_sample, cfg.diffusion_steps, (n, cfg.nt * 2))}
 
 
-def setup(preset, straight=False, **kw):
-    cfg = PRESETS[preset].with_(**SMALL, **kw)
+def setup(preset, straight=False, swerve=False, **kw):
+    """(cfg, numpy batches, the flax net, its state).  ``straight``: the
+    batches made into ``straight_scenes``; ``swerve``: and neighbor 0's GT
+    track sidestepping away (``swerving_neighbor``), so that its
+    constant-velocity prediction differs from it."""
+    cfg = PRESETS[preset].with_(**{**SMALL, **kw})
     ds = SceneDataset.from_synthetic(cfg, seed=0, n_scenes=12)
     ds.ensure_random_params(cfg.seed)
     batches = [{k: v for k, v in b.items() if k.startswith(ttrain.COLS)}
                for b in batch_iterator(ds, "train", cfg.batch_size,
                                        shuffle=False)]
-    if straight:
+    if straight or swerve:
         batches = [straight_scenes(b, cfg) for b in batches]
+    if swerve:
+        batches = [swerving_neighbor(b, cfg) for b in batches]
     net = JNet(cfg)
     jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
     state = jtrain.init_state(cfg, net, jb, jax.random.PRNGKey(0))
-    if straight:
+    if straight or swerve:
         # a near-zero control head: the rollouts stay near the GT line
         p = jax.device_get(state.params)
         last = p["params"]["policy_net"][f"Dense_{len(cfg.hiddens)}"]
@@ -142,10 +150,14 @@ def check_params(tnet, jparams, floor, lr, steps, bf16, what):
                 what, k, float(d[floor[k]].max()), tight)
 
 
-def run_train_steps(preset, kw, dtype):
+def run_train_steps(preset, kw, dtype, grad_floor=1e-6, sample_scale=1.0):
     """Two train steps: the first's loss, metrics and gradients, the
     second's loss and metrics, both steps' parameters, and the clearance
-    VJP calls the port made on the way."""
+    VJP calls the port made on the way.  ``grad_floor``: the fp32
+    gradients' absolute floor, a share of each tensor's largest entry;
+    ``sample_scale``: both samplers' draws are this multiple of the JAX key
+    chain's normals (``pstl_tpu.diffusion._normal``, the JAX package's seam
+    for pinned noise), small to keep sampled rollouts near the GT."""
     cfg, batches, jnet, jstate = setup(preset, compute_dtype=dtype, **kw)
     bf16 = dtype == "bfloat16"
     tcfg = TConfig(**cfg.to_dict())
@@ -163,6 +175,8 @@ def run_train_steps(preset, kw, dtype):
     floor = {}
     calls = []
     real_bwd = ck.min_clearance_bwd_plain
+    real_normal = jdiff._normal
+    jdiff._normal = lambda k, shape: sample_scale * real_normal(k, shape)
     ck.min_clearance_bwd_plain = lambda *a: calls.append(a[2]) or \
         real_bwd(*a)
     try:
@@ -172,7 +186,8 @@ def run_train_steps(preset, kw, dtype):
             jrd, jgrads = jgrad(jstate.params, jb, key)
             jstate, jrd_step = jstep(jstate, jb, key)
             trd = tstep(ttrain.to_device(batch, "cpu"),
-                        draws=jax_draws(cfg, key, cfg.batch_size))
+                        draws=jax_draws(cfg, key, cfg.batch_size,
+                                        sample_scale))
             assert sorted(trd) == sorted(jrd)
             for k in jrd:
                 if i == 0:
@@ -184,17 +199,19 @@ def run_train_steps(preset, kw, dtype):
             for k, g in jgrads.items():
                 if i == 0:
                     check_close(grads[k], g, bf16, f"grad {k}", rtol=1e-4,
-                                bf16_steps=2)
+                                bf16_steps=2, floor=grad_floor)
                 above = g.abs() > (0.125 if bf16 else 1e-6) * g.abs().max()
                 floor[k] = above & floor.get(k, above)
             check_params(tnet, jstate.params, floor, cfg.lr, i + 1, bf16,
                          f"params after step {i + 1}")
     finally:
         ck.min_clearance_bwd_plain = real_bwd
-    # the VAE step runs the clearance VJP once per step; with stl_weight 0
-    # its cotangent is zero, with 1 it is not; e4 scores sampled controls
-    # without gradient and never runs it
-    if cfg.vae:
+        jdiff._normal = real_normal
+    # the VAE step runs the clearance VJP once per step, and so does e4
+    # under grad_rollout (it differentiates through the sampler); with
+    # stl_weight 0 its cotangent is zero, with 1 it is not; plain e4 scores
+    # sampled controls without gradient and never runs it
+    if cfg.vae or cfg.grad_rollout:
         assert len(calls) == 2
         assert (float(calls[0].abs().max()) > 0) == (cfg.stl_weight > 0)
     else:
