@@ -50,10 +50,6 @@ def rollout(s0: Tensor, us: Tensor, dt: float) -> Tensor:
     return torch.cat([s0[..., None, :], tail], dim=-2)
 
 
-#: the reference's name for :func:`rollout`
-generate_trajs = rollout
-
-
 def neighbor_rollout(neighbors: Tensor, nt: int, dt: float,
                      full: bool = False) -> Tensor:
     """Constant-velocity neighbor prediction: each neighbor's current state

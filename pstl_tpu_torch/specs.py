@@ -272,19 +272,14 @@ def select_scores(scores_list: Sequence[Tensor], stl_idx: Tensor) -> Tensor:
 
 def compute_scores(signals: Dict[str, Tensor], formulas, stl_idx: Tensor,
                    mask: Tensor, cfg: Config, tau: Optional[float] = None,
-                   hard: bool = False, scene: bool = False,
-                   tj_scores: Optional[Tensor] = None,
-                   n_group: Optional[int] = None):
+                   hard: bool = False, scene: bool = False):
     """Evaluate the three formulas (a ``ClauseBank`` or the list of
     :func:`build_formulas`), select per row (label 3: +1), masked accuracy.
     ``signals`` are prepared here when the lane distances are missing.
-    stl_idx (n,) or (n, 1); mask (n,).  Under ``cfg.oracle_filter`` with
-    ``tj_scores`` (n,) the accuracy also masks out the (scene, maneuver)
-    pairs of n_randoms rows whose best trajopt score is not positive.
-    Returns (scores_list, scores (n,), acc), and with ``scene`` a fourth
-    value, ``scene_acc``: the share of (scene, maneuver) pairs of
-    ``n_group`` rows (n_randoms by default), masked by their first row,
-    whose best score is positive."""
+    stl_idx (n,) or (n, 1); mask (n,).  Returns (scores_list, scores (n,),
+    acc), and with ``scene`` a fourth value, ``scene_acc``: the share of
+    (scene, maneuver) pairs, masked by their first row, whose best score
+    over the n_randoms rows of the pair is positive."""
     if tau is None:
         tau = cfg.smoothing_factor
     if "x2curr_d" not in signals:
@@ -295,17 +290,10 @@ def compute_scores(signals: Dict[str, Tensor], formulas, stl_idx: Tensor,
         scores_list = [f(signals, tau, hard)[:, 0] for f in formulas]
     scores_list = scores_list + [scores_list[-1].detach() * 0.0 + 1.0]
     scores = select_scores(scores_list, stl_idx.reshape(-1))
-    mask_flat = mask.reshape(-1)
-    if cfg.oracle_filter and tj_scores is not None:
-        tj = torch.amax(tj_scores.reshape(-1, cfg.n_randoms, 3), dim=1,
-                        keepdim=True)
-        mask_flat = mask_flat * (tj > 0).to(scores.dtype).expand(
-            tj.shape[0], cfg.n_randoms, 3).reshape(-1)
-    acc = mask_mean((scores > 0).to(scores.dtype), mask_flat)
+    acc = mask_mean((scores > 0).to(scores.dtype), mask.reshape(-1))
     if scene:
-        g = n_group or cfg.n_randoms
-        sc = scores.reshape(-1, g, 3)
-        mc = mask.reshape(-1, g, 3)
+        sc = scores.reshape(-1, cfg.n_randoms, 3)
+        mc = mask.reshape(-1, cfg.n_randoms, 3)
         scene_acc = mask_mean(
             (torch.amax(sc, dim=1) > 0).to(scores.dtype), mc[:, 0, :])
         return scores_list, scores, acc, scene_acc

@@ -1,9 +1,9 @@
 """The port's maneuver formulas (``pstl_tpu_torch.specs.build_formulas``,
 trees of ``ops/stl.py``) against the JAX package's, against the port's own
 ``ClauseBank``, and through every caller that takes ``formulas``:
-``compute_scores`` (with the ``oracle_filter`` + ``tj_scores`` and
-``n_group`` options), ``make_score_rows(tiled_scorer=False)``, a trajopt
-loss and one planner step.
+``compute_scores`` (with and without the scene accuracy),
+``make_score_rows(tiled_scorer=False)``, a trajopt loss and one planner
+step.
 
 The scenes are ``tests/test_specs.py``'s straight-lane batch (a GT
 driving the current lane, a neighbor ahead in the left lane), the GT
@@ -200,13 +200,13 @@ def test_clause_breakdown(hard):
                                       np_(bank.scores(st, tau, True)[0]))
 
 
-def dense_rows(cfg_j, bs=3, seed=1):
+def dense_rows(cfg_j, bs=3, norm_stl=False, seed=1):
     """A dense-layout scoring case: bs scenes x n_randoms x 3 rows of
     ``scene``'s signals (every row a copy of scene ``r // (M * 3)``), the
-    maneuver labels tiled [0, 1, 2] with a few outlier rows (3), a random
-    mask and random trajopt scores; numpy."""
+    maneuver labels tiled [0, 1, 2] with a few outlier rows (3) and a random
+    mask; numpy."""
     M = cfg_j.n_randoms
-    raw, _ = scene(bs=bs)
+    raw, _ = scene(bs=bs, norm_stl=norm_stl)
     n = bs * M * 3
     rng = np.random.RandomState(seed)
     rows = {k: np.repeat(v, M * 3, 0) for k, v in raw.items()}
@@ -215,29 +215,27 @@ def dense_rows(cfg_j, bs=3, seed=1):
     idx = np.tile(np.arange(3, dtype=F32), n // 3)
     idx[rng.rand(n) < 0.1] = 3.0
     mask = (rng.rand(n) > 0.2).astype(F32)
-    tj = rng.uniform(-1, 1, n).astype(F32)
-    return rows, idx, mask, tj
+    return rows, idx, mask
 
 
-@pytest.mark.parametrize("oracle_filter", [False, True])
-@pytest.mark.parametrize("n_group", [None, 2])
+@pytest.mark.parametrize("norm_stl", [False, True])
+@pytest.mark.parametrize("scene_acc", [False, True])
 @pytest.mark.parametrize("hard", [False, True])
-def test_compute_scores_with_the_tree(oracle_filter, n_group, hard):
+def test_compute_scores_with_the_tree(norm_stl, scene_acc, hard):
     """``compute_scores`` with ``build_formulas``' list: the scores list,
-    the selected scores (label 3 -> +1), the accuracy under
-    ``oracle_filter`` with ``tj_scores``, and the scene accuracy over
-    groups of ``n_group`` rows, against JAX; the list gives the bank's
-    numbers."""
-    cfg_j, cfg_t = _cfgs(oracle_filter=oracle_filter)
-    rows, idx, mask, tj = dense_rows(cfg_j)
-    kw = dict(hard=hard, scene=True, n_group=n_group)
+    the selected scores (label 3 -> +1), the accuracy and, with ``scene``,
+    the scene accuracy, against JAX; the list gives the bank's numbers."""
+    cfg_j, cfg_t = _cfgs(norm_stl=norm_stl)
+    rows, idx, mask = dense_rows(cfg_j, norm_stl=norm_stl)
+    kw = dict(hard=hard, scene=scene_acc)
     out_t = tspecs.compute_scores(
         to_t(rows), tspecs.build_formulas(cfg_t), torch.as_tensor(idx),
-        torch.as_tensor(mask), cfg_t, tj_scores=torch.as_tensor(tj), **kw)
-    out_j = jit_fast(lambda r, i, m, t: jspecs.compute_scores(
-        r, jspecs.build_formulas(cfg_j), i, m, cfg_j, tj_scores=t, **kw),
+        torch.as_tensor(mask), cfg_t, **kw)
+    out_j = jit_fast(lambda r, i, m: jspecs.compute_scores(
+        r, jspecs.build_formulas(cfg_j), i, m, cfg_j, **kw),
         {k: jnp.asarray(v) for k, v in rows.items()}, jnp.asarray(idx),
-        jnp.asarray(mask), jnp.asarray(tj))
+        jnp.asarray(mask))
+    assert len(out_t) == len(out_j) == (4 if scene_acc else 3)
     for a, b in zip(out_t[0], out_j[0]):
         np.testing.assert_allclose(np_(a), np.asarray(b), rtol=1e-4,
                                    atol=1e-4)
@@ -245,20 +243,12 @@ def test_compute_scores_with_the_tree(oracle_filter, n_group, hard):
                                rtol=1e-4, atol=1e-4)
     s = np_(out_t[1])
     assert np.all(s[idx == 3] == 1.0) and (s > 0).any() and (s < 0).any()
-    for a, b, what in ((out_t[2], out_j[2], "acc"),
-                       (out_t[3], out_j[3], "scene_acc")):
+    for a, b, what in zip(out_t[2:], out_j[2:], ("acc", "scene_acc")):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-6, err_msg=what)
     bank = tspecs.compute_scores(
         to_t(rows), tspecs.build_scorer(cfg_t), torch.as_tensor(idx),
-        torch.as_tensor(mask), cfg_t, tj_scores=torch.as_tensor(tj), **kw)
+        torch.as_tensor(mask), cfg_t, **kw)
     np.testing.assert_allclose(np_(bank[1]), s, **BANK)
-    if oracle_filter:
-        # the filter masks out every (scene, maneuver) whose best trajopt
-        # score is not positive
-        plain = tspecs.compute_scores(
-            to_t(rows), tspecs.build_formulas(cfg_t), torch.as_tensor(idx),
-            torch.as_tensor(mask), cfg_t.with_(oracle_filter=False), **kw)
-        assert float(plain[2]) != float(out_t[2])
 
 
 @pytest.mark.parametrize("norm_stl", [False, True])
