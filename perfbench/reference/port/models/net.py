@@ -1,0 +1,377 @@
+"""A frozen copy of ``pstl_tpu_torch/models/net.py`` of the PyTorch port, kept as the benchmark's plain
+reference: every kernel dispatch runs the plain version.  Do not edit to
+follow the program."""
+
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from perfbench.reference.port.config import Config
+
+Tensor = torch.Tensor
+
+
+#: the control's precision: matmul operands rounded to float8 e4m3 with a
+#: scale a tensor (its largest magnitude at e4m3's largest finite, 448),
+#: products and sums in bfloat16 with float32 accumulation
+FP8 = "float8_e4m3"
+
+
+def compute_dtype(cfg: Config):
+    if cfg.compute_dtype == FP8:
+        return FP8
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+
+
+def cast(x: Tensor, dt) -> Tensor:
+    """``x.to(dt)``; for :data:`FP8`, x rounded to float8 e4m3 with a
+    tensor-wide scale, held in bfloat16."""
+    if isinstance(dt, str) and dt == FP8:
+        s = torch.clamp(x.detach().abs().amax().float(), min=1e-30) / 448.0
+        q = (x.float() / s).to(torch.float8_e4m3fn).float() * s
+        return q.to(torch.bfloat16)
+    return x.to(dt)
+
+
+def normalize_xyth(state: Tensor, base: Tensor,
+                   valid: Optional[Tensor] = None,
+                   no_theta: bool = False) -> Tensor:
+    """Ego-frame normalization: translate by base (x, y) (gated by
+    ``valid``) and rotate into the base heading frame."""
+    x, y = state[..., 0], state[..., 1]
+    bx, by, bth = base[..., 0], base[..., 1], base[..., 2]
+    if valid is not None:
+        xt = x - bx * valid
+        yt = y - by * valid
+    else:
+        xt = x - bx
+        yt = y - by
+    c, s = torch.cos(bth), torch.sin(bth)
+    x_rel = xt * c + yt * s
+    y_rel = -xt * s + yt * c
+    if no_theta:
+        return torch.stack([x_rel, y_rel], dim=-1)
+    th = state[..., 2]
+    th_rel = th - bth * valid if valid is not None else th - bth
+    return torch.stack([x_rel, y_rel, th_rel], dim=-1)
+
+
+def pos_encoding(t: Tensor, channels: int) -> Tensor:
+    """Sinusoidal diffusion-timestep embedding.  t: (n, 1) -> (n, channels)."""
+    inv_freq = 1.0 / (10000 ** (torch.arange(0, channels, 2,
+                                             dtype=torch.float32,
+                                             device=t.device) / channels))
+    ang = t.float() * inv_freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def dense(x: Tensor, layer: nn.Linear, dt: torch.dtype) -> Tensor:
+    """flax ``Dense(dtype=dt, param_dtype=float32)``: cast, matmul, add."""
+    return cast(x, dt) @ cast(layer.weight, dt).t() + cast(layer.bias, dt)
+
+
+class MLP(nn.Module):
+    """Dense-ReLU stack, ReLU between layers only.  ``layers[i]`` holds
+    flax's ``Dense_i``."""
+
+    def __init__(self, d_in: int, features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = [d_in] + list(features)
+        self.layers = nn.ModuleList(nn.Linear(dims[i], dims[i + 1])
+                                    for i in range(len(features)))
+        self.dtype = dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        x = cast(x, self.dtype)
+        for i, layer in enumerate(self.layers):
+            x = dense(x, layer, self.dtype)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x.float()
+
+
+class Net(nn.Module):
+    """Conditional diffusion policy with the RefineNet rectification head."""
+    FEAT_DIM = 32
+    STLP_DIM = 6
+    TIME_DIM = 32
+    LANE_DIM = 3
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        h = tuple(cfg.hiddens)
+        dt = compute_dtype(cfg)
+        F = self.FEAT_DIM
+        self.ego_encoder = MLP(6, h + (F,), dt)
+        self.neighbor_encoder = MLP(7, h + (F,), dt)
+        self.lane_encoder = MLP(cfg.n_segs * self.LANE_DIM, h + (F,), dt)
+        feat = 7 * F
+        self.policy_net = MLP(feat + cfg.latent_dim, h + (cfg.nt * 2,), dt)
+        if cfg.vae:
+            self.traj_encoder = MLP(cfg.nt * 2, h + (cfg.vae_dim * 2,), dt)
+        if cfg.rect_head:
+            rect_in = feat + 1 + self.STLP_DIM + cfg.nt * 2
+            if cfg.diverse_loss:
+                self.merge_net = MLP(cfg.nt * 2, (32, 32, cfg.nt * 2), dt)
+                if cfg.diverse_fuse_type == "cat":
+                    rect_in += cfg.nt * 2
+            self.rect_net = MLP(rect_in, tuple(cfg.rect_hiddens)
+                                + (cfg.nt * 2,), dt)
+
+    # ------------------------------------------------------------------
+    def encode(self, batch: Dict[str, Tensor]) -> Tensor:
+        """Scene feature (bs, 7*32)."""
+        cfg = self.cfg
+        bs = batch["ego_traj"].shape[0]
+        ego = batch["ego_traj"][:, 0]
+        ego_un = ego[:, None, :]
+        neis = batch["neighbors"]                          # (bs, K, 7)
+        neis_xyth = normalize_xyth(neis[..., 1:4], ego_un[..., :3],
+                                   neis[..., 0])
+        neis_in = torch.cat([neis[..., 0:1], neis_xyth, neis[..., 4:7]], -1)
+        lanes = torch.stack(
+            [normalize_xyth(batch[f"{k}lane_wpts"], ego_un[..., :3],
+                            batch[f"{k}_id"])
+             for k in ("curr", "left", "right")], dim=1)   # (bs,3,S,3)
+        lanes_in = torch.cat(
+            [lanes[..., 0:1, :], lanes[..., 1:, :] - lanes[..., :-1, :]],
+            dim=-2).reshape(bs, 3, cfg.n_segs * self.LANE_DIM)
+        ego_xyth = normalize_xyth(ego[..., :3], ego[..., :3])
+        ego_in = torch.cat([ego_xyth, ego[..., 3:]], dim=-1)
+        ego_feat = self.ego_encoder(ego_in)
+        nei_feat = self.neighbor_encoder(neis_in)          # (bs, K, 32)
+        nei_feat = torch.cat([torch.amin(nei_feat, 1),
+                              torch.mean(nei_feat, 1),
+                              torch.amax(nei_feat, 1)], dim=-1)
+        lane_feat = self.lane_encoder(lanes_in).reshape(bs, -1)
+        return torch.cat([ego_feat, nei_feat, lane_feat], dim=-1)
+
+    # ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, Tensor], ext: Dict[str, Tensor],
+                prev_feature: Optional[Tensor] = None,
+                n_randoms: Optional[int] = None,
+                get_feature: bool = False,
+                sample: Optional[Tensor] = None):
+        """Policy forward (``pstl_tpu.models.net.Net.__call__``).
+
+        Multi-candidate rows (the planner, the dense step): the scene
+        feature is tiled to bs * n_randoms * 3 rows and ``stlp_dense``
+        supplies the pSTL parameters; mono rows (``gt_data_training``): the
+        per-scene feature, ext["highlevel"] (bs, 1) and ext["gt_stlp"]
+        (bs, 6) are tiled to n = bs * n_randoms rows.  ext per head:
+        diffusion timestep (n, 1), highlevel, noise (n, nt*2); VAE
+        highlevel and its latent noise (n, vae_dim) with
+        ext["trajopt_controls"] (n, nt, 2) (multi) or ext["gt_controls"]
+        (bs, nt, 2) (mono) to encode, or the latent itself as ``sample``;
+        BC highlevel; the headless policy reads batch["gt_high_level"].
+        Under ``use_init_hint`` batch["params_init"] (a control seed a row)
+        joins the input.  Diffusion returns the epsilon prediction
+        (n, nt, 2) (and the feature with ``get_feature``); the others
+        tanh-bounded controls, the VAE with (mean, logstd, std) of its
+        latent ((None,) * 3 from ``sample``).
+        """
+        cfg = self.cfg
+        multi = cfg.multi_check
+        if n_randoms is None:
+            n_randoms = cfg.n_randoms
+        if prev_feature is not None:
+            feature = prev_feature
+        else:
+            feature = self.encode(batch)
+            if multi:
+                feature = torch.repeat_interleave(feature, n_randoms * 3, 0)
+        stlp_feat = batch["stlp_dense"][:, 0] if multi else ext["gt_stlp"]
+        tile = lambda v: torch.repeat_interleave(v, n_randoms, 0)
+        latent_stats = (None, None, None)
+        if cfg.diffusion:
+            time_feat = pos_encoding(ext["timestep"], self.TIME_DIM)
+            if multi:
+                pin = torch.cat([feature, ext["noise"], time_feat,
+                                 ext["highlevel"], stlp_feat], -1)
+            else:
+                pin = torch.cat([tile(feature), ext["noise"], time_feat,
+                                 tile(ext["highlevel"]), tile(stlp_feat)],
+                                -1)
+        elif cfg.bc:
+            pin = torch.cat([feature, ext["highlevel"], stlp_feat], -1)
+        elif cfg.vae:
+            if sample is not None:
+                latent = sample
+                feat, hl, stlp = feature, ext["highlevel"], stlp_feat
+            else:
+                if multi:
+                    code = self.traj_encoder(
+                        ext["trajopt_controls"].reshape(-1, cfg.nt * 2))
+                    feat, hl, stlp = feature, ext["highlevel"], stlp_feat
+                else:
+                    code = tile(self.traj_encoder(
+                        ext["gt_controls"].reshape(-1, cfg.nt * 2)))
+                    feat, hl, stlp = (tile(feature), tile(ext["highlevel"]),
+                                      tile(stlp_feat))
+                mean = code[..., :cfg.vae_dim]
+                logstd = code[..., cfg.vae_dim:]
+                std = torch.exp(logstd)
+                latent = ext["noise"] * std + mean
+                latent_stats = (mean, logstd, std)
+            pin = torch.cat([feat, latent, hl, stlp], -1)
+        else:
+            pin = torch.cat([feature, batch["gt_high_level"], stlp_feat], -1)
+        if cfg.use_init_hint:
+            hint = batch["params_init"].reshape(pin.shape[:-1]
+                                                + (cfg.nt * 2,))
+            pin = torch.cat([pin, hint], -1)
+        raw = self.policy_net(pin)
+        if cfg.diffusion:
+            controls = (raw + ext["noise"]).reshape(-1, cfg.nt, 2)
+        else:
+            raw = raw.reshape(-1, cfg.nt, 2)
+            controls = torch.stack(
+                [torch.tanh(raw[..., 0]) * cfg.mul_w_max,
+                 torch.tanh(raw[..., 1]) * cfg.mul_a_max], dim=-1)
+        if get_feature:
+            return controls, feature
+        if cfg.vae:
+            return controls, latent_stats
+        return controls
+
+    # ------------------------------------------------------------------
+    def rect(self, feature: Tensor, highlevel: Tensor, stlp: Tensor,
+             init_controls: Tensor, scores: Tensor) -> Tensor:
+        """RefineNet rectification of violating candidates (scores < 0),
+        with the merge-net shard max (``diverse_loss``) and the tanh
+        interval reparameterization (``interval``)."""
+        cfg = self.cfg
+        n = feature.shape[0]
+        D = cfg.nt * 2
+        if cfg.diverse_loss and not cfg.no_arch:
+            fused = self.merge_net(init_controls.reshape(-1, D))
+            M, NS = cfg.n_randoms, cfg.n_shards
+            if M % NS or n % (3 * M):
+                raise ValueError(
+                    f"rect diversity fusion needs n_randoms ({M}) divisible "
+                    f"by n_shards ({NS}) and rows ({n}) divisible by 3*M")
+            bs = n // (3 * M)
+            fused = fused.reshape(bs, M, 3, D).transpose(1, 2)
+            fused = fused.reshape(bs, 3, NS, M // NS, D)
+            fused = torch.amax(fused, dim=3, keepdim=True).expand(
+                bs, 3, NS, M // NS, D).reshape(bs, 3, M, D)
+            fused = fused.transpose(1, 2).reshape(n, cfg.nt, 2)
+            if cfg.diverse_fuse_type == "add":
+                pin = torch.cat([feature, highlevel, stlp,
+                                 (init_controls + fused).reshape(n, D)], -1)
+            elif cfg.diverse_fuse_type == "cat":
+                pin = torch.cat([feature, highlevel, stlp,
+                                 init_controls.reshape(n, D),
+                                 fused.reshape(n, D)], -1)
+            else:
+                raise NotImplementedError(cfg.diverse_fuse_type)
+        else:
+            pin = torch.cat([feature, highlevel, stlp,
+                             init_controls.reshape(n, D)], -1)
+        raw = self.rect_net(pin).reshape(n, cfg.nt, 2)
+        if cfg.interval:
+            init_w, init_a = init_controls[..., 0], init_controls[..., 1]
+            t = torch.tanh(raw)
+            w_mask = (t[..., 0] >= 0).to(t.dtype)
+            a_mask = (t[..., 1] >= 0).to(t.dtype)
+            w0 = t[..., 0] * (init_w + cfg.mul_w_max)
+            w1 = t[..., 0] * (cfg.mul_w_max - init_w)
+            a0 = t[..., 1] * (init_a + cfg.mul_a_max)
+            a1 = t[..., 1] * (cfg.mul_a_max - init_a)
+            raw = torch.stack([w0 * (1 - w_mask) + w1 * w_mask,
+                               a0 * (1 - a_mask) + a1 * a_mask], dim=-1)
+        violated = (scores < 0).to(raw.dtype)[:, None, None]
+        out = init_controls + raw * violated
+        if cfg.clip_rect:
+            out = torch.stack(
+                [torch.clamp(out[..., 0], -cfg.mul_w_max, cfg.mul_w_max),
+                 torch.clamp(out[..., 1], -cfg.mul_a_max, cfg.mul_a_max)],
+                dim=-1)
+        return out
+
+
+# ----------------------------------------------------------------------
+#: flax's lecun_normal: a normal truncated to [-2, 2] has this standard
+#: deviation, and the draw is divided by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
+                   feature: Tensor, cfg: Config,
+                   n_randoms: Optional[int] = None):
+    """Candidate-minor epsilon predictor for the DDPM reverse loop.
+
+    Layer 1 of the policy MLP is linear, so it splits by input block: the
+    feature / highlevel / stlp (and init-hint) contribution ``base`` is
+    computed once per plan and laid out candidate-minor (bs, h1, R); the
+    timestep embedding gives one (h1,) vector per denoise step; only the
+    noise block depends on x.  Returns ``eps_cm(x_cm (bs, nt, 2, R), t) ->
+    eps`` with r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout); its
+    ``operands`` dict holds the pieces for the superstep kernel.
+    """
+    layers = net.policy_net.layers
+    kern = [l.weight.t() for l in layers]                 # flax (in, out)
+    bias = [l.bias for l in layers]
+    dt = compute_dtype(cfg)
+    M = n_randoms if n_randoms is not None else cfg.n_randoms
+    D = cfg.nt * 2
+    TD = Net.TIME_DIM
+    F = feature.shape[-1]
+    bs = feature.shape[0] // (M * 3)
+    R = M * 3
+    stlp_feat = batch["stlp_dense"][:, 0]
+    W1 = kern[0]
+    o = F + D + TD
+    base = (cast(feature, dt) @ cast(W1[:F], dt)
+            + cast(highlevel, dt) @ cast(W1[o:o + 1], dt)
+            + cast(stlp_feat, dt) @ cast(W1[o + 1:o + 1 + Net.STLP_DIM], dt)
+            + cast(bias[0], dt))
+    if cfg.use_init_hint:
+        hint = batch["params_init"].reshape(-1, D)
+        base = base + cast(hint, dt) @ cast(W1[o + 1 + Net.STLP_DIM:], dt)
+    h1 = base.shape[-1]
+    base_cm = base.reshape(bs, M, 3, h1).permute(0, 3, 2, 1).reshape(
+        bs, h1, R)
+    WnT = cast(W1[F:F + D], dt).t().contiguous()             # (h1, D)
+    Wt = cast(W1[F + D:o], dt)
+    midT = [(cast(kern[i], dt).t().contiguous(), cast(bias[i], dt)[None, :, None])
+            for i in range(1, len(kern) - 1)]
+    WoT = cast(kern[-1], dt).t().contiguous()
+    bo = cast(bias[-1], dt)[None, :, None]
+
+    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
+        te = pos_encoding(torch.full((1, 1), float(t), device=x_cm.device),
+                          TD)
+        h = (base_cm + (cast(te, dt) @ Wt)[0][None, :, None]
+             + WnT @ cast(x_cm.reshape(bs, D, R), dt))
+        h = torch.relu(h)
+        for WT, b in midT:
+            h = torch.relu(WT @ h + b)
+        raw = WoT @ h + bo
+        return raw.float().reshape(bs, cfg.nt, 2, R) + x_cm
+
+    # the same split-MLP pieces for the superstep kernel
+    # (ops/superstep_kernel.py), in the JAX package's names and layouts:
+    # split by control channel (row d = t*2 + c of the noise block and of
+    # the output) and transposed so every product is W (rows, k) @ h (k, R)
+    Wo = cast(kern[-1], dt)
+    bo_all = cast(bias[-1], dt)
+    eps_cm.operands = dict(
+        base_cm=base_cm,                                  # (bs, h1, R)
+        Wt=Wt,                                            # (TIME_DIM, h1)
+        WnwT=WnT[:, 0::2].contiguous(),                   # (h1, nt)
+        WnaT=WnT[:, 1::2].contiguous(),
+        mid=[(WT, b.reshape(-1, 1)) for WT, b in midT],   # (k, h), (k, 1)
+        WowT=Wo[:, 0::2].t().contiguous(),                # (nt, h_last)
+        WoaT=Wo[:, 1::2].t().contiguous(),
+        bow=bo_all[0::2].reshape(-1, 1),                  # (nt, 1)
+        boa=bo_all[1::2].reshape(-1, 1),
+        dt=dt, bs=bs, R=R, nt=cfg.nt)
+    return eps_cm
