@@ -55,6 +55,7 @@ from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import guidance_kernel, superstep_kernel
 from pstl_tpu_torch.ops.guidance_loss import row_loss
 from pstl_tpu_torch.parallel import mesh
+from pstl_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -281,45 +282,46 @@ def _guidance_step(mu: Tensor, beta_t: Tensor, guide, cfg: Config,
     (``fused_loss.freeze_cm``) the caller carries; with
     ``guidance_reuse_selection`` they are frozen at the candidate-minor
     mean when not given.  No gradient flows out."""
-    ctx = _as_ctx(guide)
-    thres = 100.0 if maximize else cfg.stl_nn_thres
-    fused_loss = ctx.fused_loss
-    if fused_loss is None:
-        if cfg.guidance_pallas:
-            raise ValueError(
-                "guidance_pallas needs the candidate-minor fused loss -- "
-                "set guidance_fused_loss=True (Config.finalize couples this "
-                "automatically)")
+    with span("plan.guidance"):
+        ctx = _as_ctx(guide)
+        thres = 100.0 if maximize else cfg.stl_nn_thres
+        fused_loss = ctx.fused_loss
+        if fused_loss is None:
+            if cfg.guidance_pallas:
+                raise ValueError(
+                    "guidance_pallas needs the candidate-minor fused loss "
+                    "-- set guidance_fused_loss=True (Config.finalize "
+                    "couples this automatically)")
 
-        def loss_fn(mu_flat):
-            u = denormalize_controls(mu_flat, cfg, clip=False)
-            trajs = dyn.rollout(ctx.states_flat, u, cfg.dt)
-            scores = ctx.score_rows(trajs[:, :-1])
-            return row_loss(torch.relu(thres - scores), ctx.valid)
+            def loss_fn(mu_flat):
+                u = denormalize_controls(mu_flat, cfg, clip=False)
+                trajs = dyn.rollout(ctx.states_flat, u, cfg.dt)
+                scores = ctx.score_rows(trajs[:, :-1])
+                return row_loss(torch.relu(thres - scores), ctx.valid)
 
-        return _adam_loop(mu.detach(), beta_t, loss_fn, cfg)
+            return _adam_loop(mu.detach(), beta_t, loss_fn, cfg)
 
-    cm_io = mu.dim() == 4
-    if cm_io:
-        mu_init = mu
-    else:
-        mu_init = mu_cm if mu_cm is not None \
-            else fused_loss._to_cand_minor(mu)
-    post = (lambda x: x) if cm_io else fused_loss._from_cand_minor
-    fuse = cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze
-    with torch.no_grad():
-        # the fused kernel freezes in-kernel: pstl_tpu computes freeze_cm
-        # here too, but nothing reads it
-        if frozen is None and cfg.guidance_reuse_selection and not fuse:
-            frozen = fused_loss.freeze_cm(mu_init)
-        if cfg.guidance_pallas:
-            return post(guidance_kernel.guidance_adam_cm(
-                fused_loss, frozen, mu_init, beta_t, thres, cfg,
-                fuse_freeze=cfg.guidance_pallas_fuse_freeze))
-    # the XLA guidance loop: frozen=None re-selects in every iteration
-    return post(_adam_loop(
-        mu_init.detach(), beta_t,
-        lambda x: fused_loss.loss_cm(x, thres, frozen=frozen), cfg))
+        cm_io = mu.dim() == 4
+        if cm_io:
+            mu_init = mu
+        else:
+            mu_init = mu_cm if mu_cm is not None \
+                else fused_loss._to_cand_minor(mu)
+        post = (lambda x: x) if cm_io else fused_loss._from_cand_minor
+        fuse = cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze
+        with torch.no_grad():
+            # the fused kernel freezes in-kernel: pstl_tpu computes
+            # freeze_cm here too, but nothing reads it
+            if frozen is None and cfg.guidance_reuse_selection and not fuse:
+                frozen = fused_loss.freeze_cm(mu_init)
+            if cfg.guidance_pallas:
+                return post(guidance_kernel.guidance_adam_cm(
+                    fused_loss, frozen, mu_init, beta_t, thres, cfg,
+                    fuse_freeze=cfg.guidance_pallas_fuse_freeze))
+        # the XLA guidance loop: frozen=None re-selects in every iteration
+        return post(_adam_loop(
+            mu_init.detach(), beta_t,
+            lambda x: fused_loss.loss_cm(x, thres, frozen=frozen), cfg))
 
 
 def _adam_loop(mu0: Tensor, beta_t: Tensor, loss_fn: Callable,
@@ -570,15 +572,16 @@ def sample(apply_fn: Callable, highlevel: Tensor, cfg: Config,
                "highlevel": highlevel, "noise": x, **extra}
         return apply_fn(ext).reshape(n, cfg.nt * 2)
 
-    if cfg.sampler == "ddim":
-        return reverse_sample_ddim(eps_fn, guide, cfg, coeffs, n, maximize,
-                                   noise, generator)
-    if cfg.sampler == "dpmpp":
-        return reverse_sample_dpmpp(eps_fn, guide, cfg, coeffs, n, maximize,
-                                    noise, generator)
-    return reverse_sample(cm_fn, guide, cfg, coeffs, maximize=maximize,
-                          noise=noise, generator=generator, eps_fn=eps_fn,
-                          n=n)
+    with span("plan.sample"):
+        if cfg.sampler == "ddim":
+            return reverse_sample_ddim(eps_fn, guide, cfg, coeffs, n,
+                                       maximize, noise, generator)
+        if cfg.sampler == "dpmpp":
+            return reverse_sample_dpmpp(eps_fn, guide, cfg, coeffs, n,
+                                        maximize, noise, generator)
+        return reverse_sample(cm_fn, guide, cfg, coeffs, maximize=maximize,
+                              noise=noise, generator=generator,
+                              eps_fn=eps_fn, n=n)
 
 
 def _reverse_superstep(cm_fn: Callable, fused_loss, cfg: Config,

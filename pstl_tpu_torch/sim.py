@@ -40,6 +40,7 @@ from pstl_tpu_torch.models.net import Net
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import geometry as geom
 from pstl_tpu_torch.parallel import mesh as pmesh
+from pstl_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -316,90 +317,103 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
     def plan(obs: Dict[str, Tensor], noise: Optional[Tensor] = None,
              generator: Optional[torch.Generator] = None,
              hint: Optional[Tensor] = None):
-        bs = obs["ego_traj"].shape[0]
-        dev = obs["ego_traj"].device
-        check_devices(dev, net, coeffs)
-        n = bs * M * 3
-        override = torch.as_tensor(override_np, device=dev)
-        states = obs["ego_traj"][:, 0, :4]
-        gt_stlp = override.reshape(-1, 6)[-1].expand(bs, 6)
-        if override.ndim == 2:
-            stlp_dense = torch.repeat_interleave(override, M * 3,
-                                                 0)[:, None, :]
-        else:
-            stlp_dense = override.expand(n, 1, 6)
-        dense = specs.densify_batch(obs, gt_stlp, cfg, stlp_dense)
-        if cfg.use_init_hint:
-            # the closed loop has no trajopt seeds: draw them as the dataset
-            # draws its random ones
-            dense["params_init"] = (pmesh.local_part(hint) if hint is not None
-                                    else hint_draws(n, cfg, generator, dev))
-        highlevel = dense["highlevel_dense"]
-        valid = dense["valids_dense"].reshape(-1)
-        states_flat = torch.repeat_interleave(states, M * 3, 0)
-        score_rows = specs.make_score_rows(obs, dense, cfg,
-                                           formulas=formulas)
-
-        def score_controls(u):
-            trajs = dyn.rollout(states_flat, u, cfg.dt)
-            s = score_rows(trajs[:, :-1])
-            return s, trajs
-
-        # the scene feature, tiled to the n candidate rows (the JAX planner
-        # reads it from Net.__call__(get_feature=True))
-        enc = net.encode(dense)
-        feature = torch.repeat_interleave(enc, M * 3, 0)
-        if cfg.diffusion:
-            nn_controls, all_steps = _candidates(
-                net, obs, dense, gt_stlp, states, states_flat, enc, feature,
-                score_rows, cfg, coeffs, noise, generator, formulas)
-        else:
-            nn_controls = decode_baseline(net, dense, feature, cfg, noise,
-                                          generator)
-            all_steps = nn_controls[None]
-
-        if cfg.rect_head and not cfg.not_use_rect:
-            if cfg.multi_cands is not None:
-                nn_controls, prev_scores = diffusion.select_multi_cands(
-                    all_steps, cfg.multi_cands, states_flat, score_rows, cfg)
+        with span("sim.plan"):
+            bs = obs["ego_traj"].shape[0]
+            dev = obs["ego_traj"].device
+            check_devices(dev, net, coeffs)
+            n = bs * M * 3
+            override = torch.as_tensor(override_np, device=dev)
+            states = obs["ego_traj"][:, 0, :4]
+            gt_stlp = override.reshape(-1, 6)[-1].expand(bs, 6)
+            if override.ndim == 2:
+                stlp_dense = torch.repeat_interleave(override, M * 3,
+                                                     0)[:, None, :]
             else:
-                prev_scores, _ = score_controls(nn_controls)
-            stlp_rows = dense["stlp_dense"][:, 0]
-            controls = net.rect(feature, highlevel, stlp_rows, nn_controls,
-                                prev_scores)
-            for _ in range(cfg.n_rolls or 0):
-                s_re, _ = score_controls(controls)
-                controls = net.rect(feature, highlevel, stlp_rows, controls,
-                                    s_re)
-            if cfg.refinement or cfg.raw_refinement:
-                # lite_refine (nusc_sim.py:554-557): skip the repair when a
-                # lane-keep candidate of the batch already satisfies its
-                # spec (the JAX package's lax.cond; here a host sync)
-                if not cfg.lite_refine or float(pmesh.shard_max(torch.amax(
-                        score_controls(controls)[0].reshape(bs, M, 3)[
-                            :, :, 0]))) <= 0:
-                    controls = _refine(controls, all_steps, states_flat,
-                                       score_rows, valid, cfg)
-        else:
-            controls = nn_controls
+                stlp_dense = override.expand(n, 1, 6)
+            with span("plan.prep"):
+                dense = specs.densify_batch(obs, gt_stlp, cfg, stlp_dense)
+                if cfg.use_init_hint:
+                    # the closed loop has no trajopt seeds: draw them as the
+                    # dataset draws its random ones
+                    dense["params_init"] = (
+                        pmesh.local_part(hint) if hint is not None
+                        else hint_draws(n, cfg, generator, dev))
+                highlevel = dense["highlevel_dense"]
+                valid = dense["valids_dense"].reshape(-1)
+                states_flat = torch.repeat_interleave(states, M * 3, 0)
+                score_rows = specs.make_score_rows(obs, dense, cfg,
+                                                   formulas=formulas)
+                # the scene feature, tiled to the n candidate rows (the JAX
+                # planner reads it from Net.__call__(get_feature=True))
+                enc = net.encode(dense)
+                feature = torch.repeat_interleave(enc, M * 3, 0)
 
-        scores, trajs = score_controls(controls)
-        scores3 = scores.reshape(bs, M, 3)
-        if cfg.forward_shield:
-            min_v = torch.amin(trajs[..., 3], dim=-1).reshape(bs, M, 3)
-            scores3 = scores3 - torch.clamp(-min_v, min=0.0) * 1e3
-        keep = torch.arange(3, device=dev)[None, None, :] == 0
-        keep_scores = torch.where(keep, scores3,
-                                  torch.full_like(scores3, -10000.0))
-        best = torch.argmax(keep_scores.reshape(bs, M * 3), dim=-1)
-        u_all = controls.reshape(bs, M * 3, cfg.nt, 2)
-        tr_all = trajs.reshape(bs, M * 3, cfg.nt + 1, 4)
-        u_best = _rows(u_all, best)
-        tr_best = _rows(tr_all, best)
-        stl_acc = torch.mean((keep_scores[:, :, 0] > 0).float(), dim=-1)
-        info = {"controls": controls, "trajs": trajs, "scores": scores,
-                "plan_traj": tr_best, "stl_acc": stl_acc,
-                "valids_dense": dense["valids_dense"]}
+            def score_controls(u):
+                trajs = dyn.rollout(states_flat, u, cfg.dt)
+                s = score_rows(trajs[:, :-1])
+                return s, trajs
+
+            if cfg.diffusion:
+                nn_controls, all_steps = _candidates(
+                    net, obs, dense, gt_stlp, states, states_flat, enc,
+                    feature, score_rows, cfg, coeffs, noise, generator,
+                    formulas)
+            else:
+                nn_controls = decode_baseline(net, dense, feature, cfg,
+                                              noise, generator)
+                all_steps = nn_controls[None]
+
+            with span("plan.select"):
+                if cfg.rect_head and not cfg.not_use_rect:
+                    if cfg.multi_cands is not None:
+                        nn_controls, prev_scores = \
+                            diffusion.select_multi_cands(
+                                all_steps, cfg.multi_cands, states_flat,
+                                score_rows, cfg)
+                    else:
+                        prev_scores, _ = score_controls(nn_controls)
+                    stlp_rows = dense["stlp_dense"][:, 0]
+                    controls = net.rect(feature, highlevel, stlp_rows,
+                                        nn_controls, prev_scores)
+                    for _ in range(cfg.n_rolls or 0):
+                        s_re, _ = score_controls(controls)
+                        controls = net.rect(feature, highlevel, stlp_rows,
+                                            controls, s_re)
+                    if cfg.refinement or cfg.raw_refinement:
+                        # lite_refine (nusc_sim.py:554-557): skip the repair
+                        # when a lane-keep candidate of the batch already
+                        # satisfies its spec (the JAX package's lax.cond;
+                        # here a host sync)
+                        if not cfg.lite_refine or float(pmesh.shard_max(
+                                torch.amax(score_controls(controls)[0]
+                                           .reshape(bs, M, 3)[:, :, 0]))) \
+                                <= 0:
+                            controls = _refine(controls, all_steps,
+                                               states_flat, score_rows,
+                                               valid, cfg)
+                else:
+                    controls = nn_controls
+
+                scores, trajs = score_controls(controls)
+                scores3 = scores.reshape(bs, M, 3)
+                if cfg.forward_shield:
+                    min_v = torch.amin(trajs[..., 3],
+                                       dim=-1).reshape(bs, M, 3)
+                    scores3 = scores3 - torch.clamp(-min_v, min=0.0) * 1e3
+                keep = torch.arange(3, device=dev)[None, None, :] == 0
+                keep_scores = torch.where(keep, scores3,
+                                          torch.full_like(scores3, -10000.0))
+                best = torch.argmax(keep_scores.reshape(bs, M * 3), dim=-1)
+                u_all = controls.reshape(bs, M * 3, cfg.nt, 2)
+                tr_all = trajs.reshape(bs, M * 3, cfg.nt + 1, 4)
+                u_best = _rows(u_all, best)
+                tr_best = _rows(tr_all, best)
+                stl_acc = torch.mean((keep_scores[:, :, 0] > 0).float(),
+                                     dim=-1)
+                info = {"controls": controls, "trajs": trajs,
+                        "scores": scores, "plan_traj": tr_best,
+                        "stl_acc": stl_acc,
+                        "valids_dense": dense["valids_dense"]}
         return u_best[:, 0, :], info
 
     return plan
@@ -417,12 +431,14 @@ def _sample(net: Net, obs, dense, states: Tensor, states_flat: Tensor,
     n = states.shape[0] * M * 3
     highlevel = dense["highlevel_dense"]
     valid = dense["valids_dense"].reshape(-1)
-    fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
-             if cfg.guidance else None)
-    ctx = (diffusion.make_guidance_ctx(score_rows, valid, states_flat, fused)
-           if cfg.guidance else None)
-    cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
-             if cfg.cm_sampler and fused is not None else None)
+    with span("plan.prep"):
+        fused = (specs.make_guidance_loss(obs, dense, cfg, states, valid)
+                 if cfg.guidance else None)
+        ctx = (diffusion.make_guidance_ctx(score_rows, valid, states_flat,
+                                           fused)
+               if cfg.guidance else None)
+        cm_fn = (models.make_cm_eps_fn(net, dense, highlevel, feature, cfg)
+                 if cfg.cm_sampler and fused is not None else None)
     return diffusion.sample(
         lambda e: net(dense, e, prev_feature=feature, n_randoms=M),
         highlevel, cfg, coeffs, n, noise=noise, generator=generator,
@@ -609,26 +625,30 @@ def _make_body(scenes: SceneTensors, cfg: Config, plan, with_info=False):
     the planner's keywords ("noise", "hint")."""
 
     def body(c: Carry, noise=None):
-        obs = observe(scenes, c.ego, c.t, cfg)
-        draws = noise if isinstance(noise, dict) else {"noise": noise}
-        u0, info = plan(obs, generator=c.generator, **draws)
-        if cfg.backup:
-            u0, repaired = _apply_backup(u0, info, obs, cfg)
-        else:
-            repaired = torch.zeros_like(c.done)
-        new_ego, collide, ool, done_t = env_step(scenes, c.ego, c.t, u0, cfg)
-        active = ~c.done
-        carry = Carry(
-            ego=torch.where(active[:, None], new_ego, c.ego),
-            t=torch.where(active, c.t + 1, c.t),
-            done=c.done | ((collide | ool | done_t) & active),
-            collide=c.collide | (collide & active),
-            out_of_lane=c.out_of_lane | (ool & active),
-            progress=c.progress + active * c.ego[:, 3] * cfg.dt,
-            stl_acc_sum=c.stl_acc_sum + active * info["stl_acc"],
-            steps=c.steps + active,
-            repairs=c.repairs + (active & repaired),
-            generator=c.generator)
+        with span("sim.step"):
+            with span("sim.observe"):
+                obs = observe(scenes, c.ego, c.t, cfg)
+            draws = noise if isinstance(noise, dict) else {"noise": noise}
+            u0, info = plan(obs, generator=c.generator, **draws)
+            with span("sim.env"):
+                if cfg.backup:
+                    u0, repaired = _apply_backup(u0, info, obs, cfg)
+                else:
+                    repaired = torch.zeros_like(c.done)
+                new_ego, collide, ool, done_t = env_step(scenes, c.ego, c.t,
+                                                         u0, cfg)
+                active = ~c.done
+                carry = Carry(
+                    ego=torch.where(active[:, None], new_ego, c.ego),
+                    t=torch.where(active, c.t + 1, c.t),
+                    done=c.done | ((collide | ool | done_t) & active),
+                    collide=c.collide | (collide & active),
+                    out_of_lane=c.out_of_lane | (ool & active),
+                    progress=c.progress + active * c.ego[:, 3] * cfg.dt,
+                    stl_acc_sum=c.stl_acc_sum + active * info["stl_acc"],
+                    steps=c.steps + active,
+                    repairs=c.repairs + (active & repaired),
+                    generator=c.generator)
         if with_info:
             return carry, info
         return carry

@@ -29,6 +29,7 @@ from pstl_tpu_torch.ops import clearance_kernel
 from pstl_tpu_torch.ops import geometry as geom
 from pstl_tpu_torch.ops import stl
 from pstl_tpu_torch.parallel import mesh
+from pstl_tpu_torch.utils.trace import span
 from pstl_tpu_torch.ops.guidance_loss import (  # noqa: F401
     I_DMAX, I_DMIN, I_DSAFE, I_THMAX, I_VAL, I_VMAX, I_VMIN,
     CandMinorGuidanceLoss, make_guidance_loss, mask_mean)
@@ -591,6 +592,11 @@ class TiledScorer:
 
     def __call__(self, trajs: Tensor, tau: Optional[float] = None,
                  hard: bool = False) -> Tensor:
+        with span("plan.score"):
+            return self._scores(trajs, tau, hard)
+
+    def _scores(self, trajs: Tensor, tau: Optional[float],
+                hard: bool) -> Tensor:
         cfg = self.cfg
         if tau is None:
             tau = cfg.smoothing_factor
@@ -660,8 +666,9 @@ def make_score_rows(batch: Dict[str, Tensor], dense: Dict[str, Tensor],
     valid = dense["valids_dense"].reshape(-1)
 
     def score_rows(ego):
-        _, s, _ = compute_scores(dict(signal_base, ego_traj=ego), formulas,
-                                 hl, valid, cfg)
+        with span("plan.score"):
+            _, s, _ = compute_scores(dict(signal_base, ego_traj=ego),
+                                     formulas, hl, valid, cfg)
         return s
 
     return score_rows
