@@ -38,6 +38,14 @@ Under ``guidance_pallas_superstep`` the DDPM loop is
 (``ops/superstep_kernel.py``: eps MLP, posterior, guidance, noise) per
 denoise step.
 
+On the card, the candidate-minor DDPM chain with a guidance kernel and
+pinned draws is one CUDA graph (:func:`_chain_graph`, when
+:func:`graph_eligible`): the loop body :func:`_ddpm_chain`, which the eager
+path runs too, is captured once per key on static input buffers and
+replayed on every later call after the plan's inputs are copied in; the
+kernels it launches are the eager loop's.  ``chain_graph_captures`` and
+``chain_graph_replays`` count them.
+
 For training, :func:`prep` noises controls and :func:`sample` runs the
 pass on the per-scene (mono) rows or on the dense multi-candidate rows,
 guided by the row-major fallback loss where the configuration guides.
@@ -45,6 +53,8 @@ guided by the row-major fallback loss where the configuration guides.
 
 from __future__ import annotations
 
+import copy
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -413,6 +423,23 @@ def reverse_sample(cm_fn: Optional[Callable], guide, cfg: Config,
             and hasattr(cm_fn, "operands")):
         return _reverse_superstep(cm_fn, fused_loss, cfg, coeffs, trig,
                                   maximize, draw)
+    if use_cm and graph_eligible(cm_fn, cfg, noise):
+        return _chain_graph(cm_fn, fused_loss, cfg, coeffs, trig, maximize,
+                            noise)
+    return _ddpm_chain(cm_fn if use_cm else eps_fn, ctx, cfg, coeffs, trig,
+                       maximize, draw, use_cm)
+
+
+def _ddpm_chain(eps_of: Callable, ctx: Optional[GuidanceCtx], cfg: Config,
+                coeffs: Coeffs, trig: np.ndarray, maximize: bool,
+                draw: Callable, use_cm: bool):
+    """The DDPM loop of :func:`reverse_sample`, x0 to the decodings:
+    ``eps_of`` the candidate-minor ``cm_fn`` (``use_cm``) or the row-major
+    ``eps_fn``, ``draw(j)`` the j-th draw.  Run eagerly, and captured by
+    :func:`_chain_graph` on static inputs."""
+    T = cfg.diffusion_steps
+    use_guidance = ctx is not None and bool(trig.any())
+    fused_loss = ctx.fused_loss if ctx is not None else None
     # guidance_sel_every > 1: the frozen selections ride across denoise
     # steps, refreshed on every k-th guided step (the first guided step
     # always refreshes, so nothing stale is read)
@@ -421,7 +448,6 @@ def reverse_sample(cm_fn: Optional[Callable], guide, cfg: Config,
     refresh = _refresh_schedule(trig, cfg.guidance_sel_every) \
         if carry_sel else None
     frozen = None
-    eps_of = cm_fn if use_cm else eps_fn
     x = draw(0)
     hist = [x]
     for j, t in enumerate(range(T - 1, 0, -1)):
@@ -449,6 +475,146 @@ def reverse_sample(cm_fn: Optional[Callable], guide, cfg: Config,
             hist.append(x)
     conv = fused_loss._from_cand_minor if use_cm else (lambda v: v)
     return _decodings(x, hist, conv, cfg)
+
+
+# --------------------------------------------------------------------------
+# the candidate-minor chain as one CUDA graph
+# --------------------------------------------------------------------------
+
+#: chains captured as a graph, and graph replays (each replay's guidance
+#: kernel launches also count in ``guidance_kernel.launches`` /
+#: ``frozen_launches``)
+chain_graph_captures = 0
+chain_graph_replays = 0
+
+#: eps weights (``models.net.EpsWeights``) -> {key: _ChainGraph}: a graph
+#: lives as long as the weight pieces it reads
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _capture_cuda(body: Callable, dev: torch.device):
+    """Run ``body`` once on a side stream, so that cuBLAS handles and
+    lazily loaded modules exist before capture, then capture it as a CUDA
+    graph on that stream.  Returns (the eager run's outputs, the graph's
+    outputs, its replay, the (fused, frozen) guidance kernel launches it
+    holds).  A capture records launches without running them, so the
+    counters are set back and each replay adds them."""
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        first = body()
+    cur.wait_stream(side)
+    before = (guidance_kernel.launches, guidance_kernel.frozen_launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = body()
+    held = (guidance_kernel.launches - before[0],
+            guidance_kernel.frozen_launches - before[1])
+    guidance_kernel.launches, guidance_kernel.frozen_launches = before
+    return first, out, graph.replay, held
+
+
+#: device type -> how a chain is captured there
+_CAPTURE = {"cuda": _capture_cuda}
+
+
+def graph_eligible(cm_fn: Callable, cfg: Config,
+                   noise: Optional[Tensor]) -> bool:
+    """Whether the candidate-minor chain (``reverse_sample`` with ``cm_fn``
+    and the fused loss) runs as a captured graph: its tensors on a device
+    that captures (CUDA), ``cm_fn`` from ``make_cm_eps_fn``, the guided
+    update a kernel (``guidance_pallas``), the draws pinned (``noise``), no
+    sharding (``parallel.mesh``) and no autograd recording.  Everything
+    else (the CPU, the XLA guidance loop, generator draws, the row-major
+    chain, the fast samplers, the superstep, candidate sharding) keeps the
+    eager loop."""
+    return (noise is not None and noise.device.type in _CAPTURE
+            and hasattr(cm_fn, "on_base") and cfg.guidance_pallas
+            and not mesh.sharded() and not torch.is_grad_enabled())
+
+
+class _ChainGraph(NamedTuple):
+    static: dict        # name -> the buffer a plan's tensor is copied into
+    out: tuple          # (controls, all_steps) in the graph's memory
+    replay: Callable
+    held: tuple         # (fused, frozen) guidance kernel launches a replay
+    coeffs: Coeffs      # read by the graph: kept alive with it
+
+
+def _chain_inputs(cm_fn: Callable, fused_loss, cfg: Config,
+                  noise: Tensor) -> dict:
+    """What the chain reads that a plan makes fresh, by name: the draws,
+    the eps MLP's ``base_cm``, the guidance kernel's operands and, where a
+    guided update or the carried selections freeze on the host's side
+    (``freeze_cm``), the fused loss's tensors that it reads."""
+    ops = guidance_kernel.kernel_operands(fused_loss, cfg)
+    inputs = {"noise": noise, "base_cm": cm_fn.operands["base_cm"],
+              **{"op." + k: v for k, v in ops._asdict().items()}}
+    if cfg.guidance_reuse_selection and (
+            cfg.guidance_sel_every > 1
+            or not cfg.guidance_pallas_fuse_freeze):
+        inputs.update({"loss." + k: getattr(fused_loss, k)
+                       for k in fused_loss.FREEZE_READS})
+    return inputs
+
+
+def _static_chain(static: dict, cm_fn: Callable, fused_loss, cfg: Config,
+                  coeffs: Coeffs, trig: np.ndarray, maximize: bool):
+    """The chain's body on the static buffers: ``cm_fn`` on the static
+    ``base_cm``, a copy of the fused loss whose kernel operands (and
+    freeze inputs) are the static buffers and whose other tensors are
+    meta tensors (their shapes, no data: a read of one raises), and the
+    static draws."""
+    loss = copy.copy(fused_loss)
+    for k, v in vars(fused_loss).items():
+        if torch.is_tensor(v):
+            setattr(loss, k, static.get("loss." + k, v.to("meta")))
+    loss._kernel_operands = guidance_kernel.Operands(
+        *(static["op." + k] for k in guidance_kernel.Operands._fields))
+    eps = cm_fn.on_base(static["base_cm"])
+    noise = static["noise"]
+    draw = _drawer(noise, noise.shape[0], noise.shape[1:], None,
+                   noise.device)
+    return lambda: _ddpm_chain(eps, _as_ctx(loss), cfg, coeffs, trig,
+                               maximize, draw, True)
+
+
+def _chain_graph(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
+                 trig: np.ndarray, maximize: bool, noise: Tensor):
+    """The candidate-minor chain as one graph replay: the plan's inputs
+    (:func:`_chain_inputs`) are copied into the graph's static buffers and
+    the graph of this key (shapes and dtypes, ``cfg``, ``maximize``, the
+    eps weights, ``coeffs``) is replayed.  The first call of a key
+    captures it (:data:`_CAPTURE`) and returns the outputs of the eager
+    run made before the capture, so that it runs the chain once, as the
+    eager loop does.  The outputs leave as fresh tensors (the next replay
+    overwrites the graph's)."""
+    global chain_graph_captures, chain_graph_replays
+    fresh = _chain_inputs(cm_fn, fused_loss, cfg, noise)
+    key = (cfg, bool(maximize), noise.device, id(coeffs.beta),
+           tuple((k, tuple(v.shape), v.dtype) for k, v in fresh.items()))
+    graphs = _GRAPHS.setdefault(cm_fn.weights, {})
+    g = graphs.get(key)
+    static = g.static if g is not None else {
+        k: torch.empty_like(v) for k, v in fresh.items()}
+    for k, v in fresh.items():
+        static[k].copy_(v)
+    if g is None:
+        body = _static_chain(static, cm_fn, fused_loss, cfg, coeffs, trig,
+                             maximize)
+        first, out, replay, held = _CAPTURE[noise.device.type](
+            body, noise.device)
+        graphs[key] = _ChainGraph(static, out, replay, held, coeffs)
+        chain_graph_captures += 1
+    else:
+        g.replay()
+        chain_graph_replays += 1
+        guidance_kernel.launches += g.held[0]
+        guidance_kernel.frozen_launches += g.held[1]
+        first = g.out
+    steps = first[1].clone()
+    return steps[-1], steps
 
 
 def reverse_sample_ddim(eps_fn: Callable, guide, cfg: Config,

@@ -16,6 +16,7 @@ BC head and the headless policy, each with the init-hint input under
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -312,6 +313,102 @@ def init_flax_like(net: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+class EpsWeights:
+    """The weight-only pieces of the candidate-minor eps MLP
+    (:func:`make_cm_eps_fn`), in the compute dtype: layer 1 split by input
+    block (feature ``Wf``, highlevel ``Wh``, stlp ``Ws``, init hint ``Wi``,
+    noise ``WnT`` transposed, timestep ``Wt``) and its bias ``b1``, the
+    hidden layers ``midT`` and the output layer (``WoT``, ``bo``)
+    transposed so every product is W (rows, k) @ h (k, R), and the
+    superstep kernel's channel-split copies (``superstep``)."""
+
+    def __init__(self, net: Net, cfg: Config):
+        layers = net.policy_net.layers
+        kern = [l.weight.t() for l in layers]             # flax (in, out)
+        bias = [l.bias for l in layers]
+        dt = compute_dtype(cfg)
+        F, D, TD = 7 * Net.FEAT_DIM, cfg.nt * 2, Net.TIME_DIM
+        W1 = kern[0]
+        o = F + D + TD
+        self.dt = dt
+        self.Wf = W1[:F].to(dt)
+        self.Wh = W1[o:o + 1].to(dt)
+        self.Ws = W1[o + 1:o + 1 + Net.STLP_DIM].to(dt)
+        self.Wi = W1[o + 1 + Net.STLP_DIM:].to(dt)
+        self.b1 = bias[0].to(dt)
+        self.WnT = W1[F:F + D].to(dt).t().contiguous()    # (h1, D)
+        self.Wt = W1[F + D:o].to(dt)
+        self.midT = [(kern[i].to(dt).t().contiguous(),
+                      bias[i].to(dt)[None, :, None])
+                     for i in range(1, len(kern) - 1)]
+        self.WoT = kern[-1].to(dt).t().contiguous()
+        self.bo = bias[-1].to(dt)[None, :, None]
+        # the superstep kernel's (ops/superstep_kernel.py), in the JAX
+        # package's names and layouts: split by control channel (row d =
+        # t*2 + c of the noise block and of the output)
+        Wo = kern[-1].to(dt)
+        bo_all = bias[-1].to(dt)
+        self.superstep = dict(
+            Wt=self.Wt,                                   # (TIME_DIM, h1)
+            WnwT=self.WnT[:, 0::2].contiguous(),          # (h1, nt)
+            WnaT=self.WnT[:, 1::2].contiguous(),
+            mid=[(WT, b.reshape(-1, 1)) for WT, b in self.midT],
+            WowT=Wo[:, 0::2].t().contiguous(),            # (nt, h_last)
+            WoaT=Wo[:, 1::2].t().contiguous(),
+            bow=bo_all[0::2].reshape(-1, 1),              # (nt, 1)
+            boa=bo_all[1::2].reshape(-1, 1))
+
+
+#: net -> (its policy MLP's parameter versions, EpsWeights)
+_EPS_WEIGHTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def eps_weights(net: Net, cfg: Config) -> EpsWeights:
+    """The net's :class:`EpsWeights`, kept while its policy MLP's
+    parameters stay the same tensors at the same versions (an optimizer
+    step or a ``load_state_dict`` writes them in place and bumps the
+    version).  With autograd recording they are made afresh, so that each
+    call's graph reaches the parameters."""
+    params = list(net.policy_net.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return EpsWeights(net, cfg)
+    key = (compute_dtype(cfg), cfg.nt,
+           tuple((p.data_ptr(), p._version) for p in params))
+    hit = _EPS_WEIGHTS.get(net)
+    if hit is None or hit[0] != key:
+        hit = (key, EpsWeights(net, cfg))
+        _EPS_WEIGHTS[net] = hit
+    return hit[1]
+
+
+def cm_eps(base_cm: Tensor, w: EpsWeights, cfg: Config):
+    """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` on the per-plan layer-1
+    contribution ``base_cm`` (bs, h1, R) and the weight pieces ``w``.
+    Its ``weights`` are ``w``, ``operands`` the superstep kernel's pieces,
+    and ``on_base(b)`` the same predictor on another ``base_cm`` of that
+    shape (what a captured chain reads)."""
+    bs, _, R = base_cm.shape
+    D = cfg.nt * 2
+    dt = w.dt
+
+    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
+        te = pos_encoding(torch.full((1, 1), float(t), device=x_cm.device),
+                          Net.TIME_DIM)
+        h = (base_cm + (te.to(dt) @ w.Wt)[0][None, :, None]
+             + w.WnT @ x_cm.reshape(bs, D, R).to(dt))
+        h = torch.relu(h)
+        for WT, b in w.midT:
+            h = torch.relu(WT @ h + b)
+        raw = w.WoT @ h + w.bo
+        return raw.float().reshape(bs, cfg.nt, 2, R) + x_cm
+
+    eps_cm.weights = w
+    eps_cm.on_base = lambda b: cm_eps(b, w, cfg)
+    eps_cm.operands = dict(base_cm=base_cm,               # (bs, h1, R)
+                           **w.superstep, dt=dt, bs=bs, R=R, nt=cfg.nt)
+    return eps_cm
+
+
 def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
                    feature: Tensor, cfg: Config,
                    n_randoms: Optional[int] = None):
@@ -321,66 +418,24 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
     feature / highlevel / stlp (and init-hint) contribution ``base`` is
     computed once per plan and laid out candidate-minor (bs, h1, R); the
     timestep embedding gives one (h1,) vector per denoise step; only the
-    noise block depends on x.  Returns ``eps_cm(x_cm (bs, nt, 2, R), t) ->
-    eps`` with r = j*M + m (``specs.CandMinorGuidanceLoss``'s layout); its
-    ``operands`` dict holds the pieces for the superstep kernel.
+    noise block depends on x.  The weight pieces are the net's
+    (:func:`eps_weights`), made once.  Returns ``eps_cm(x_cm (bs, nt, 2,
+    R), t) -> eps`` with r = j*M + m (``specs.CandMinorGuidanceLoss``'s
+    layout; :func:`cm_eps`); its ``operands`` dict holds the pieces for the
+    superstep kernel.
     """
-    layers = net.policy_net.layers
-    kern = [l.weight.t() for l in layers]                 # flax (in, out)
-    bias = [l.bias for l in layers]
-    dt = compute_dtype(cfg)
+    w = eps_weights(net, cfg)
+    dt = w.dt
     M = n_randoms if n_randoms is not None else cfg.n_randoms
-    D = cfg.nt * 2
-    TD = Net.TIME_DIM
-    F = feature.shape[-1]
     bs = feature.shape[0] // (M * 3)
     R = M * 3
     stlp_feat = batch["stlp_dense"][:, 0]
-    W1 = kern[0]
-    o = F + D + TD
-    base = (feature.to(dt) @ W1[:F].to(dt)
-            + highlevel.to(dt) @ W1[o:o + 1].to(dt)
-            + stlp_feat.to(dt) @ W1[o + 1:o + 1 + Net.STLP_DIM].to(dt)
-            + bias[0].to(dt))
+    base = (feature.to(dt) @ w.Wf + highlevel.to(dt) @ w.Wh
+            + stlp_feat.to(dt) @ w.Ws + w.b1)
     if cfg.use_init_hint:
-        hint = batch["params_init"].reshape(-1, D)
-        base = base + hint.to(dt) @ W1[o + 1 + Net.STLP_DIM:].to(dt)
+        hint = batch["params_init"].reshape(-1, cfg.nt * 2)
+        base = base + hint.to(dt) @ w.Wi
     h1 = base.shape[-1]
     base_cm = base.reshape(bs, M, 3, h1).permute(0, 3, 2, 1).reshape(
         bs, h1, R)
-    WnT = W1[F:F + D].to(dt).t().contiguous()             # (h1, D)
-    Wt = W1[F + D:o].to(dt)
-    midT = [(kern[i].to(dt).t().contiguous(), bias[i].to(dt)[None, :, None])
-            for i in range(1, len(kern) - 1)]
-    WoT = kern[-1].to(dt).t().contiguous()
-    bo = bias[-1].to(dt)[None, :, None]
-
-    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
-        te = pos_encoding(torch.full((1, 1), float(t), device=x_cm.device),
-                          TD)
-        h = (base_cm + (te.to(dt) @ Wt)[0][None, :, None]
-             + WnT @ x_cm.reshape(bs, D, R).to(dt))
-        h = torch.relu(h)
-        for WT, b in midT:
-            h = torch.relu(WT @ h + b)
-        raw = WoT @ h + bo
-        return raw.float().reshape(bs, cfg.nt, 2, R) + x_cm
-
-    # the same split-MLP pieces for the superstep kernel
-    # (ops/superstep_kernel.py), in the JAX package's names and layouts:
-    # split by control channel (row d = t*2 + c of the noise block and of
-    # the output) and transposed so every product is W (rows, k) @ h (k, R)
-    Wo = kern[-1].to(dt)
-    bo_all = bias[-1].to(dt)
-    eps_cm.operands = dict(
-        base_cm=base_cm,                                  # (bs, h1, R)
-        Wt=Wt,                                            # (TIME_DIM, h1)
-        WnwT=WnT[:, 0::2].contiguous(),                   # (h1, nt)
-        WnaT=WnT[:, 1::2].contiguous(),
-        mid=[(WT, b.reshape(-1, 1)) for WT, b in midT],   # (k, h), (k, 1)
-        WowT=Wo[:, 0::2].t().contiguous(),                # (nt, h_last)
-        WoaT=Wo[:, 1::2].t().contiguous(),
-        bow=bo_all[0::2].reshape(-1, 1),                  # (nt, 1)
-        boa=bo_all[1::2].reshape(-1, 1),
-        dt=dt, bs=bs, R=R, nt=cfg.nt)
-    return eps_cm
+    return cm_eps(base_cm, w, cfg)

@@ -66,6 +66,9 @@ class CandMinorGuidanceLoss:
     quantity is recentred per scene at the ego start (exact: it only uses
     coordinate differences)."""
 
+    #: the tensors :meth:`freeze_cm` reads
+    FREEZE_READS = ("lxr", "lyr", "lthr", "th0", "v0", "axe", "nx", "ny")
+
     def __init__(self, batch: Dict[str, Tensor], stlp_dense: Tensor,
                  states: Tensor, valid: Tensor, cfg: Config,
                  n_randoms: Optional[int] = None):

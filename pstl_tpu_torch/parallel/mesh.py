@@ -380,6 +380,12 @@ def gather_candidates(x: Tensor, rows: int = 0,
     return v.reshape(*s[:dim], s[dim] * ax.world, *s[dim + 1:])
 
 
+def sharded() -> bool:
+    """Whether a sharding context is entered: a data or candidate share,
+    or the planner's ``candidate_sharding`` (world 1 too)."""
+    return bool(_active()) or _CAND_MESH[0] is not None
+
+
 def shard_world() -> int:
     """How many ranks share the rows under the active shardings (1 with
     none)."""
