@@ -1,0 +1,16 @@
+"""The eps network's FLOPs a step (its passes a step, counted by the
+program, times ``roofline.unet1d.flops`` at the rows a pass) over the
+untraced step time and the dense peak of ``compute_dtype``, %.  Nothing to
+read where the driver counts no U-Net pass."""
+
+from perfbench.metrics._common import mfu
+from perfbench.roofline import unet1d
+
+
+def read(ctx):
+    s = ctx.shapes
+    if not s.get("eps_calls"):
+        return None
+    return mfu(ctx, s["eps_calls"] * unet1d.flops(s["eps_net"],
+                                                  int(s["eps_rows"]),
+                                                  s["nt"]))

@@ -483,35 +483,43 @@ def _ddpm_chain(eps_of: Callable, ctx: Optional[GuidanceCtx], cfg: Config,
 
 #: chains captured as a graph, and graph replays (each replay's guidance
 #: kernel launches also count in ``guidance_kernel.launches`` /
-#: ``frozen_launches``)
+#: ``frozen_launches``, its eps passes in the counters the eps function
+#: names)
 chain_graph_captures = 0
 chain_graph_replays = 0
 
-#: eps weights (``models.net.EpsWeights``) -> {key: _ChainGraph}: a graph
-#: lives as long as the weight pieces it reads
+#: eps weights (the eps function's ``weights``) -> {key: _ChainGraph}: a
+#: graph lives as long as the weight pieces it reads
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+#: the guidance kernel's launch counters, (module, name): a captured
+#: chain holds these and the ones its eps function names (``counters``)
+_KERNEL_COUNTERS = ((guidance_kernel, "launches"),
+                    (guidance_kernel, "frozen_launches"))
 
 
 def _capture_cuda(body: Callable, dev: torch.device):
-    """Run ``body`` once on a side stream, so that cuBLAS handles and
-    lazily loaded modules exist before capture, then capture it as a CUDA
-    graph on that stream.  Returns (the eager run's outputs, the graph's
-    outputs, its replay, the (fused, frozen) guidance kernel launches it
-    holds).  A capture records launches without running them, so the
-    counters are set back and each replay adds them."""
+    """Run ``body`` once on a side stream, so that cuBLAS and cuDNN handles,
+    their algorithm choices and lazily loaded modules exist before
+    capture, then capture it as a CUDA graph on that stream.  Returns (the
+    eager run's outputs, the graph's outputs, its replay, what it holds of
+    each counter of ``body.counters``, in that order).  A capture records
+    launches without running them, so the counters are set back and each
+    replay adds them."""
     cur = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         first = body()
     cur.wait_stream(side)
-    before = (guidance_kernel.launches, guidance_kernel.frozen_launches)
+    before = [getattr(m, k) for m, k in body.counters]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         out = body()
-    held = (guidance_kernel.launches - before[0],
-            guidance_kernel.frozen_launches - before[1])
-    guidance_kernel.launches, guidance_kernel.frozen_launches = before
+    held = tuple(getattr(m, k) - b for (m, k), b in zip(body.counters,
+                                                         before))
+    for (m, k), b in zip(body.counters, before):
+        setattr(m, k, b)
     return first, out, graph.replay, held
 
 
@@ -523,12 +531,12 @@ def graph_eligible(cm_fn: Callable, cfg: Config,
                    noise: Optional[Tensor]) -> bool:
     """Whether the candidate-minor chain (``reverse_sample`` with ``cm_fn``
     and the fused loss) runs as a captured graph: its tensors on a device
-    that captures (CUDA), ``cm_fn`` from ``make_cm_eps_fn``, the guided
-    update a kernel (``guidance_pallas``), the draws pinned (``noise``), no
-    sharding (``parallel.mesh``) and no autograd recording.  Everything
-    else (the CPU, the XLA guidance loop, generator draws, the row-major
-    chain, the fast samplers, the superstep, candidate sharding) keeps the
-    eager loop."""
+    that captures (CUDA), ``cm_fn`` from ``make_cm_eps_fn`` (either eps
+    head), the guided update a kernel (``guidance_pallas``), the draws
+    pinned (``noise``), no sharding (``parallel.mesh``) and no autograd
+    recording.  Everything else (the CPU, the XLA guidance loop, generator
+    draws, the row-major chain, the fast samplers, the superstep,
+    candidate sharding) keeps the eager loop."""
     return (noise is not None and noise.device.type in _CAPTURE
             and hasattr(cm_fn, "on_base") and cfg.guidance_pallas
             and not mesh.sharded() and not torch.is_grad_enabled())
@@ -538,18 +546,21 @@ class _ChainGraph(NamedTuple):
     static: dict        # name -> the buffer a plan's tensor is copied into
     out: tuple          # (controls, all_steps) in the graph's memory
     replay: Callable
-    held: tuple         # (fused, frozen) guidance kernel launches a replay
+    counters: tuple     # (module, name) of each counter a replay adds to
+    held: tuple         # what a replay adds to each of them
     coeffs: Coeffs      # read by the graph: kept alive with it
 
 
 def _chain_inputs(cm_fn: Callable, fused_loss, cfg: Config,
                   noise: Tensor) -> dict:
     """What the chain reads that a plan makes fresh, by name: the draws,
-    the eps MLP's ``base_cm``, the guidance kernel's operands and, where a
+    the eps function's per-plan ``inputs`` (the MLP's ``base_cm``, the
+    U-Net's condition), the guidance kernel's operands and, where a
     guided update or the carried selections freeze on the host's side
     (``freeze_cm``), the fused loss's tensors that it reads."""
     ops = guidance_kernel.kernel_operands(fused_loss, cfg)
-    inputs = {"noise": noise, "base_cm": cm_fn.operands["base_cm"],
+    inputs = {"noise": noise,
+              **{"eps." + k: v for k, v in cm_fn.inputs.items()},
               **{"op." + k: v for k, v in ops._asdict().items()}}
     if cfg.guidance_reuse_selection and (
             cfg.guidance_sel_every > 1
@@ -562,22 +573,29 @@ def _chain_inputs(cm_fn: Callable, fused_loss, cfg: Config,
 def _static_chain(static: dict, cm_fn: Callable, fused_loss, cfg: Config,
                   coeffs: Coeffs, trig: np.ndarray, maximize: bool):
     """The chain's body on the static buffers: ``cm_fn`` on the static
-    ``base_cm``, a copy of the fused loss whose kernel operands (and
+    eps inputs, a copy of the fused loss whose kernel operands (and
     freeze inputs) are the static buffers and whose other tensors are
     meta tensors (their shapes, no data: a read of one raises), and the
-    static draws."""
+    static draws.  Its ``counters`` are the guidance kernel's and those
+    that ``cm_fn`` names (the counters an eps pass advances), which a
+    capture holds."""
     loss = copy.copy(fused_loss)
     for k, v in vars(fused_loss).items():
         if torch.is_tensor(v):
             setattr(loss, k, static.get("loss." + k, v.to("meta")))
     loss._kernel_operands = guidance_kernel.Operands(
         *(static["op." + k] for k in guidance_kernel.Operands._fields))
-    eps = cm_fn.on_base(static["base_cm"])
+    eps = cm_fn.on_base({k[4:]: v for k, v in static.items()
+                         if k.startswith("eps.")})
     noise = static["noise"]
     draw = _drawer(noise, noise.shape[0], noise.shape[1:], None,
                    noise.device)
-    return lambda: _ddpm_chain(eps, _as_ctx(loss), cfg, coeffs, trig,
-                               maximize, draw, True)
+
+    def body():
+        return _ddpm_chain(eps, _as_ctx(loss), cfg, coeffs, trig, maximize,
+                           draw, True)
+    body.counters = _KERNEL_COUNTERS + tuple(getattr(cm_fn, "counters", ()))
+    return body
 
 
 def _chain_graph(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
@@ -605,13 +623,14 @@ def _chain_graph(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
                              maximize)
         first, out, replay, held = _CAPTURE[noise.device.type](
             body, noise.device)
-        graphs[key] = _ChainGraph(static, out, replay, held, coeffs)
+        graphs[key] = _ChainGraph(static, out, replay, body.counters, held,
+                                  coeffs)
         chain_graph_captures += 1
     else:
         g.replay()
         chain_graph_replays += 1
-        guidance_kernel.launches += g.held[0]
-        guidance_kernel.frozen_launches += g.held[1]
+        for (m, k), n in zip(g.counters, g.held):
+            setattr(m, k, getattr(m, k) + n)
         first = g.out
     steps = first[1].clone()
     return steps[-1], steps

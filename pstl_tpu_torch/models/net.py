@@ -11,6 +11,13 @@ rows with their trajopt controls, or from a prior latent ``sample``), the
 BC head and the headless policy, each with the init-hint input under
 ``use_init_hint``.  :func:`init_flax_like` draws fresh parameters as flax's
 ``Dense`` does.
+
+``Net(cfg, eps_net=spec)`` puts Diffusion Policy's ConditionalUnet1D
+(``models/unet1d.py``) in the place of the diffusion head's eps MLP: it
+reads the noisy controls as 2 channels over the nt steps, the timestep
+through its own step encoder and the rest of the MLP's input (scene
+feature, highlevel, stlp) as its global condition, and returns epsilon
+itself (no ``+ noise`` residual).  :func:`init_seeded` draws such a net.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from torch import nn
 
 from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.models import unet1d
 
 Tensor = torch.Tensor
 
@@ -90,14 +98,34 @@ class MLP(nn.Module):
         return x.float()
 
 
+def check_unet_route(cfg: Config) -> None:
+    """Raise for what a ConditionalUnet1D eps head cannot run: the
+    superstep kernel (kernel 5 embeds the eps MLP) and the init-hint input
+    (an input block of the MLP's first layer)."""
+    if cfg.guidance_pallas_superstep:
+        raise NotImplementedError(
+            "guidance_pallas_superstep: the superstep kernel (kernel 5) "
+            "computes the eps MLP inside it; a ConditionalUnet1D eps head "
+            "runs on the candidate-minor chain (guidance_pallas_superstep="
+            "False)")
+    if cfg.use_init_hint:
+        raise NotImplementedError(
+            "use_init_hint: the init hint is an input block of the eps "
+            "MLP's first layer; a ConditionalUnet1D eps head has no such "
+            "input")
+
+
 class Net(nn.Module):
-    """Conditional diffusion policy with the RefineNet rectification head."""
+    """Conditional diffusion policy with the RefineNet rectification head;
+    with ``eps_net`` (a ``unet1d.UnetSpec``) the diffusion head is a
+    ConditionalUnet1D instead of the eps MLP."""
     FEAT_DIM = 32
     STLP_DIM = 6
     TIME_DIM = 32
     LANE_DIM = 3
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config,
+                 eps_net: Optional[unet1d.UnetSpec] = None):
         super().__init__()
         self.cfg = cfg
         h = tuple(cfg.hiddens)
@@ -107,7 +135,18 @@ class Net(nn.Module):
         self.neighbor_encoder = MLP(7, h + (F,), dt)
         self.lane_encoder = MLP(cfg.n_segs * self.LANE_DIM, h + (F,), dt)
         feat = 7 * F
-        self.policy_net = MLP(feat + cfg.latent_dim, h + (cfg.nt * 2,), dt)
+        if eps_net is None:
+            self.policy_net = MLP(feat + cfg.latent_dim,
+                                  h + (cfg.nt * 2,), dt)
+            self.eps_net = None
+        else:
+            if not cfg.diffusion:
+                raise ValueError("eps_net is a diffusion head: it needs "
+                                 "cfg.diffusion")
+            check_unet_route(cfg)
+            unet1d.check_horizon(eps_net, cfg.nt)
+            self.eps_net = unet1d.ConditionalUnet1D(
+                2, feat + 1 + self.STLP_DIM, eps_net)
         if cfg.vae:
             self.traj_encoder = MLP(cfg.nt * 2, h + (cfg.vae_dim * 2,), dt)
         if cfg.rect_head:
@@ -184,6 +223,19 @@ class Net(nn.Module):
         stlp_feat = batch["stlp_dense"][:, 0] if multi else ext["gt_stlp"]
         tile = lambda v: torch.repeat_interleave(v, n_randoms, 0)
         latent_stats = (None, None, None)
+        if self.eps_net is not None:
+            # ConditionalUnet1D: x as 2 channels over nt, its own step
+            # encoder, the rest of the MLP's input as global condition
+            cond = [feature, ext["highlevel"], stlp_feat]
+            if not multi:
+                cond = [tile(v) for v in cond]
+            w = unet1d.unet_weights(self.eps_net, compute_dtype(cfg))
+            eps = unet1d.forward(
+                self.eps_net, w,
+                ext["noise"].reshape(-1, cfg.nt, 2).transpose(1, 2),
+                ext["timestep"].reshape(-1),
+                torch.cat(cond, -1)).transpose(1, 2)
+            return (eps, feature) if get_feature else eps
         if cfg.diffusion:
             time_feat = pos_encoding(ext["timestep"], self.TIME_DIM)
             if multi:
@@ -313,6 +365,19 @@ def init_flax_like(net: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+@torch.no_grad()
+def init_seeded(net: Net, generator: torch.Generator) -> None:
+    """Fresh parameters for ``net`` from ``generator``: its MLPs as flax's
+    ``Dense`` (:func:`init_flax_like`), in module order, then a
+    ConditionalUnet1D head with PyTorch's default initialization, as the
+    published code keeps it (``unet1d.init_torch_default``)."""
+    for name, child in net.named_children():
+        if name != "eps_net":
+            init_flax_like(child, generator)
+    if net.eps_net is not None:
+        unet1d.init_torch_default(net.eps_net, generator)
+
+
 class EpsWeights:
     """The weight-only pieces of the candidate-minor eps MLP
     (:func:`make_cm_eps_fn`), in the compute dtype: layer 1 split by input
@@ -363,12 +428,15 @@ class EpsWeights:
 _EPS_WEIGHTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def eps_weights(net: Net, cfg: Config) -> EpsWeights:
-    """The net's :class:`EpsWeights`, kept while its policy MLP's
+def eps_weights(net: Net, cfg: Config):
+    """The net's :class:`EpsWeights` (a ConditionalUnet1D head's
+    ``unet1d.UnetWeights``), kept while its policy MLP's
     parameters stay the same tensors at the same versions (an optimizer
     step or a ``load_state_dict`` writes them in place and bumps the
     version).  With autograd recording they are made afresh, so that each
     call's graph reaches the parameters."""
+    if net.eps_net is not None:
+        return unet1d.unet_weights(net.eps_net, compute_dtype(cfg))
     params = list(net.policy_net.parameters())
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return EpsWeights(net, cfg)
@@ -385,8 +453,9 @@ def cm_eps(base_cm: Tensor, w: EpsWeights, cfg: Config):
     """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` on the per-plan layer-1
     contribution ``base_cm`` (bs, h1, R) and the weight pieces ``w``.
     Its ``weights`` are ``w``, ``operands`` the superstep kernel's pieces,
-    and ``on_base(b)`` the same predictor on another ``base_cm`` of that
-    shape (what a captured chain reads)."""
+    ``inputs`` what it reads that a plan makes ({"base_cm": base_cm}) and
+    ``on_base(inputs)`` the same predictor on other such inputs of those
+    shapes (what a captured chain reads)."""
     bs, _, R = base_cm.shape
     D = cfg.nt * 2
     dt = w.dt
@@ -403,7 +472,8 @@ def cm_eps(base_cm: Tensor, w: EpsWeights, cfg: Config):
         return raw.float().reshape(bs, cfg.nt, 2, R) + x_cm
 
     eps_cm.weights = w
-    eps_cm.on_base = lambda b: cm_eps(b, w, cfg)
+    eps_cm.inputs = {"base_cm": base_cm}
+    eps_cm.on_base = lambda d: cm_eps(d["base_cm"], w, cfg)
     eps_cm.operands = dict(base_cm=base_cm,               # (bs, h1, R)
                            **w.superstep, dt=dt, bs=bs, R=R, nt=cfg.nt)
     return eps_cm
@@ -422,14 +492,20 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
     (:func:`eps_weights`), made once.  Returns ``eps_cm(x_cm (bs, nt, 2,
     R), t) -> eps`` with r = j*M + m (``specs.CandMinorGuidanceLoss``'s
     layout; :func:`cm_eps`); its ``operands`` dict holds the pieces for the
-    superstep kernel.
+    superstep kernel.  A ConditionalUnet1D head gives :func:`cm_unet_eps`
+    on the rows' condition instead.
     """
-    w = eps_weights(net, cfg)
-    dt = w.dt
     M = n_randoms if n_randoms is not None else cfg.n_randoms
     bs = feature.shape[0] // (M * 3)
     R = M * 3
     stlp_feat = batch["stlp_dense"][:, 0]
+    if net.eps_net is not None:
+        check_unet_route(cfg)
+        g = torch.cat([feature, highlevel, stlp_feat], -1)
+        g_cm = g.reshape(bs, M, 3, -1).transpose(1, 2).reshape(bs * R, -1)
+        return cm_unet_eps(g_cm, net, eps_weights(net, cfg), R)
+    w = eps_weights(net, cfg)
+    dt = w.dt
     base = (feature.to(dt) @ w.Wf + highlevel.to(dt) @ w.Wh
             + stlp_feat.to(dt) @ w.Ws + w.b1)
     if cfg.use_init_hint:
@@ -439,3 +515,25 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
     base_cm = base.reshape(bs, M, 3, h1).permute(0, 3, 2, 1).reshape(
         bs, h1, R)
     return cm_eps(base_cm, w, cfg)
+
+
+def cm_unet_eps(g_cm: Tensor, net: Net, w: unet1d.UnetWeights, R: int):
+    """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` of a ConditionalUnet1D
+    head: the candidates turned to rows (b * R + r, 2, nt), the U-Net on
+    them with the condition ``g_cm`` (bs * R, G) laid out alike and the
+    step's timestep, turned back.  Its ``weights`` are ``w``, ``inputs``
+    {"g": g_cm}, ``on_base(inputs)`` the same predictor on another
+    condition of that shape and ``counters`` the U-Net's pass and row
+    counters, (module, name), which a captured chain holds."""
+    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
+        bs, nt = x_cm.shape[:2]
+        x = x_cm.permute(0, 3, 2, 1).reshape(bs * R, 2, nt)
+        te = torch.full((1,), float(t), device=x_cm.device)
+        e = unet1d.forward(net.eps_net, w, x, te, g_cm)
+        return e.reshape(bs, R, 2, nt).permute(0, 3, 2, 1).contiguous()
+
+    eps_cm.weights = w
+    eps_cm.inputs = {"g": g_cm}
+    eps_cm.on_base = lambda d: cm_unet_eps(d["g"], net, w, R)
+    eps_cm.counters = ((unet1d, "calls"), (unet1d, "rows"))
+    return eps_cm

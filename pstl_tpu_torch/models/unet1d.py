@@ -1,0 +1,291 @@
+"""ConditionalUnet1D, Diffusion Policy's epsilon network (Chi et al., RSS
+2023; ``diffusion_policy/model/diffusion/conditional_unet1d.py``), as an
+eps head of :class:`pstl_tpu_torch.models.net.Net`.
+
+The modules and their parameter names are the published ones, so a
+published state dict loads.  The forward (:func:`forward`) walks them
+functionally on a :class:`UnetWeights`, which holds every convolution and
+linear weight and bias in the compute dtype, cast once a net, and the
+GroupNorm affine parameters in fp32.  The port's precision rule:
+convolution and linear operands in the compute dtype with fp32
+accumulation, their outputs taken to fp32; GroupNorm (its statistics),
+Mish, FiLM and the residual sums in fp32.
+
+Layers, with cond ``c`` (n, cond_dim):
+
+- ``Conv1dBlock(ci, co, k)``: Conv1d(ci, co, k, padding k//2), GroupNorm
+  (n_groups, co), Mish.
+- ``ConditionalResidualBlock1D(ci, co)``: h = Conv1dBlock(ci, co)(x);
+  [s; b] = Linear(cond_dim, 2 co)(Mish(c)); h = s * h + b (FiLM, under
+  ``cond_predict_scale``; else h + Linear(cond_dim, co)(Mish(c)));
+  h = Conv1dBlock(co, co)(h); out = h + (Conv1d(ci, co, 1)(x) if ci != co
+  else x).
+- step encoder: sinusoidal(E) (half E/2, frequencies exp(-i ln 10000 /
+  (E/2 - 1)), sin then cos), Linear(E, 4E), Mish, Linear(4E, E); c is the
+  step embedding followed by the global condition.
+- down path: per level two residual blocks (the first widens), its output
+  kept as a skip, then Conv1d(d, d, 3, stride 2, pad 1) on every level
+  but the last; two residual blocks at the widest; the up path reads the
+  skips back from the deepest (the shallowest is never read, as
+  published), each level two residual blocks on [x; skip] and a
+  ConvTranspose1d(d, d, 4, 2, 1); Conv1dBlock and a 1x1 Conv1d to the
+  input channels.  The output is epsilon itself.
+
+``calls`` and ``rows`` count forward passes and the rows they ran (a
+captured chain's replay adds the count its capture held).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import weakref
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+#: forward passes, and the rows they ran, since the last reset
+calls = 0
+rows = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class UnetSpec:
+    """The widths of a ConditionalUnet1D (the published constructor's
+    arguments; the defaults are the low-dim U-Net workspace configs')."""
+    down_dims: Tuple[int, ...] = (256, 512, 1024)
+    kernel_size: int = 5
+    n_groups: int = 8
+    step_embed_dim: int = 256
+    cond_predict_scale: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "down_dims", tuple(self.down_dims))
+
+    @property
+    def stride(self) -> int:
+        """What the horizon must be divisible by: one halving a level but
+        the last."""
+        return 2 ** (len(self.down_dims) - 1)
+
+
+def check_horizon(spec: UnetSpec, nt: int) -> None:
+    if nt % spec.stride:
+        raise ValueError(f"ConditionalUnet1D with down_dims {spec.down_dims} "
+                         f"halves the horizon {len(spec.down_dims) - 1} "
+                         f"times: nt ({nt}) must be divisible by "
+                         f"{spec.stride}")
+
+
+class SinusoidalPosEmb(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t: Tensor) -> Tensor:
+        half = self.dim // 2
+        f = torch.exp(torch.arange(half, device=t.device, dtype=torch.float32)
+                      * -(math.log(10000) / (half - 1)))
+        ang = t.float()[:, None] * f[None, :]
+        return torch.cat([ang.sin(), ang.cos()], dim=-1)
+
+
+class Conv1dBlock(nn.Module):
+    def __init__(self, ci: int, co: int, k: int, n_groups: int):
+        super().__init__()
+        self.block = nn.Sequential(nn.Conv1d(ci, co, k, padding=k // 2),
+                                   nn.GroupNorm(n_groups, co), nn.Mish())
+
+
+class ConditionalResidualBlock1D(nn.Module):
+    def __init__(self, ci: int, co: int, cond_dim: int, spec: UnetSpec):
+        super().__init__()
+        k, g = spec.kernel_size, spec.n_groups
+        self.blocks = nn.ModuleList([Conv1dBlock(ci, co, k, g),
+                                     Conv1dBlock(co, co, k, g)])
+        self.co = co
+        self.scale = spec.cond_predict_scale
+        self.cond_encoder = nn.Sequential(
+            nn.Mish(), nn.Linear(cond_dim, 2 * co if self.scale else co))
+        self.residual_conv = nn.Conv1d(ci, co, 1) if ci != co \
+            else nn.Identity()
+
+
+class Downsample1d(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = nn.Conv1d(dim, dim, 3, 2, 1)
+
+
+class Upsample1d(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose1d(dim, dim, 4, 2, 1)
+
+
+class ConditionalUnet1D(nn.Module):
+    """The published module tree (``input_dim`` channels in and out, a
+    global condition of ``global_cond_dim``); :func:`forward` runs it."""
+
+    def __init__(self, input_dim: int, global_cond_dim: int,
+                 spec: UnetSpec):
+        super().__init__()
+        self.spec = spec
+        E = spec.step_embed_dim
+        cond_dim = E + global_cond_dim
+        self.diffusion_step_encoder = nn.Sequential(
+            SinusoidalPosEmb(E), nn.Linear(E, 4 * E), nn.Mish(),
+            nn.Linear(4 * E, E))
+        dims = [input_dim] + list(spec.down_dims)
+        in_out = list(zip(dims[:-1], dims[1:]))
+        self.down_modules = nn.ModuleList(
+            nn.ModuleList([
+                ConditionalResidualBlock1D(a, b, cond_dim, spec),
+                ConditionalResidualBlock1D(b, b, cond_dim, spec),
+                Downsample1d(b) if i < len(in_out) - 1 else nn.Identity()])
+            for i, (a, b) in enumerate(in_out))
+        mid = dims[-1]
+        self.mid_modules = nn.ModuleList(
+            ConditionalResidualBlock1D(mid, mid, cond_dim, spec)
+            for _ in range(2))
+        self.up_modules = nn.ModuleList(
+            nn.ModuleList([
+                ConditionalResidualBlock1D(2 * b, a, cond_dim, spec),
+                ConditionalResidualBlock1D(a, a, cond_dim, spec),
+                Upsample1d(a)])
+            for a, b in reversed(in_out[1:]))
+        start = spec.down_dims[0]
+        self.final_conv = nn.Sequential(
+            Conv1dBlock(start, start, spec.kernel_size, spec.n_groups),
+            nn.Conv1d(start, input_dim, 1))
+
+
+_AFFINE = (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)
+
+
+@torch.no_grad()
+def init_torch_default(net: nn.Module, generator: torch.Generator) -> None:
+    """PyTorch's default initialization, which the published code keeps,
+    drawn from ``generator`` in module order: every Conv1d,
+    ConvTranspose1d and Linear weight uniform in +-1/sqrt(fan_in)
+    (kaiming-uniform with a = sqrt(5)), then its bias in the same bound;
+    GroupNorm's scale 1 and shift 0."""
+    for m in net.modules():
+        if isinstance(m, _AFFINE):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                     generator=generator)
+            fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
+            bound = 1.0 / math.sqrt(fan_in)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+        elif isinstance(m, nn.GroupNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+class UnetWeights:
+    """What :func:`forward` reads of a :class:`ConditionalUnet1D`: by
+    module, (weight, bias) of every convolution and linear layer in
+    ``dt`` and of every GroupNorm in fp32."""
+
+    def __init__(self, net: ConditionalUnet1D, dt: torch.dtype):
+        self.dt = dt
+        self.of: Dict[nn.Module, Tuple[Tensor, Tensor]] = {}
+        for m in net.modules():
+            if isinstance(m, _AFFINE):
+                self.of[m] = (m.weight.to(dt), m.bias.to(dt))
+            elif isinstance(m, nn.GroupNorm):
+                self.of[m] = (m.weight, m.bias)
+
+
+#: net -> (its parameter versions, UnetWeights)
+_WEIGHTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def unet_weights(net: ConditionalUnet1D, dt: torch.dtype) -> UnetWeights:
+    """The net's :class:`UnetWeights`, kept while its parameters stay the
+    same tensors at the same versions (as ``models.net.eps_weights``
+    keeps the MLP's); made afresh while autograd records, so that each
+    call's graph reaches the parameters."""
+    params = list(net.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return UnetWeights(net, dt)
+    key = (dt, tuple((p.data_ptr(), p._version) for p in params))
+    hit = _WEIGHTS.get(net)
+    if hit is None or hit[0] != key:
+        hit = (key, UnetWeights(net, dt))
+        _WEIGHTS[net] = hit
+    return hit[1]
+
+
+def _conv(x: Tensor, m: nn.Module, w: UnetWeights) -> Tensor:
+    W, b = w.of[m]
+    op = F.conv_transpose1d if isinstance(m, nn.ConvTranspose1d) \
+        else F.conv1d
+    return op(x.to(w.dt), W, b, stride=m.stride, padding=m.padding).float()
+
+
+def _block(x: Tensor, blk: Conv1dBlock, w: UnetWeights) -> Tensor:
+    conv, gn = blk.block[0], blk.block[1]
+    g, b = w.of[gn]
+    return F.mish(F.group_norm(_conv(x, conv, w), gn.num_groups, g, b,
+                               gn.eps))
+
+
+def _res(x: Tensor, rb: ConditionalResidualBlock1D, mc: Tensor,
+         w: UnetWeights) -> Tensor:
+    """A residual block on ``mc`` = Mish(cond) in the compute dtype."""
+    h = _block(x, rb.blocks[0], w)
+    W, b = w.of[rb.cond_encoder[1]]
+    emb = (mc @ W.t() + b).float()[..., None]
+    if rb.scale:
+        h = emb[:, :rb.co] * h + emb[:, rb.co:]
+    else:
+        h = h + emb
+    h = _block(h, rb.blocks[1], w)
+    res = x if isinstance(rb.residual_conv, nn.Identity) \
+        else _conv(x, rb.residual_conv, w)
+    return h + res
+
+
+def _linear(x: Tensor, m: nn.Linear, w: UnetWeights) -> Tensor:
+    W, b = w.of[m]
+    return (x.to(w.dt) @ W.t() + b).float()
+
+
+def step_embedding(net: ConditionalUnet1D, t: Tensor,
+                   w: UnetWeights) -> Tensor:
+    """The step encoder on timesteps ``t`` (k,): (k, step_embed_dim)."""
+    enc = net.diffusion_step_encoder
+    h = F.mish(_linear(enc[0](t), enc[1], w))
+    return _linear(h, enc[3], w)
+
+
+def forward(net: ConditionalUnet1D, w: UnetWeights, x: Tensor, t: Tensor,
+            g: Tensor) -> Tensor:
+    """Epsilon (n, C, L) of ``x`` (n, C, L) at timesteps ``t`` ((n,), or
+    (1,) for all rows) under the global condition ``g`` (n, G)."""
+    global calls, rows
+    check_horizon(net.spec, x.shape[-1])
+    calls += 1
+    rows += x.shape[0]
+    n = x.shape[0]
+    ct = step_embedding(net, t, w).expand(n, -1)
+    mc = F.mish(torch.cat([ct, g.float()], dim=-1)).to(w.dt)
+    h = x.float()
+    skips = []
+    for res1, res2, down in net.down_modules:
+        h = _res(_res(h, res1, mc, w), res2, mc, w)
+        skips.append(h)
+        if not isinstance(down, nn.Identity):
+            h = _conv(h, down.conv, w)
+    for res in net.mid_modules:
+        h = _res(h, res, mc, w)
+    for res1, res2, up in net.up_modules:
+        h = torch.cat([h, skips.pop()], dim=1)
+        h = _res(_res(h, res1, mc, w), res2, mc, w)
+        h = _conv(h, up.conv, w)
+    return _conv(_block(h, net.final_conv[0], w), net.final_conv[1], w)

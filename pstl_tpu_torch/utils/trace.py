@@ -27,7 +27,7 @@ SPANS = (
     "sim.observe",    # the observation around the simulated poses
     "sim.plan",       # the planner; self: stlp override, states, keep mask
     "plan.prep",      # densify, scorer, encoder and tiling, guidance loss
-    "plan.sample",    # the sampler's chain: eps MLP, posterior, decodings
+    "plan.sample",    # the sampler's chain: eps network, posterior, decodings
     "plan.guidance",  # one guided update: operands and kernel (or loop)
     "plan.score",     # one STL scorer call, wherever called
     "plan.select",    # multi-cands, RefineNet + rolls, refinement, argmax

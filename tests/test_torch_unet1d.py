@@ -1,0 +1,352 @@
+"""ConditionalUnet1D as the eps network of the port's planner
+(``models/unet1d.py``, ``Net(cfg, eps_net=spec)``) against the plain
+reference of the benchmark (``perfbench/reference/unet1d.py``), on seeded
+weights that each side draws by its own code.
+
+Tolerances, with their reasons:
+
+- float32 against float32: 1e-5 of the output's norm.  The two compute
+  Mish, GroupNorm and the step embedding by different formulas (a few
+  ulps each) and sum convolutions in other orders, through about 40
+  layers: about 1e-6 is what that leaves (7e-7 measured).
+- the stated precision (bfloat16 operands, float32 accumulation) against
+  the float32 reference: 3e-2 of the norm.  bfloat16 rounds to 8 bits (a
+  relative 2e-3 to 4e-3 an operand) at every one of the ~45 convolution
+  and linear layers (0.6-1.3 % measured); the control, float8 e4m3
+  operands, is held to lie beyond it.
+- the candidate-minor layout against the row-major forward, and the
+  captured chain against the eager one: to the bit where the same
+  kernels see the same rows (the chain), else within bfloat16's rounding
+  of one operand (the step encoder runs on one row in the chain and on
+  every row in the forward, so its matmul may sum in another order).
+
+Tests marked ``cuda`` repeat the comparisons at the published widths on
+the card, with the real CUDA graph.  This file imports no jax.
+"""
+
+import dataclasses
+import json
+import os
+
+import pytest
+import torch
+
+from perfbench.reference import unet1d as ref
+from perfbench.reference.port.config import Config as RConfig
+from perfbench.reference.port.models import net as rnet
+from perfbench.tests.sizes import TINY
+from pstl_tpu_torch import diffusion, sim
+from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.data import synthetic
+from pstl_tpu_torch.models import net as N
+from pstl_tpu_torch.models import unet1d
+from test_torch_chain_graph import _assert_equal_runs, _record_chain, \
+    _standin, _steps
+
+import torch_parity  # noqa: F401  (torch thread count)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_DIMS = (16, 32, 64)
+FULL_DIMS = (256, 512, 1024)
+F32_TOL, BF16_TOL = 1e-5, 3e-2
+
+
+def _conf():
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           "ctg_unet1d.json")) as f:
+        return json.load(f)
+
+
+def _fields(**kw):
+    fields = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in _conf()["fields"].items()}
+    fields.update(kw)
+    return fields
+
+
+def _spec(dims):
+    eps = _conf()["eps_net"]
+    return unet1d.UnetSpec(**{k: eps[k] for k in (
+        "kernel_size", "n_groups", "step_embed_dim", "cond_predict_scale")},
+        down_dims=dims)
+
+
+def _pair(dims, seed=5, **kw):
+    """The program's net and the reference's frozen net with its U-Net,
+    both drawn from ``seed``: (cfg, net, reference net)."""
+    fields = _fields(**kw)
+    cfg = Config(**fields)
+    spec = _spec(dims)
+    net = N.Net(cfg, eps_net=spec)
+    N.init_seeded(net, torch.Generator().manual_seed(seed))
+    r = ref.attach(rnet.Net(RConfig(**fields)), dataclasses.asdict(spec),
+                   seed)
+    return cfg, net, r
+
+
+def _rel(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+def _inputs(n, nt, seed=0, dev="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, 2, nt, generator=g)
+    t = torch.randint(1, 100, (n,), generator=g).float()
+    c = torch.randn(n, 231, generator=g)
+    return x.to(dev), t.to(dev), c.to(dev)
+
+
+# --------------------------------------------------------------------------
+# the network
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims", [TINY_DIMS, FULL_DIMS],
+                         ids=["tiny", "full"])
+def test_seeded_weights_equal_the_references(dims):
+    _, net, r = _pair(dims)
+    sd = net.eps_net.state_dict()
+    assert set(sd) == set(r.unet.params)
+    for k, v in sd.items():
+        assert torch.equal(v, r.unet.params[k]), k
+    for enc in ref.ENCODERS:
+        for a, b in zip(getattr(net, enc).parameters(),
+                        getattr(r, enc).parameters()):
+            assert torch.equal(a, b), enc
+    if dims == FULL_DIMS:
+        assert sum(p.numel() for p in net.eps_net.parameters()) \
+            == _conf()["eps_net"]["parameters"]
+
+
+@pytest.mark.parametrize("dims,nt", [(TINY_DIMS, 20), (TINY_DIMS, 8),
+                                     (FULL_DIMS, 20), (FULL_DIMS, 8)],
+                         ids=["tiny-nt20", "tiny-nt8", "full-nt20",
+                              "full-nt8"])
+def test_forward_matches_reference(dims, nt):
+    _, net, r = _pair(dims)
+    spec = r.unet.spec
+    x, t, c = _inputs(8, nt)
+    with torch.no_grad():
+        want = ref.forward(r.unet.params, spec, x, t, c)
+        f32 = unet1d.forward(net.eps_net, unet1d.unet_weights(
+            net.eps_net, torch.float32), x, t, c)
+        bf16 = unet1d.forward(net.eps_net, unet1d.unet_weights(
+            net.eps_net, torch.bfloat16), x, t, c)
+        fp8 = ref.forward(r.unet.params, spec, x, t, c, rnet.FP8)
+    assert f32.shape == (8, 2, nt)
+    assert _rel(f32, want) < F32_TOL
+    assert _rel(bf16, want) < BF16_TOL
+    # the tolerance is tight enough to fail the next precision down
+    assert _rel(fp8, want) > BF16_TOL
+
+
+def test_gradients_through_net_forward_match_reference():
+    """The training path: ``Net.forward``'s diffusion head (row-major, the
+    multi-candidate rows) in float32, its gradients to every U-Net
+    parameter and to the scene feature against autograd through the
+    reference."""
+    cfg, net, r = _pair(TINY_DIMS, compute_dtype="float32")
+    n, nt = 12, cfg.nt
+    x, t, _ = _inputs(n, nt, seed=1)
+    g = torch.Generator().manual_seed(2)
+    feature = torch.randn(n, 224, generator=g, requires_grad=True)
+    hl = torch.randn(n, 1, generator=g)
+    stlp = torch.randn(n, 1, 6, generator=g)
+    w_out = torch.randn(n, nt, 2, generator=g)
+    ext = {"timestep": t[:, None], "highlevel": hl,
+           "noise": x.transpose(1, 2).reshape(n, nt * 2)}
+    eps = net({"stlp_dense": stlp}, ext, prev_feature=feature)
+    (eps * w_out).sum().backward()
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in r.unet.params.items()}
+    f2 = feature.detach().clone().requires_grad_(True)
+    e_ref = ref.forward(params, r.unet.spec, x, t,
+                        ref.condition(f2, hl, stlp[:, 0]))
+    (e_ref.transpose(1, 2) * w_out).sum().backward()
+    assert _rel(eps, e_ref.transpose(1, 2)) < F32_TOL
+    assert _rel(feature.grad, f2.grad) < F32_TOL
+    for k, p in net.eps_net.named_parameters():
+        assert _rel(p.grad, params[k].grad) < 1e-4, k
+
+
+def test_cm_layout_equals_rowmajor_forward():
+    cfg, net, _ = _pair(TINY_DIMS, n_randoms=4)
+    bs, M, nt = 2, cfg.n_randoms, cfg.nt
+    n = bs * M * 3
+    g = torch.Generator().manual_seed(3)
+    feature = torch.randn(n, 224, generator=g)
+    hl = torch.randn(n, 1, generator=g)
+    stlp = torch.randn(n, 1, 6, generator=g)
+    x_cm = torch.randn(bs, nt, 2, 3 * M, generator=g)
+    # candidate r = j*M + m of scene b is row b*3M + m*3 + j
+    x_rows = x_cm.reshape(bs, nt, 2, 3, M).permute(0, 4, 3, 1, 2).reshape(
+        n, nt * 2)
+    with torch.no_grad():
+        eps_cm = N.make_cm_eps_fn(net, {"stlp_dense": stlp}, hl, feature,
+                                  cfg)
+        got = eps_cm(x_cm, 37)
+        rows = net({"stlp_dense": stlp},
+                   {"timestep": torch.full((n, 1), 37.0), "highlevel": hl,
+                    "noise": x_rows}, prev_feature=feature)
+    want = rows.reshape(bs, M, 3, nt, 2).permute(0, 3, 4, 2, 1).reshape(
+        bs, nt, 2, 3 * M)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert _rel(got, want) < 4e-3
+    assert eps_cm.inputs["g"].shape == (n, 231)
+
+
+def test_unet_routes_raise():
+    cfg = Config(**_fields())
+    spec = _spec(TINY_DIMS)
+    with pytest.raises(NotImplementedError, match="superstep"):
+        N.Net(cfg.with_(guidance_pallas_superstep=True), eps_net=spec)
+    with pytest.raises(NotImplementedError, match="use_init_hint"):
+        N.Net(cfg.with_(use_init_hint=True), eps_net=spec)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        N.Net(cfg.with_(nt=10), eps_net=spec)
+    net = N.Net(cfg, eps_net=spec)
+    n = 3 * cfg.n_randoms
+    with pytest.raises(NotImplementedError, match="superstep"):
+        N.make_cm_eps_fn(net, {"stlp_dense": torch.zeros(n, 1, 6)},
+                         torch.zeros(n, 1), torch.zeros(n, 224),
+                         cfg.with_(guidance_pallas_superstep=True))
+
+
+# --------------------------------------------------------------------------
+# the closed loop and the chain's graph
+# --------------------------------------------------------------------------
+
+def _case(dev, bs, dims, seed=0, **kw):
+    """A closed-loop step of ``ctg_unet1d`` (fields ``kw`` set) with a
+    U-Net of ``dims`` on ``bs`` synthetic scenes: (cfg, init, step,
+    noise(k))."""
+    cfg = Config(**_fields(**kw))
+    data = synthetic.generate_dataset(seed, bs, cfg, scene_len=14)
+    scenes = sim.scenes_from_dataset(data, device=dev)
+    net = N.Net(cfg, eps_net=_spec(dims))
+    N.init_seeded(net, torch.Generator().manual_seed(7))
+    net = net.to(dev).eval()
+    coeffs = diffusion.get_coeffs(cfg, dev)
+    init, step = sim.make_closed_loop_step(scenes, cfg, net, coeffs,
+                                           with_info=True)
+    shape = ((diffusion.n_draws(cfg),)
+             + tuple(diffusion.draw_layout(cfg, bs, 3 * cfg.n_randoms)))
+
+    def noise(k):
+        g = torch.Generator(device=dev).manual_seed(100 + k)
+        return torch.randn(shape, generator=g, device=dev)
+    return cfg, init, step, noise
+
+
+def _graph_then_eager(monkeypatch, dev, bs, dims, **kw):
+    """Three closed-loop steps with the chain's graph, then the same three
+    eagerly: both runs, their chains, and the U-Net passes and rows each
+    counted."""
+    chains = _record_chain(monkeypatch)
+    cfg, init, step, noise = _case(dev, bs, dims, **kw)
+    c0, r0 = unet1d.calls, unet1d.rows
+    graph = _steps(init, step, noise)
+    counted = [(unet1d.calls - c0, unet1d.rows - r0)]
+    with_graph = list(chains)
+    chains.clear()
+    monkeypatch.setattr(diffusion, "_CAPTURE", {})
+    c0, r0 = unet1d.calls, unet1d.rows
+    eager = _steps(init, step, noise)
+    counted.append((unet1d.calls - c0, unet1d.rows - r0))
+    return cfg, (graph, with_graph), (eager, list(chains)), counted
+
+
+def test_standin_graph_equals_eager(monkeypatch):
+    monkeypatch.setitem(diffusion._CAPTURE, "cpu", _standin)
+    monkeypatch.setattr(diffusion, "chain_graph_captures", 0)
+    monkeypatch.setattr(diffusion, "chain_graph_replays", 0)
+    cfg, (graph, gch), (eager, ech), counted = _graph_then_eager(
+        monkeypatch, "cpu", 2, TINY_DIMS, **TINY["closed_loop"]["set"])
+    assert (diffusion.chain_graph_captures,
+            diffusion.chain_graph_replays) == (1, 2)
+    calls = 3 * (cfg.diffusion_steps - 1)
+    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms)] * 2
+    assert not torch.equal(eager[1][1]["controls"], eager[2][1]["controls"])
+    _assert_equal_runs(graph, eager, gch, ech)
+
+
+def _holding_standin(body, dev):
+    """A capture that, as a CUDA graph's does, counts nothing while it
+    records: the counters ``body`` names are set back after the recorded
+    run and after each replay, and returned as what a replay holds."""
+    def counted():
+        return [getattr(m, k) for m, k in body.counters]
+
+    def set_back(values):
+        for (m, k), v in zip(body.counters, values):
+            setattr(m, k, v)
+
+    first = body()
+    before = counted()
+    out = tuple(t.clone() for t in body())
+    held = tuple(a - b for a, b in zip(counted(), before))
+    set_back(before)
+
+    def replay():
+        saved = counted()
+        for o, n in zip(out, body()):
+            o.copy_(n)
+        set_back(saved)
+    return first, out, replay, held
+
+
+def test_capture_holds_the_counters_the_eps_function_names(monkeypatch):
+    """The chain's graph holds the U-Net's counters because its eps
+    function names them (``counters``), not because the sampler knows the
+    U-Net: a replay adds what the capture held."""
+    assert not hasattr(diffusion, "unet1d")
+    monkeypatch.setitem(diffusion._CAPTURE, "cpu", _holding_standin)
+    cfg, (graph, gch), (eager, ech), counted = _graph_then_eager(
+        monkeypatch, "cpu", 2, TINY_DIMS, **TINY["closed_loop"]["set"])
+    calls = 3 * (cfg.diffusion_steps - 1)
+    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms)] * 2
+    _assert_equal_runs(graph, eager, gch, ech)
+
+
+# --------------------------------------------------------------------------
+# the card: published widths, the real graph
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the published widths and the "
+                    "CUDA graph run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_full_width_forward_on_the_card(dev):
+    """The cell's 3,072 rows: the stated precision within its tolerance of
+    the float32 reference, the control beyond it."""
+    _, net, r = _pair(FULL_DIMS)
+    net = net.to(dev)
+    x, t, c = _inputs(3072, 20, dev=dev)
+    p = r.unet.on(dev)
+    with torch.no_grad():
+        want = ref.forward(p, r.unet.spec, x, t, c)
+        got = unet1d.forward(net.eps_net, unet1d.unet_weights(
+            net.eps_net, torch.bfloat16), x, t, c)
+        fp8 = ref.forward(p, r.unet.spec, x, t, c, rnet.FP8)
+    print("bf16", _rel(got, want), "fp8", _rel(fp8, want))
+    assert _rel(got, want) < BF16_TOL < _rel(fp8, want)
+
+
+@pytest.mark.cuda
+def test_graph_equals_eager_on_the_card(dev, monkeypatch):
+    cfg, (graph, gch), (eager, ech), counted = _graph_then_eager(
+        monkeypatch, dev, 2, FULL_DIMS)
+    torch.cuda.synchronize(dev)
+    # the first plan's eager run before the capture, then one replay a
+    # plan: as many passes as the eager loop's
+    calls = 3 * (cfg.diffusion_steps - 1)
+    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms)] * 2
+    assert not torch.equal(eager[1][1]["controls"], eager[2][1]["controls"])
+    _assert_equal_runs(graph, eager, gch, ech)
