@@ -8,7 +8,7 @@ and no result line is printed:
 
 1. device: needs CUDA (there is no CPU path); TF32 off; the card's name and
    power limit from nvidia-smi.
-2. build: compiles the four kernel libraries from ``pstl_tpu_torch/csrc``
+2. build: compiles the five kernel libraries from ``pstl_tpu_torch/csrc``
    (one nvcc per source, all at once) and prints, per kernel, ptxas's
    registers, spills and stack frame, and each library's launch geometry
    (the macros of its source).
@@ -199,6 +199,14 @@ and no result line is printed:
    stl_weight 1, then ``cli train --preset e5_ddpm --set grad_rollout=true
    stl_weight=1.0`` for 4 steps of 24,576 rows (median step, device
    launches, peak memory).
+37. ConditionalUnet1D's activation pass (``ops/unet1d_norm``, the fifth
+   library): the 25 calls of one full-width forward at the planner's 3,072
+   rows (seeded weights, bf16), recorded as the forward makes them, each
+   held against its plain version and timed beside it and beside
+   PyTorch's ``F.group_norm`` + ``F.mish`` on the same values (timed only),
+   summed over the pass; then a profiled forward, which must show no cuDNN
+   layout transpose and no PyTorch GroupNorm kernel.  ``python3
+   chip_smoke.py --phase 37`` runs the build and this phase alone.
 
 The line before the last is the card's ``name, power.limit``; before it a
 JSON line with each kernel's (kernel 1 on the closed loop's path, the
@@ -206,7 +214,10 @@ ninth entry on the evaluation's, the tenth on the ref_parity Table-II
 row's, the eleventh on the ctg Table-I row's, the twelfth on the DDIM
 closed loop's, the thirteenth on the candidate-sharded plan's, per
 rank, and the fourteenth and fifteenth kernels 6 / 7 on the
-constant-velocity neighbors of phase 36) launches, error, times
+constant-velocity neighbors of phase 36, and the sixteenth the U-Net's
+activation pass of phase 37, summed over a forward's 25 launches, with
+``library_ms`` PyTorch's GroupNorm + Mish on the same values) launches,
+error, times
 (``ms`` one eager call of its wrapper, ``graph_ms`` the kernel alone in a
 graph replay, see ``kernel_ms``; ``plain_ms`` the plain version) and its
 bound: the larger of its bytes (each input read once, each output written
@@ -229,7 +240,8 @@ FOLD2_STEPS = 8
 MIXED_STEPS = 8
 ROUTE_STEPS = 8
 SCENES = 16
-LIBS = ("guidance_fused", "guidance_frozen", "superstep", "min_clearance")
+LIBS = ("guidance_fused", "guidance_frozen", "superstep", "min_clearance",
+        "unet1d_norm")
 #: e2_vae_mono's ego box
 EGO_L, EGO_W = 4.084, 1.730
 #: scenes of the full-width mono phases, and their training set
@@ -352,6 +364,16 @@ TABLE2_REF_TOL = 1e-3
 # up to 12 of 240 rows a step measured on an H100 80GB HBM3 at 700 W,
 # bounded at twice that share
 TABLE2_MAX_OFF_SHARE = 0.1
+# the U-Net's activation pass (phase 37): rows a pass (16 scenes x 192
+# candidates, the ctg-unet1d-cl16 cell's), and the kernel against its plain
+# version (tests/test_torch_unet1d.py's tolerances): every element within
+# one bfloat16 step (2^-7 of its size, plus UNET_ATOL; the two sum the groups
+# in other orders and the card contracts to FMAs, which can flip the last
+# rounding), at most UNET_MAX_FLIP_SHARE of them not equal to the bit; the
+# float32 residual stream within UNET_F32_RTOL of its size, plus UNET_ATOL
+UNET_ROWS = 3072
+UNET_BF16_RTOL, UNET_F32_RTOL, UNET_ATOL = 2.0 ** -7, 1e-5, 1e-5
+UNET_MAX_FLIP_SHARE = 1e-2
 
 
 def log(msg):
@@ -4011,6 +4033,121 @@ def grad_rollout_phase(dev, name_power, width=()):
         + f"; {name_power}; phase wall {time.time() - t0:.1f} s")
 
 
+def unet_norm_check(what, got, ref):
+    """The largest error of the U-Net's activation pass against its plain
+    version (phase 37's tolerances); raises beyond them."""
+    import torch
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    rtol = UNET_BF16_RTOL if got.dtype == torch.bfloat16 else UNET_F32_RTOL
+    off = float((err > rtol * r.abs() + UNET_ATOL).float().mean())
+    flips = float((g != r).float().mean())
+    if off > 0 or (got.dtype == torch.bfloat16
+                   and flips > UNET_MAX_FLIP_SHARE):
+        raise RuntimeError(f"{what}: {off:.3e} of the elements beyond rtol "
+                           f"{rtol:.3e} / atol {UNET_ATOL}, {flips:.3e} not "
+                           f"equal to the bit (at most "
+                           f"{UNET_MAX_FLIP_SHARE})")
+    return float(err.max())
+
+
+def unet_norm_phase(dev, name_power):
+    """Phase 37: ConditionalUnet1D's activation pass on the 25 calls of one
+    full-width forward at UNET_ROWS rows (seeded weights, bf16), recorded
+    as the forward makes them: each launch against the plain version, its
+    times (``kernel_ms``), the plain version's and PyTorch's
+    ``F.group_norm`` + ``F.mish`` on the same values in the (n, C, L)
+    float32 layout (``library_ms``: timed only, the port never calls it),
+    and its bound (bytes over 3.35 TB/s: each call reads its conv output,
+    bias, GroupNorm's affine, the FiLM or the residual once and writes its
+    outputs once), all summed over the pass.  Then a profiled forward,
+    which must show no cuDNN NCHW <-> NHWC transpose and no PyTorch
+    GroupNorm kernel.  Returns (launches, max error, times, plain ms,
+    bound, library ms)."""
+    import torch
+    import torch.nn.functional as F
+    from pstl_tpu_torch.models import unet1d
+    from pstl_tpu_torch.ops import unet1d_norm as un
+
+    t0 = time.time()
+    net = unet1d.ConditionalUnet1D(2, 231, unet1d.UnetSpec())
+    unet1d.init_torch_default(net, torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(UNET_ROWS, 2, 20, device=dev, generator=g)
+    c = torch.randn(UNET_ROWS, 231, device=dev, generator=g)
+    t = torch.full((1,), 50.0, device=dev)
+    w = unet1d.unet_weights(net, torch.bfloat16)
+    before = un.launches
+    with torch.no_grad(), Recorder(un, "norm_mish", n=25) as rec:
+        unet1d.forward(net, w, x, t, c)
+        torch.cuda.synchronize()
+    launches = un.launches - before
+    if launches != 25 or len(rec.calls) != 25:
+        raise RuntimeError(f"a U-Net forward made {launches} launches of "
+                           f"the activation pass, expected 25")
+    err, n_bytes = 0.0, 0
+    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    kinds = {}
+    with torch.no_grad():
+        for a, kw, (out, out32) in rec.calls:
+            y, bias, gamma, beta, groups, eps = a
+            ref, ref32 = un.norm_mish_plain(*a, **kw)
+            kind = ("film" if kw.get("film") is not None else
+                    "identity" if kw.get("res_bias") is None
+                    and kw.get("res") is not None else
+                    "conv residual" if kw.get("res") is not None else
+                    "final")
+            what = f"activation pass {tuple(y.shape)} {kind}"
+            err = max(err, unet_norm_check(what, out, ref))
+            if ref32 is not None:
+                err = max(err, unet_norm_check(what + " (fp32 stream)",
+                                               out32, ref32))
+            xl = (y.float() + bias.float()).transpose(1, 2).contiguous()
+            ms = kernel_ms(lambda: un.norm_mish(*a, **kw))
+            times = {**ms, "plain_ms": time_cuda(
+                lambda: un.norm_mish_plain(*a, **kw)),
+                "library_ms": time_cuda(lambda: F.mish(F.group_norm(
+                    xl, groups, gamma, beta, eps)))}
+            for k, v in times.items():
+                tot[k] += v
+            b = nbytes(y, bias, gamma, beta, *(kw.get(k) for k in (
+                "film", "res", "res_bias")), out, out32)
+            n_bytes += b
+            key = (tuple(y.shape[1:]), kind)
+            kinds.setdefault(key, []).append((times["graph_ms"], b))
+    for (shape, kind), vals in sorted(kinds.items()):
+        gms = sum(v[0] for v in vals)
+        log(f"activation pass (L, C) = {shape}, {kind}: {len(vals)} a "
+            f"pass, kernel {gms / len(vals) * 1e3:.1f} us a launch (graph "
+            f"replay), {sum(v[1] for v in vals) / gms / 1e9:.3f} TB/s")
+    bnd = bound(n_bytes, 0)
+    ms = {"ms": tot["ms"], "graph_ms": tot["graph_ms"]}
+    with torch.no_grad():
+        unet1d.forward(net, w, x, t, c)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            unet1d.forward(net, w, x, t, c)
+            torch.cuda.synchronize()
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")}
+    for bad in ("nchwToNhwc", "nhwcToNchw", "RowwiseMoments"):
+        if any(bad in k for k in dev_us):
+            raise RuntimeError(f"a channels-last U-Net forward ran {bad}")
+    in_pass = sum(v for k, v in dev_us.items() if "norm_mish" in k) / 1e3
+    log(f"activation pass, a forward of {UNET_ROWS} rows: 25 launches, "
+        f"kernel {ms['graph_ms']:.4f} ms (graph replays, summed), one eager "
+        f"call each {ms['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+        f"F.group_norm + F.mish {tot['library_ms']:.4f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}, {n_bytes / 1e9:.3f} GB); max error "
+        f"{err:.3e}; in a profiled forward {in_pass:.4f} of "
+        f"{sum(dev_us.values()) / 1e3:.4f} device ms, {len(dev_us)} "
+        f"kernels by name, none a layout transpose or a GroupNorm; "
+        f"{name_power}; phase wall {time.time() - t0:.1f} s")
+    return launches, err, ms, tot["plain_ms"], bnd, tot["library_ms"]
+
+
 def phase_36_alone(dev, name_power):
     """``chip_smoke.py --phase 36``: phase 36 without phases 1-35 and without
     the result lines.  Its inputs are made here: phase 33's store (phase 33
@@ -4073,6 +4210,9 @@ def main():
 
     if sys.argv[1:] == ["--phase", "36"]:
         return phase_36_alone(dev, name_power)
+    if sys.argv[1:] == ["--phase", "37"]:
+        unet_norm_phase(dev, name_power)
+        return 0
 
     max_err, ms, plain_ms, k_bound = kernel_phase(dev)
 
@@ -4171,10 +4311,13 @@ def main():
     cv = cv_phase(dev, name_power)
     grad_rollout_phase(dev, name_power)
     log(f"phase 36 wall {time.time() - t_ph:.1f} s; {name_power}")
+    un_launches, un_err, un_ms, un_plain_ms, un_bound, un_lib_ms = \
+        unet_norm_phase(dev, name_power)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
-        # no single PyTorch call computes any of these functions, so there
-        # is no library time to set beside them
+        # no single PyTorch call computes any of the TPU kernels' functions,
+        # so there is no library time to set beside them (the U-Net's
+        # activation pass, which replaces no TPU kernel, sets its own)
         return {"name": name, "route": "cuda",
                 "source": "pstl_tpu_torch/csrc/" + source,
                 "replaces": replaces, "launches": launches,
@@ -4214,7 +4357,9 @@ def main():
         entry("min_clearance_fwd", "min_clearance.cu", pk + "167",
               *cv["fwd"]),
         entry("min_clearance_bwd", "min_clearance.cu", pk + "193",
-              *cv["bwd"])]}),
+              *cv["bwd"]),
+        {**entry("unet1d_norm", "unet1d_norm.cu", None, un_launches, un_err,
+                 un_ms, un_plain_ms, un_bound), "library_ms": un_lib_ms}]}),
         flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from torch import nn
 
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.models import unet1d
+from pstl_tpu_torch.ops import unet1d_norm
 
 Tensor = torch.Tensor
 
@@ -524,7 +525,8 @@ def cm_unet_eps(g_cm: Tensor, net: Net, w: unet1d.UnetWeights, R: int):
     step's timestep, turned back.  Its ``weights`` are ``w``, ``inputs``
     {"g": g_cm}, ``on_base(inputs)`` the same predictor on another
     condition of that shape and ``counters`` the U-Net's pass and row
-    counters, (module, name), which a captured chain holds."""
+    counters and its epilogue kernel's launches, (module, name), which a
+    captured chain holds."""
     def eps_cm(x_cm: Tensor, t: int) -> Tensor:
         bs, nt = x_cm.shape[:2]
         x = x_cm.permute(0, 3, 2, 1).reshape(bs * R, 2, nt)
@@ -535,5 +537,6 @@ def cm_unet_eps(g_cm: Tensor, net: Net, w: unet1d.UnetWeights, R: int):
     eps_cm.weights = w
     eps_cm.inputs = {"g": g_cm}
     eps_cm.on_base = lambda d: cm_unet_eps(d["g"], net, w, R)
-    eps_cm.counters = ((unet1d, "calls"), (unet1d, "rows"))
+    eps_cm.counters = ((unet1d, "calls"), (unet1d, "rows"),
+                       (unet1d_norm, "launches"))
     return eps_cm

@@ -8,8 +8,17 @@ functionally on a :class:`UnetWeights`, which holds every convolution and
 linear weight and bias in the compute dtype, cast once a net, and the
 GroupNorm affine parameters in fp32.  The port's precision rule:
 convolution and linear operands in the compute dtype with fp32
-accumulation, their outputs taken to fp32; GroupNorm (its statistics),
-Mish, FiLM and the residual sums in fp32.
+accumulation, their outputs rounded to the compute dtype; a block
+convolution's bias, GroupNorm (its statistics), Mish, FiLM and the residual
+sums in fp32.
+
+Inside :func:`forward` the activations are channels-last, (n, L, C)
+contiguous, and each convolution is a 2-D one on the view (n, C, 1, L) in
+``torch.channels_last``, which cuDNN's NHWC kernels take and give without
+a transpose.  Between two convolutions one pass
+(``ops/unet1d_norm.norm_mish``: a hand-written CUDA kernel on the card)
+adds the bias, normalizes, applies Mish and the FiLM or the residual sum
+and writes the next convolution's input.
 
 Layers, with cond ``c`` (n, cond_dim):
 
@@ -45,6 +54,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pstl_tpu_torch.ops import unet1d_norm
 
 Tensor = torch.Tensor
 
@@ -188,14 +199,20 @@ def init_torch_default(net: nn.Module, generator: torch.Generator) -> None:
 
 class UnetWeights:
     """What :func:`forward` reads of a :class:`ConditionalUnet1D`: by
-    module, (weight, bias) of every convolution and linear layer in
-    ``dt`` and of every GroupNorm in fp32."""
+    module, (weight, bias) of every convolution and linear layer in ``dt``
+    and of every GroupNorm in fp32.  A convolution's weight is laid out
+    once for the channels-last walk: (Co, Ci, k) as (Co, Ci, 1, k), a
+    transposed one's (Ci, Co, k) as (Ci, Co, 1, k), in
+    ``torch.channels_last``."""
 
     def __init__(self, net: ConditionalUnet1D, dt: torch.dtype):
         self.dt = dt
         self.of: Dict[nn.Module, Tuple[Tensor, Tensor]] = {}
         for m in net.modules():
-            if isinstance(m, _AFFINE):
+            if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                self.of[m] = (m.weight.to(dt)[:, :, None, :].contiguous(
+                    memory_format=torch.channels_last), m.bias.to(dt))
+            elif isinstance(m, nn.Linear):
                 self.of[m] = (m.weight.to(dt), m.bias.to(dt))
             elif isinstance(m, nn.GroupNorm):
                 self.of[m] = (m.weight, m.bias)
@@ -221,34 +238,55 @@ def unet_weights(net: ConditionalUnet1D, dt: torch.dtype) -> UnetWeights:
     return hit[1]
 
 
-def _conv(x: Tensor, m: nn.Module, w: UnetWeights) -> Tensor:
+def _conv(h: Tensor, m: nn.Module, w: UnetWeights,
+          bias: bool = True) -> Tensor:
+    """The convolution ``m`` of channels-last ``h`` (n, L, Ci) in the
+    compute dtype: (n, L', Co), run as a 2-D convolution on the
+    channels-last view (n, Ci, 1, L) so that cuDNN takes and gives NHWC
+    as it is; its bias only where ``bias``."""
     W, b = w.of[m]
-    op = F.conv_transpose1d if isinstance(m, nn.ConvTranspose1d) \
-        else F.conv1d
-    return op(x.to(w.dt), W, b, stride=m.stride, padding=m.padding).float()
+    n, L, C = h.shape
+    op = F.conv_transpose2d if isinstance(m, nn.ConvTranspose1d) \
+        else F.conv2d
+    y = op(h.view(n, 1, L, C).permute(0, 3, 1, 2), W, b if bias else None,
+           stride=(1, m.stride[0]), padding=(0, m.padding[0]))
+    return y.permute(0, 2, 3, 1).reshape(n, y.shape[-1], y.shape[1])
 
 
-def _block(x: Tensor, blk: Conv1dBlock, w: UnetWeights) -> Tensor:
+def _block(h: Tensor, blk: Conv1dBlock, w: UnetWeights, **epilogue):
+    """A Conv1dBlock on channels-last ``h``: its convolution without the
+    bias, then :func:`unet1d_norm.norm_mish` (bias, GroupNorm, Mish and the
+    ``epilogue``'s FiLM or residual).  Returns (the compute dtype's
+    output, its fp32 copy or None)."""
     conv, gn = blk.block[0], blk.block[1]
     g, b = w.of[gn]
-    return F.mish(F.group_norm(_conv(x, conv, w), gn.num_groups, g, b,
-                               gn.eps))
+    return unet1d_norm.norm_mish(_conv(h, conv, w, bias=False), w.of[conv][1],
+                                 g, b, gn.num_groups, gn.eps, **epilogue)
 
 
-def _res(x: Tensor, rb: ConditionalResidualBlock1D, mc: Tensor,
-         w: UnetWeights) -> Tensor:
-    """A residual block on ``mc`` = Mish(cond) in the compute dtype."""
-    h = _block(x, rb.blocks[0], w)
+def _identity_input(m) -> bool:
+    """Whether ``m`` adds its input unchanged as its residual."""
+    return isinstance(m, ConditionalResidualBlock1D) \
+        and isinstance(m.residual_conv, nn.Identity)
+
+
+def _res(h: Tensor, h32, rb: ConditionalResidualBlock1D, mc: Tensor,
+         w: UnetWeights, nxt=None):
+    """A residual block on channels-last ``h`` in the compute dtype and
+    ``mc`` = Mish(cond) in it; ``h32`` is ``h`` in fp32 where a residual
+    block made it (else ``h`` is a convolution's output or a concatenation
+    of them, exact in the compute dtype).  Returns (out, out in fp32 where
+    ``nxt``, the module that reads it, adds it as its identity residual,
+    else None)."""
     W, b = w.of[rb.cond_encoder[1]]
-    emb = (mc @ W.t() + b).float()[..., None]
-    if rb.scale:
-        h = emb[:, :rb.co] * h + emb[:, rb.co:]
+    a, _ = _block(h, rb.blocks[0], w, film=F.linear(mc, W, b),
+                  film_scale=rb.scale)
+    if isinstance(rb.residual_conv, nn.Identity):
+        res = dict(res=h32 if h32 is not None else h.float())
     else:
-        h = h + emb
-    h = _block(h, rb.blocks[1], w)
-    res = x if isinstance(rb.residual_conv, nn.Identity) \
-        else _conv(x, rb.residual_conv, w)
-    return h + res
+        res = dict(res=_conv(h, rb.residual_conv, w, bias=False),
+                   res_bias=w.of[rb.residual_conv][1])
+    return _block(a, rb.blocks[1], w, **res, stream32=_identity_input(nxt))
 
 
 def _linear(x: Tensor, m: nn.Linear, w: UnetWeights) -> Tensor:
@@ -267,7 +305,8 @@ def step_embedding(net: ConditionalUnet1D, t: Tensor,
 def forward(net: ConditionalUnet1D, w: UnetWeights, x: Tensor, t: Tensor,
             g: Tensor) -> Tensor:
     """Epsilon (n, C, L) of ``x`` (n, C, L) at timesteps ``t`` ((n,), or
-    (1,) for all rows) under the global condition ``g`` (n, G)."""
+    (1,) for all rows) under the global condition ``g`` (n, G).  Inside,
+    the activations are channels-last (n, L, C) in the compute dtype."""
     global calls, rows
     check_horizon(net.spec, x.shape[-1])
     calls += 1
@@ -275,17 +314,24 @@ def forward(net: ConditionalUnet1D, w: UnetWeights, x: Tensor, t: Tensor,
     n = x.shape[0]
     ct = step_embedding(net, t, w).expand(n, -1)
     mc = F.mish(torch.cat([ct, g.float()], dim=-1)).to(w.dt)
-    h = x.float()
+    h = x.transpose(1, 2).to(dtype=w.dt, memory_format=torch.contiguous_format)
+    h32 = None
     skips = []
+    mids = list(net.mid_modules)
     for res1, res2, down in net.down_modules:
-        h = _res(_res(h, res1, mc, w), res2, mc, w)
+        last = isinstance(down, nn.Identity)
+        h, h32 = _res(h, h32, res1, mc, w, res2)
+        h, h32 = _res(h, h32, res2, mc, w, mids[0] if last and mids else None)
         skips.append(h)
-        if not isinstance(down, nn.Identity):
-            h = _conv(h, down.conv, w)
-    for res in net.mid_modules:
-        h = _res(h, res, mc, w)
+        if not last:
+            h, h32 = _conv(h, down.conv, w), None
+    for i, res in enumerate(mids):
+        h, h32 = _res(h, h32, res, mc, w, mids[i + 1] if i + 1 < len(mids)
+                      else None)
     for res1, res2, up in net.up_modules:
-        h = torch.cat([h, skips.pop()], dim=1)
-        h = _res(_res(h, res1, mc, w), res2, mc, w)
+        h = torch.cat([h, skips.pop()], dim=-1)
+        h, h32 = _res(h, None, res1, mc, w, res2)
+        h, _ = _res(h, h32, res2, mc, w)
         h = _conv(h, up.conv, w)
-    return _conv(_block(h, net.final_conv[0], w), net.final_conv[1], w)
+    h, _ = _block(h, net.final_conv[0], w)
+    return _conv(h, net.final_conv[1], w).float().transpose(1, 2)

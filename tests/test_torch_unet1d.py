@@ -20,6 +20,19 @@ Tolerances, with their reasons:
   of one operand (the step encoder runs on one row in the chain and on
   every row in the forward, so its matmul may sum in another order).
 
+- the activation pass between two convolutions (``ops/unet1d_norm``):
+  its plain version against PyTorch's composition (``F.group_norm``,
+  ``F.mish``, then the FiLM or the residual sum) in float32: 1e-5 of
+  each output's largest element (the two take the group statistics and
+  Mish by other formulas and orders; a few ulps).  The kernel against the
+  plain version on the card (bfloat16 in and out): all but a 1 % share
+  of the elements equal to the bit, and every element within one
+  bfloat16 step (2^-7 of its size, plus 1e-5): the two sum the groups in
+  other orders and the card contracts to FMAs, so the float32 values
+  before the last rounding differ by a few ulps, which flips that
+  rounding where it falls near a boundary.  The float32 residual stream
+  and the float32 route: 1e-5 of each element's size, plus 1e-5.
+
 Tests marked ``cuda`` repeat the comparisons at the published widths on
 the card, with the real CUDA graph.  This file imports no jax.
 """
@@ -30,6 +43,7 @@ import os
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from perfbench.reference import unet1d as ref
 from perfbench.reference.port.config import Config as RConfig
@@ -40,6 +54,7 @@ from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.data import synthetic
 from pstl_tpu_torch.models import net as N
 from pstl_tpu_torch.models import unet1d
+from pstl_tpu_torch.ops import unet1d_norm
 from test_torch_chain_graph import _assert_equal_runs, _record_chain, \
     _standin, _steps
 
@@ -213,6 +228,118 @@ def test_unet_routes_raise():
 
 
 # --------------------------------------------------------------------------
+# the activation pass between two convolutions
+# --------------------------------------------------------------------------
+
+#: (channels, positions) of every Conv1dBlock's output at the published
+#: widths and the planner's horizon: down levels 1-3 (and the mid blocks),
+#: up levels 1-2
+SHAPES = [(256, 20), (512, 10), (1024, 5), (512, 5), (256, 10)]
+VARIANTS = ["film", "identity", "conv_residual"]
+GROUPS, GN_EPS = 8, 1e-5
+
+
+def _epilogue_case(C, L, variant, n, dt, seed=0, dev="cpu"):
+    """Operands of one pass: the convolution's output y (n, L, C) in
+    ``dt`` and the ``norm_mish`` keywords of ``variant``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale + shift).to(dtype)
+    y = rnd(n, L, C, scale=2.0, shift=0.3, dtype=dt)
+    kw = dict(bias=rnd(C, scale=0.2, dtype=dt),
+              gamma=rnd(C, scale=0.2, shift=1.0),
+              beta=rnd(C, scale=0.2), groups=GROUPS, eps=GN_EPS)
+    if variant == "film":
+        kw["film"] = rnd(n, 2 * C, scale=0.5, dtype=dt)
+    elif variant == "identity":
+        kw.update(res=rnd(n, L, C), stream32=True)
+    else:
+        kw.update(res=rnd(n, L, C, dtype=dt), res_bias=rnd(C, scale=0.2,
+                                                           dtype=dt))
+    move = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()}
+    return y.to(dev), move
+
+
+def _composition(y, bias, gamma, beta, groups, eps, film=None, res=None,
+                 res_bias=None, stream32=False):
+    """The pass as PyTorch's ops compose it on (n, C, L): the bias add,
+    ``F.group_norm``, ``F.mish``, then the FiLM or the residual sum."""
+    x = (y.float() + bias.float()).transpose(1, 2)
+    h = F.mish(F.group_norm(x, groups, gamma, beta, eps)).transpose(1, 2)
+    C = y.shape[-1]
+    if film is not None:
+        f = film.float()[:, None, :]
+        return f[..., :C] * h + f[..., C:]
+    if res_bias is not None:
+        return h + (res.float() + res_bias.float())
+    return h + res
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("C,L", SHAPES, ids=[f"C{c}_L{l}" for c, l in SHAPES])
+def test_norm_mish_plain_equals_composition(C, L, variant):
+    y, kw = _epilogue_case(C, L, variant, 6, torch.float32)
+    out, out32 = unet1d_norm.norm_mish_plain(y, **kw)
+    want = _composition(y, **kw)
+    assert out.dtype == torch.float32 and out.shape == (6, L, C)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    if variant == "identity":
+        assert torch.equal(out32, out)
+    else:
+        assert out32 is None
+    # a CPU tensor never reaches the kernel
+    before = unet1d_norm.launches
+    got, _ = unet1d_norm.norm_mish(y, **kw)
+    assert torch.equal(got, out) and unet1d_norm.launches == before
+
+
+def test_mish_equals_torch_mish():
+    """The pass's Mish, u n / (n + 2) with n = e^u (e^u + 2), against
+    ``F.mish`` over float32's range: within 4 ulps of the larger of the
+    value and 1e-30 (the two underflow alike below u = -100)."""
+    u = torch.cat([torch.linspace(-120.0, 120.0, 200001),
+                   torch.tensor([-20.0, 0.0, 19.999, 20.0, 20.001, 44.5,
+                                 89.0, 1e30, -1e30])])
+    got, want = unet1d_norm.mish(u), F.mish(u)
+    ulp = 2.0 ** -23 * torch.maximum(want.abs(), torch.tensor(1e-30))
+    assert float(((got - want).abs() / ulp).max()) <= 4.0
+    assert torch.isfinite(got).all()
+
+
+def test_norm_mish_geometry_and_refusals():
+    """The kernel's block at every published shape (VC vectors a position
+    times P positions a pass, about UN_THREADS threads), and the operands
+    it refuses before any launch."""
+    for C, L in SHAPES:
+        assert unet1d_norm.threads(L, C, torch.bfloat16) == 128
+    assert unet1d_norm.threads(20, 256, torch.float32) == 128
+    assert unet1d_norm.threads(2, 1024, torch.float32) == 256
+    with pytest.raises(ValueError, match="shared"):
+        unet1d_norm.threads(64, 1024, torch.bfloat16)
+    y, kw = _epilogue_case(16, 20, "film", 2, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        unet1d_norm._launch(y, **{**kw, "film_scale": True,
+                                  "res": None, "res_bias": None,
+                                  "stream32": False})
+
+
+def test_plain_epilogue_carries_gradients():
+    """Under autograd the pass is the plain version, which autograd
+    differentiates: its gradients equal those of PyTorch's composition."""
+    y, kw = _epilogue_case(256, 10, "film", 3, torch.float32, seed=4)
+    leaves = [y] + [kw[k] for k in ("bias", "gamma", "beta", "film")]
+    for t in leaves:
+        t.requires_grad_(True)
+    w = torch.randn(3, 10, 256, generator=torch.Generator().manual_seed(5))
+    got = torch.autograd.grad(
+        (unet1d_norm.norm_mish(y, **kw)[0] * w).sum(), leaves)
+    want = torch.autograd.grad((_composition(y, **kw) * w).sum(), leaves)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-5
+
+
+# --------------------------------------------------------------------------
 # the closed loop and the chain's graph
 # --------------------------------------------------------------------------
 
@@ -240,19 +367,22 @@ def _case(dev, bs, dims, seed=0, **kw):
 
 def _graph_then_eager(monkeypatch, dev, bs, dims, **kw):
     """Three closed-loop steps with the chain's graph, then the same three
-    eagerly: both runs, their chains, and the U-Net passes and rows each
-    counted."""
+    eagerly: both runs, their chains, and the U-Net passes, rows and
+    epilogue kernel launches each counted."""
     chains = _record_chain(monkeypatch)
     cfg, init, step, noise = _case(dev, bs, dims, **kw)
-    c0, r0 = unet1d.calls, unet1d.rows
+
+    def counts():
+        return unet1d.calls, unet1d.rows, unet1d_norm.launches
+    c0 = counts()
     graph = _steps(init, step, noise)
-    counted = [(unet1d.calls - c0, unet1d.rows - r0)]
+    counted = [tuple(b - a for a, b in zip(c0, counts()))]
     with_graph = list(chains)
     chains.clear()
     monkeypatch.setattr(diffusion, "_CAPTURE", {})
-    c0, r0 = unet1d.calls, unet1d.rows
+    c0 = counts()
     eager = _steps(init, step, noise)
-    counted.append((unet1d.calls - c0, unet1d.rows - r0))
+    counted.append(tuple(b - a for a, b in zip(c0, counts())))
     return cfg, (graph, with_graph), (eager, list(chains)), counted
 
 
@@ -265,7 +395,7 @@ def test_standin_graph_equals_eager(monkeypatch):
     assert (diffusion.chain_graph_captures,
             diffusion.chain_graph_replays) == (1, 2)
     calls = 3 * (cfg.diffusion_steps - 1)
-    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms)] * 2
+    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms, 0)] * 2
     assert not torch.equal(eager[1][1]["controls"], eager[2][1]["controls"])
     _assert_equal_runs(graph, eager, gch, ech)
 
@@ -304,7 +434,7 @@ def test_capture_holds_the_counters_the_eps_function_names(monkeypatch):
     cfg, (graph, gch), (eager, ech), counted = _graph_then_eager(
         monkeypatch, "cpu", 2, TINY_DIMS, **TINY["closed_loop"]["set"])
     calls = 3 * (cfg.diffusion_steps - 1)
-    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms)] * 2
+    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms, 0)] * 2
     _assert_equal_runs(graph, eager, gch, ech)
 
 
@@ -345,8 +475,81 @@ def test_graph_equals_eager_on_the_card(dev, monkeypatch):
         monkeypatch, dev, 2, FULL_DIMS)
     torch.cuda.synchronize(dev)
     # the first plan's eager run before the capture, then one replay a
-    # plan: as many passes as the eager loop's
+    # plan: as many passes as the eager loop's, and 25 epilogue launches
+    # a pass (12 residual blocks x 2 Conv1dBlocks, and the final block)
     calls = 3 * (cfg.diffusion_steps - 1)
-    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms)] * 2
+    assert counted == [(calls, calls * 2 * 3 * cfg.n_randoms,
+                        25 * calls)] * 2
     assert not torch.equal(eager[1][1]["controls"], eager[2][1]["controls"])
     _assert_equal_runs(graph, eager, gch, ech)
+
+
+def _assert_kernel_matches_plain(y, kw):
+    before = unet1d_norm.launches
+    got, got32 = unet1d_norm.norm_mish(y, **kw)
+    assert unet1d_norm.launches == before + 1
+    want, want32 = unet1d_norm.norm_mish_plain(y, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        assert float((err > 2.0 ** -7 * w.abs() + 1e-5).float().mean()) == 0
+        assert float((g != w).float().mean()) <= 1e-2
+    else:
+        assert float((err > 1e-5 * w.abs() + 1e-5).float().mean()) == 0
+    assert (got32 is None) == (want32 is None)
+    if want32 is not None:
+        assert float(((got32 - want32).abs()
+                      > 1e-5 * want32.abs() + 1e-5).float().mean()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("C,L", SHAPES, ids=[f"C{c}_L{l}" for c, l in SHAPES])
+def test_norm_mish_kernel_matches_plain_on_the_card(dev, C, L, variant):
+    """The cell's 3,072 rows a pass, in bfloat16."""
+    y, kw = _epilogue_case(C, L, variant, 3072, torch.bfloat16, dev=dev)
+    _assert_kernel_matches_plain(y, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_norm_mish_kernel_final_block_and_fp32(dev, dt):
+    """The final block (no FiLM, no residual), and the float32 route, on
+    every variant."""
+    y, kw = _epilogue_case(256, 20, "film", 3072, dt, dev=dev)
+    kw.pop("film")
+    _assert_kernel_matches_plain(y, kw)
+    if dt == torch.float32:
+        for variant in VARIANTS:
+            _assert_kernel_matches_plain(*_epilogue_case(
+                256, 20, variant, 3072, dt, seed=1, dev=dev))
+
+
+@pytest.mark.cuda
+def test_full_width_forward_has_no_layout_transposes(dev):
+    """A pass at the cell's 3,072 rows runs its convolutions channels-last
+    (no cuDNN NCHW <-> NHWC transpose) and its normalization in the
+    epilogue kernel (no PyTorch GroupNorm statistics), 25 launches."""
+    _, net, _ = _pair(FULL_DIMS)
+    net = net.to(dev)
+    x, t, c = _inputs(3072, 20, dev=dev)
+    w = unet1d.unet_weights(net.eps_net, torch.bfloat16)
+    with torch.no_grad():
+        unet1d.forward(net.eps_net, w, x, t, c)
+        torch.cuda.synchronize()
+        before = unet1d_norm.launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            unet1d.forward(net.eps_net, w, x, t, c)
+            torch.cuda.synchronize()
+    assert unet1d_norm.launches == before + 25
+    names = [e.key for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")]
+    print(len(names), "device kernels:", names)
+    assert any("norm_mish_kernel" in k for k in names)
+    for bad in ("nchwToNhwc", "nhwcToNchw", "RowwiseMoments"):
+        assert not [k for k in names if bad in k], bad
