@@ -44,7 +44,11 @@ pinned draws is one CUDA graph (:func:`_chain_graph`, when
 path runs too, is captured once per key on static input buffers and
 replayed on every later call after the plan's inputs are copied in; the
 kernels it launches are the eager loop's.  ``chain_graph_captures`` and
-``chain_graph_replays`` count them.
+``chain_graph_replays`` count them.  The graph reads its two per-plan
+collaborators, the eps function and the fused loss, alike: ``inputs`` (by
+name, the tensors a plan makes fresh), ``on_base(d)`` (the collaborator
+reading them from ``d``) and ``counters`` ((module, name) of the launch
+counters a capture holds); the eps function's ``weights`` key its graphs.
 
 For training, :func:`prep` noises controls and :func:`sample` runs the
 pass on the per-scene (mono) rows or on the dense multi-candidate rows,
@@ -53,7 +57,6 @@ guided by the row-major fallback loss where the configuration guides.
 
 from __future__ import annotations
 
-import copy
 import weakref
 from typing import Callable, NamedTuple, Optional
 
@@ -63,7 +66,7 @@ import torch
 from pstl_tpu_torch.config import Config
 from pstl_tpu_torch.ops import dynamics as dyn
 from pstl_tpu_torch.ops import guidance_kernel, superstep_kernel
-from pstl_tpu_torch.ops.guidance_loss import row_loss
+from pstl_tpu_torch.ops.guidance_loss import host_freeze, row_loss
 from pstl_tpu_torch.parallel import mesh
 from pstl_tpu_torch.utils.trace import span
 
@@ -289,9 +292,9 @@ def _guidance_step(mu: Tensor, beta_t: Tensor, guide, cfg: Config,
     candidate-minor (or ``mu_cm``, the caller's view of it, is used) for
     the kernel or the XLA loop and back; without it the XLA loop runs on
     the row-major fallback loss.  ``frozen``: the selections
-    (``fused_loss.freeze_cm``) the caller carries; with
-    ``guidance_reuse_selection`` they are frozen at the candidate-minor
-    mean when not given.  No gradient flows out."""
+    (``fused_loss.freeze_cm``) the caller carries; where ``host_freeze``
+    says, they are frozen at the candidate-minor mean when not given.  No
+    gradient flows out."""
     with span("plan.guidance"):
         ctx = _as_ctx(guide)
         thres = 100.0 if maximize else cfg.stl_nn_thres
@@ -318,11 +321,10 @@ def _guidance_step(mu: Tensor, beta_t: Tensor, guide, cfg: Config,
             mu_init = mu_cm if mu_cm is not None \
                 else fused_loss._to_cand_minor(mu)
         post = (lambda x: x) if cm_io else fused_loss._from_cand_minor
-        fuse = cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze
         with torch.no_grad():
             # the fused kernel freezes in-kernel: pstl_tpu computes
             # freeze_cm here too, but nothing reads it
-            if frozen is None and cfg.guidance_reuse_selection and not fuse:
+            if frozen is None and host_freeze(cfg)[0]:
                 frozen = fused_loss.freeze_cm(mu_init)
             if cfg.guidance_pallas:
                 return post(guidance_kernel.guidance_adam_cm(
@@ -443,8 +445,8 @@ def _ddpm_chain(eps_of: Callable, ctx: Optional[GuidanceCtx], cfg: Config,
     # guidance_sel_every > 1: the frozen selections ride across denoise
     # steps, refreshed on every k-th guided step (the first guided step
     # always refreshes, so nothing stale is read)
-    carry_sel = (use_guidance and cfg.guidance_reuse_selection
-                 and fused_loss is not None and cfg.guidance_sel_every > 1)
+    carry_sel = (use_guidance and fused_loss is not None
+                 and host_freeze(cfg)[1])
     refresh = _refresh_schedule(trig, cfg.guidance_sel_every) \
         if carry_sel else None
     frozen = None
@@ -481,21 +483,15 @@ def _ddpm_chain(eps_of: Callable, ctx: Optional[GuidanceCtx], cfg: Config,
 # the candidate-minor chain as one CUDA graph
 # --------------------------------------------------------------------------
 
-#: chains captured as a graph, and graph replays (each replay's guidance
-#: kernel launches also count in ``guidance_kernel.launches`` /
-#: ``frozen_launches``, its eps passes in the counters the eps function
-#: names)
+#: chains captured as a graph, and graph replays (each replay also adds
+#: what its capture held of the counters the eps function and the fused
+#: loss name)
 chain_graph_captures = 0
 chain_graph_replays = 0
 
 #: eps weights (the eps function's ``weights``) -> {key: _ChainGraph}: a
 #: graph lives as long as the weight pieces it reads
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-#: the guidance kernel's launch counters, (module, name): a captured
-#: chain holds these and the ones its eps function names (``counters``)
-_KERNEL_COUNTERS = ((guidance_kernel, "launches"),
-                    (guidance_kernel, "frozen_launches"))
 
 
 def _capture_cuda(body: Callable, dev: torch.device):
@@ -551,42 +547,14 @@ class _ChainGraph(NamedTuple):
     coeffs: Coeffs      # read by the graph: kept alive with it
 
 
-def _chain_inputs(cm_fn: Callable, fused_loss, cfg: Config,
-                  noise: Tensor) -> dict:
-    """What the chain reads that a plan makes fresh, by name: the draws,
-    the eps function's per-plan ``inputs`` (the MLP's ``base_cm``, the
-    U-Net's condition), the guidance kernel's operands and, where a
-    guided update or the carried selections freeze on the host's side
-    (``freeze_cm``), the fused loss's tensors that it reads."""
-    ops = guidance_kernel.kernel_operands(fused_loss, cfg)
-    inputs = {"noise": noise,
-              **{"eps." + k: v for k, v in cm_fn.inputs.items()},
-              **{"op." + k: v for k, v in ops._asdict().items()}}
-    if cfg.guidance_reuse_selection and (
-            cfg.guidance_sel_every > 1
-            or not cfg.guidance_pallas_fuse_freeze):
-        inputs.update({"loss." + k: getattr(fused_loss, k)
-                       for k in fused_loss.FREEZE_READS})
-    return inputs
-
-
 def _static_chain(static: dict, cm_fn: Callable, fused_loss, cfg: Config,
                   coeffs: Coeffs, trig: np.ndarray, maximize: bool):
-    """The chain's body on the static buffers: ``cm_fn`` on the static
-    eps inputs, a copy of the fused loss whose kernel operands (and
-    freeze inputs) are the static buffers and whose other tensors are
-    meta tensors (their shapes, no data: a read of one raises), and the
-    static draws.  Its ``counters`` are the guidance kernel's and those
-    that ``cm_fn`` names (the counters an eps pass advances), which a
-    capture holds."""
-    loss = copy.copy(fused_loss)
-    for k, v in vars(fused_loss).items():
-        if torch.is_tensor(v):
-            setattr(loss, k, static.get("loss." + k, v.to("meta")))
-    loss._kernel_operands = guidance_kernel.Operands(
-        *(static["op." + k] for k in guidance_kernel.Operands._fields))
-    eps = cm_fn.on_base({k[4:]: v for k, v in static.items()
-                         if k.startswith("eps.")})
+    """The chain's body on the static buffers: both collaborators rebound
+    to their parts of them and the static draws; ``counters`` theirs."""
+    part = lambda p: {k[len(p):]: v for k, v in static.items()
+                      if k.startswith(p)}
+    eps = cm_fn.on_base(part("eps."))
+    loss = fused_loss.on_base(part("loss."))
     noise = static["noise"]
     draw = _drawer(noise, noise.shape[0], noise.shape[1:], None,
                    noise.device)
@@ -594,22 +562,24 @@ def _static_chain(static: dict, cm_fn: Callable, fused_loss, cfg: Config,
     def body():
         return _ddpm_chain(eps, _as_ctx(loss), cfg, coeffs, trig, maximize,
                            draw, True)
-    body.counters = _KERNEL_COUNTERS + tuple(getattr(cm_fn, "counters", ()))
+    body.counters = (*fused_loss.counters, *getattr(cm_fn, "counters", ()))
     return body
 
 
 def _chain_graph(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
                  trig: np.ndarray, maximize: bool, noise: Tensor):
-    """The candidate-minor chain as one graph replay: the plan's inputs
-    (:func:`_chain_inputs`) are copied into the graph's static buffers and
-    the graph of this key (shapes and dtypes, ``cfg``, ``maximize``, the
-    eps weights, ``coeffs``) is replayed.  The first call of a key
-    captures it (:data:`_CAPTURE`) and returns the outputs of the eager
-    run made before the capture, so that it runs the chain once, as the
-    eager loop does.  The outputs leave as fresh tensors (the next replay
-    overwrites the graph's)."""
+    """The candidate-minor chain as one graph replay: the plan's draws and
+    both collaborators' ``inputs`` are copied into the graph's static
+    buffers and the graph of this key (shapes and dtypes, ``cfg``,
+    ``maximize``, the eps weights, ``coeffs``) is replayed.  The first
+    call of a key captures it (:data:`_CAPTURE`) and returns the outputs
+    of the eager run made before the capture, so that it runs the chain
+    once, as the eager loop does.  The outputs leave as fresh tensors
+    (the next replay overwrites the graph's)."""
     global chain_graph_captures, chain_graph_replays
-    fresh = _chain_inputs(cm_fn, fused_loss, cfg, noise)
+    fresh = {"noise": noise,
+             **{"eps." + k: v for k, v in cm_fn.inputs.items()},
+             **{"loss." + k: v for k, v in fused_loss.inputs.items()}}
     key = (cfg, bool(maximize), noise.device, id(coeffs.beta),
            tuple((k, tuple(v.shape), v.dtype) for k, v in fresh.items()))
     graphs = _GRAPHS.setdefault(cm_fn.weights, {})

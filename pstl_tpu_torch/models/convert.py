@@ -4,13 +4,15 @@ Flax ``Dense`` kernels are (in, out); a torch ``Linear`` weight is their
 transpose.  Parameters travel as a flat ``.npz`` whose keys are the flax
 paths joined by "/" (``ego_encoder/Dense_0/kernel``); the committed
 ``pstl_tpu_torch/weights/e7_round5.npz`` is written by
-``scripts/export_torch_weights.py``.
+``scripts/export_torch_weights.py``.  :func:`cast_once` keeps what a
+forward reads of a module's parameters (cast, laid out) while they stay.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+import weakref
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -61,3 +63,22 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
 def load_weights(net: torch.nn.Module, name: str = "e7_round5") -> None:
     """Load a committed weight file into ``net`` (strict)."""
     net.load_state_dict(load_npz(os.path.join(WEIGHTS_DIR, f"{name}.npz")))
+
+
+#: module -> (the key its entry was made at, the entry)
+_CAST: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cast_once(module: torch.nn.Module, key: tuple, make: Callable):
+    """``make()``, kept (one entry a module) while ``key`` stays and the
+    module's parameters stay the same tensors at the same versions (an
+    in-place write, as an optimizer step's, bumps the version).  Made
+    afresh while autograd records, so each call's graph reaches them."""
+    params = list(module.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return make()
+    key = key + tuple((p.data_ptr(), p._version) for p in params)
+    hit = _CAST.get(module)
+    if hit is None or hit[0] != key:
+        hit = _CAST[module] = (key, make())
+    return hit[1]

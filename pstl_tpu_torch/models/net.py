@@ -23,14 +23,13 @@ itself (no ``+ noise`` residual).  :func:`init_seeded` draws such a net.
 from __future__ import annotations
 
 import math
-import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from pstl_tpu_torch.config import Config
-from pstl_tpu_torch.models import unet1d
+from pstl_tpu_torch.models import convert, unet1d
 from pstl_tpu_torch.ops import unet1d_norm
 
 Tensor = torch.Tensor
@@ -425,38 +424,21 @@ class EpsWeights:
             boa=bo_all[1::2].reshape(-1, 1))
 
 
-#: net -> (its policy MLP's parameter versions, EpsWeights)
-_EPS_WEIGHTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
 def eps_weights(net: Net, cfg: Config):
     """The net's :class:`EpsWeights` (a ConditionalUnet1D head's
-    ``unet1d.UnetWeights``), kept while its policy MLP's
-    parameters stay the same tensors at the same versions (an optimizer
-    step or a ``load_state_dict`` writes them in place and bumps the
-    version).  With autograd recording they are made afresh, so that each
-    call's graph reaches the parameters."""
+    ``unet1d.UnetWeights``), made once while its policy MLP's parameters
+    stay (``convert.cast_once``)."""
     if net.eps_net is not None:
         return unet1d.unet_weights(net.eps_net, compute_dtype(cfg))
-    params = list(net.policy_net.parameters())
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        return EpsWeights(net, cfg)
-    key = (compute_dtype(cfg), cfg.nt,
-           tuple((p.data_ptr(), p._version) for p in params))
-    hit = _EPS_WEIGHTS.get(net)
-    if hit is None or hit[0] != key:
-        hit = (key, EpsWeights(net, cfg))
-        _EPS_WEIGHTS[net] = hit
-    return hit[1]
+    return convert.cast_once(net.policy_net, (compute_dtype(cfg), cfg.nt),
+                             lambda: EpsWeights(net, cfg))
 
 
 def cm_eps(base_cm: Tensor, w: EpsWeights, cfg: Config):
     """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` on the per-plan layer-1
-    contribution ``base_cm`` (bs, h1, R) and the weight pieces ``w``.
-    Its ``weights`` are ``w``, ``operands`` the superstep kernel's pieces,
-    ``inputs`` what it reads that a plan makes ({"base_cm": base_cm}) and
-    ``on_base(inputs)`` the same predictor on other such inputs of those
-    shapes (what a captured chain reads)."""
+    contribution ``base_cm`` (bs, h1, R) and the weight pieces ``w``, with
+    what the chain's graph reads of it (``diffusion``; ``inputs``
+    {"base_cm"}) and ``operands``, the superstep kernel's pieces."""
     bs, _, R = base_cm.shape
     D = cfg.nt * 2
     dt = w.dt
@@ -522,11 +504,9 @@ def cm_unet_eps(g_cm: Tensor, net: Net, w: unet1d.UnetWeights, R: int):
     """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` of a ConditionalUnet1D
     head: the candidates turned to rows (b * R + r, 2, nt), the U-Net on
     them with the condition ``g_cm`` (bs * R, G) laid out alike and the
-    step's timestep, turned back.  Its ``weights`` are ``w``, ``inputs``
-    {"g": g_cm}, ``on_base(inputs)`` the same predictor on another
-    condition of that shape and ``counters`` the U-Net's pass and row
-    counters and its epilogue kernel's launches, (module, name), which a
-    captured chain holds."""
+    step's timestep, turned back; with what the chain's graph reads of it
+    (``diffusion``; ``inputs`` {"g"}, ``counters`` the U-Net's passes and
+    rows and its epilogue kernel's launches)."""
     def eps_cm(x_cm: Tensor, t: int) -> Tensor:
         bs, nt = x_cm.shape[:2]
         x = x_cm.permute(0, 3, 2, 1).reshape(bs * R, 2, nt)

@@ -48,13 +48,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import weakref
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.ops import unet1d_norm
 
 Tensor = torch.Tensor
@@ -218,24 +218,10 @@ class UnetWeights:
                 self.of[m] = (m.weight, m.bias)
 
 
-#: net -> (its parameter versions, UnetWeights)
-_WEIGHTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
 def unet_weights(net: ConditionalUnet1D, dt: torch.dtype) -> UnetWeights:
-    """The net's :class:`UnetWeights`, kept while its parameters stay the
-    same tensors at the same versions (as ``models.net.eps_weights``
-    keeps the MLP's); made afresh while autograd records, so that each
-    call's graph reaches the parameters."""
-    params = list(net.parameters())
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        return UnetWeights(net, dt)
-    key = (dt, tuple((p.data_ptr(), p._version) for p in params))
-    hit = _WEIGHTS.get(net)
-    if hit is None or hit[0] != key:
-        hit = (key, UnetWeights(net, dt))
-        _WEIGHTS[net] = hit
-    return hit[1]
+    """The net's :class:`UnetWeights`, made once while its parameters stay
+    (``convert.cast_once``)."""
+    return convert.cast_once(net, (dt,), lambda: UnetWeights(net, dt))
 
 
 def _conv(h: Tensor, m: nn.Module, w: UnetWeights,

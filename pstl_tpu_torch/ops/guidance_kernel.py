@@ -74,7 +74,6 @@ from typing import Dict, NamedTuple
 import torch
 
 from pstl_tpu_torch.config import Config
-from pstl_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -144,38 +143,9 @@ def kernel_params(cfg: Config, fused_loss) -> KernelParams:
 
 
 def kernel_operands(fused_loss, cfg: Config) -> Operands:
-    """The kernel's invariant operands from a ``CandMinorGuidanceLoss``
-    (mirrors ``pallas_guidance.pallas_invariants``), memoized on it."""
-    if fused_loss._kernel_operands is not None:
-        return fused_loss._kernel_operands
-    f32 = torch.float32
-    bs, R = fused_loss.bs, fused_loss.R
-    ones = torch.ones((bs, R), dtype=f32, device=fused_loss.valid_r.device)
-    if cfg.norm_stl:
-        nf = torch.stack([(fused_loss.vf[:, 0] * ones),
-                          (fused_loss.df[:, 0] * ones),
-                          (fused_loss.sf[:, 0] * ones)], dim=1)
-    else:
-        nf = torch.stack([ones] * 3, dim=1)
-    valid = fused_loss.valid_r.to(f32).contiguous()
-    ops = Operands(
-        lanes=fused_loss.lanes.to(f32).contiguous(),
-        ndx=fused_loss.nx.permute(0, 1, 3, 2).to(f32).contiguous(),
-        ndy=fused_loss.ny.permute(0, 1, 3, 2).to(f32).contiguous(),
-        crad=(fused_loss.re + fused_loss.rn).to(f32).contiguous(),
-        cvalid=fused_loss.nvalid.to(f32).contiguous(),
-        stlp=fused_loss.stlp_r.to(f32).contiguous(),
-        nf=nf.contiguous(), valid=valid,
-        scal=torch.stack([fused_loss.th0.reshape(bs),
-                          fused_loss.v0.reshape(bs)], dim=1).to(f32)
-        .contiguous(),
-        # the hinge's mean over every row: under a sharding (parallel.mesh)
-        # over the rows of all ranks, so each column's gradient is the
-        # whole batch's
-        gscale=1.0 / (bs * R * mesh.shard_world() * torch.clamp(
-            mesh.shard_mean(torch.mean(valid)), min=1e-2)))
-    fused_loss._kernel_operands = ops
-    return ops
+    """The kernel's invariant operands of a ``CandMinorGuidanceLoss``
+    built on ``cfg``, made once a loss (its ``kernel_operands``)."""
+    return fused_loss.kernel_operands
 
 
 def frozen_operands(frozen) -> tuple:

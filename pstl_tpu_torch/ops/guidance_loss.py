@@ -6,8 +6,9 @@ with the large candidate axis R = 3*M minor and j-major candidates
 (r = j*M + m, so lane selection per row is slicing at M boundaries).
 Torch autograd through :meth:`CandMinorGuidanceLoss.loss_cm` with frozen
 selections is the gradient oracle of the fused guidance kernel
-(``ops/guidance_kernel.py``), and its constructor holds the per-plan
-invariants the kernels read (recentred lanes, neighbor discs, stlp rows).
+(``ops/guidance_kernel.py``), and it holds the per-plan invariants the
+kernels read (recentred lanes, neighbor discs, stlp rows), laid out for
+them in ``kernel_operands``.
 :meth:`CandMinorGuidanceLoss.freeze_cm` makes the frozen payloads that the
 frozen-payload kernel and the XLA guidance loop read.  As in the JAX
 package, ``geometry_dtype`` is the dtype of the selection fields (the
@@ -20,12 +21,14 @@ the XLA guidance loop only.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import copy
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from pstl_tpu_torch.config import Config
-from pstl_tpu_torch.ops import stl
+from pstl_tpu_torch.ops import guidance_kernel, stl
 from pstl_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
@@ -60,14 +63,28 @@ def _lse(x: Tensor, dim: int) -> Tensor:
     return torch.logsumexp(x, dim=dim)
 
 
+def host_freeze(cfg: Config) -> Tuple[bool, bool]:
+    """Where ``freeze_cm`` runs on the host's side, under
+    ``guidance_reuse_selection``: (a guided update given no selections
+    freezes them, unless the fused kernel freezes in-kernel; the DDPM chain
+    freezes on every k-th guided step and carries them across denoise
+    steps, for ``guidance_sel_every`` = k > 1)."""
+    reuse = cfg.guidance_reuse_selection
+    in_kernel = cfg.guidance_pallas and cfg.guidance_pallas_fuse_freeze
+    return reuse and not in_kernel, reuse and cfg.guidance_sel_every > 1
+
+
 class CandMinorGuidanceLoss:
     """Guidance hinge loss in candidate-minor (bs, T, 2, R) layout; see
     ``pstl_tpu.ops.guidance_loss.CandMinorGuidanceLoss``.  Every geometric
     quantity is recentred per scene at the ego start (exact: it only uses
-    coordinate differences)."""
+    coordinate differences).  ``inputs``, ``on_base`` and ``counters``
+    are what the DDPM chain's CUDA graph reads of it (``diffusion``)."""
 
     #: the tensors :meth:`freeze_cm` reads
     FREEZE_READS = ("lxr", "lyr", "lthr", "th0", "v0", "axe", "nx", "ny")
+    counters = ((guidance_kernel, "launches"),
+                (guidance_kernel, "frozen_launches"))
 
     def __init__(self, batch: Dict[str, Tensor], stlp_dense: Tensor,
                  states: Tensor, valid: Tensor, cfg: Config,
@@ -129,7 +146,56 @@ class CandMinorGuidanceLoss:
         # the robustness reductions' dtype (the Adam math stays fp32)
         self.dtype = torch.bfloat16 if cfg.robustness_dtype == "bfloat16" \
             else torch.float32
-        self._kernel_operands = None
+
+    @functools.cached_property
+    def kernel_operands(self) -> guidance_kernel.Operands:
+        """The guidance kernel's invariant operands, made once (mirrors
+        ``pallas_guidance.pallas_invariants``)."""
+        f32 = torch.float32
+        bs, R = self.bs, self.R
+        ones = torch.ones((bs, R), dtype=f32, device=self.valid_r.device)
+        if self.cfg.norm_stl:
+            nf = torch.stack([self.vf[:, 0] * ones, self.df[:, 0] * ones,
+                              self.sf[:, 0] * ones], dim=1)
+        else:
+            nf = torch.stack([ones] * 3, dim=1)
+        valid = self.valid_r.to(f32).contiguous()
+        return guidance_kernel.Operands(
+            lanes=self.lanes.to(f32).contiguous(),
+            ndx=self.nx.permute(0, 1, 3, 2).to(f32).contiguous(),
+            ndy=self.ny.permute(0, 1, 3, 2).to(f32).contiguous(),
+            crad=(self.re + self.rn).to(f32).contiguous(),
+            cvalid=self.nvalid.to(f32).contiguous(),
+            stlp=self.stlp_r.to(f32).contiguous(),
+            nf=nf.contiguous(), valid=valid,
+            scal=torch.stack([self.th0.reshape(bs), self.v0.reshape(bs)],
+                             dim=1).to(f32).contiguous(),
+            # the hinge's mean over every row: under a sharding
+            # (parallel.mesh) over the rows of all ranks, so each column's
+            # gradient is the whole batch's
+            gscale=1.0 / (bs * R * mesh.shard_world() * torch.clamp(
+                mesh.shard_mean(torch.mean(valid)), min=1e-2)))
+
+    @property
+    def inputs(self) -> Dict[str, Tensor]:
+        """By name, what a captured chain reads: the kernel's operands
+        ("op.<field>") and, where :func:`host_freeze` puts ``freeze_cm`` on
+        the host's side, the tensors it reads."""
+        reads = self.FREEZE_READS if any(host_freeze(self.cfg)) else ()
+        return {**{"op." + k: v
+                   for k, v in self.kernel_operands._asdict().items()},
+                **{k: getattr(self, k) for k in reads}}
+
+    def on_base(self, d: Dict[str, Tensor]) -> "CandMinorGuidanceLoss":
+        """A copy that reads :attr:`inputs` from ``d``; its other tensors
+        are meta tensors (shapes, no data), so a read of one raises."""
+        loss = copy.copy(self)
+        for k, v in vars(self).items():
+            if torch.is_tensor(v):
+                setattr(loss, k, d.get(k, v.to("meta")))
+        loss.kernel_operands = guidance_kernel.Operands(
+            *(d["op." + k] for k in guidance_kernel.Operands._fields))
+        return loss
 
     # ------------------------------------------------------------------
     def _alw(self, g, tau, dim=1):

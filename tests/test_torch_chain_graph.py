@@ -1,7 +1,8 @@
 """The candidate-minor DDPM chain replayed as one captured graph
 (``diffusion._chain_graph``) against the eager loop it captures.
 
-CPU tests reach the plumbing without a card: the eligibility rule, and a
+CPU tests reach the plumbing without a card: the eligibility rule, what
+the fused loss gives the graph against the host-freeze rule, and a
 stand-in capture (registered for the CPU in ``diffusion._CAPTURE``) that
 re-runs the recorded body on the graph's static buffers at every replay.
 Through it, successive closed-loop steps with new observations and draws
@@ -31,6 +32,7 @@ from pstl_tpu_torch.data import synthetic
 from pstl_tpu_torch.models import convert
 from pstl_tpu_torch.models.net import Net
 from pstl_tpu_torch.ops import guidance_kernel
+from pstl_tpu_torch.ops.guidance_loss import CandMinorGuidanceLoss
 from pstl_tpu_torch.parallel import mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,6 +196,47 @@ def test_standin_graph_equals_eager(route, standin, monkeypatch):
     # an earlier plan's tensors would miss the later ones
     assert not torch.equal(eager[1][1]["controls"], eager[2][1]["controls"])
     _assert_equal_runs(graph, eager, with_graph, chains)
+
+
+#: the routes on which the host freezes (``guidance_loss.host_freeze``)
+HOST_FROZEN = ("e7_frozen", "e7_sel2")
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_loss_inputs_follow_the_host_freeze(route, monkeypatch):
+    """The fused loss's ``inputs`` hold the tensors ``freeze_cm`` reads
+    exactly when an eager chain calls it, and ``on_base`` of given inputs
+    is a copy whose kernel operands and freeze reads are those tensors
+    and whose other tensors are meta tensors."""
+    name, kw = ROUTES[route]
+    losses, freezes = [], []
+    inner = diffusion.reverse_sample
+
+    def spy(cm_fn, guide, *a, **k):
+        losses.append(diffusion._as_ctx(guide).fused_loss)
+        return inner(cm_fn, guide, *a, **k)
+    monkeypatch.setattr(diffusion, "reverse_sample", spy)
+    real = CandMinorGuidanceLoss.freeze_cm
+    monkeypatch.setattr(CandMinorGuidanceLoss, "freeze_cm",
+                        lambda self, m: freezes.append(1) or real(self, m))
+    cfg, init, step, noise = _case(name, "cpu", 2,
+                                   **{**TINY["closed_loop"]["set"], **kw})
+    step(init(0), noise(0))
+    loss, = losses
+    reads = set(loss.FREEZE_READS)
+    assert bool(freezes) == (route in HOST_FROZEN)
+    assert set(loss.inputs) & reads == (reads if freezes else set())
+    given = {k: v.clone() for k, v in loss.inputs.items()}
+    rebound = loss.on_base(given)
+    ops = guidance_kernel.kernel_operands(rebound, cfg)
+    for f in guidance_kernel.Operands._fields:
+        assert getattr(ops, f) is given["op." + f], f
+    for k in set(given) & reads:
+        assert getattr(rebound, k) is given[k], k
+    assert rebound.valid_r.is_meta and rebound.lanes.is_meta
+    assert not loss.valid_r.is_meta
+    assert guidance_kernel.kernel_operands(loss, cfg).lanes \
+        is not given["op.lanes"]
 
 
 def test_standin_second_shape_captures_second_graph(standin):

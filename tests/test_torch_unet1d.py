@@ -227,6 +227,26 @@ def test_unet_routes_raise():
                          cfg.with_(guidance_pallas_superstep=True))
 
 
+@pytest.mark.parametrize("head", ["mlp", "unet"])
+def test_eps_weights_kept_while_the_parameters_stay(head):
+    """Both eps heads' weight pieces (``N.eps_weights``; the chain's graph
+    is keyed on them) come from one versioned cache: a repeat call gives
+    the same object, an in-place write of a parameter a new one, and a
+    call while autograd records a fresh one each time."""
+    cfg = Config(**_fields())
+    net = N.Net(cfg, eps_net=_spec(TINY_DIMS) if head == "unet" else None)
+    param = next((net.eps_net if head == "unet"
+                  else net.policy_net).parameters())
+    with torch.no_grad():
+        w = N.eps_weights(net, cfg)
+        assert N.eps_weights(net, cfg) is w
+        param.add_(1.0)
+        w2 = N.eps_weights(net, cfg)
+        assert w2 is not w and N.eps_weights(net, cfg) is w2
+    a, b = N.eps_weights(net, cfg), N.eps_weights(net, cfg)
+    assert a is not b and w2 not in (a, b)
+
+
 # --------------------------------------------------------------------------
 # the activation pass between two convolutions
 # --------------------------------------------------------------------------
