@@ -49,6 +49,8 @@ collaborators, the eps function and the fused loss, alike: ``inputs`` (by
 name, the tensors a plan makes fresh), ``on_base(d)`` (the collaborator
 reading them from ``d``) and ``counters`` ((module, name) of the launch
 counters a capture holds); the eps function's ``weights`` key its graphs.
+:func:`run_graph`, the capture and replay bookkeeping (static buffers, key,
+counters), also replays ``sim``'s selection tail.
 
 For training, :func:`prep` noises controls and :func:`sample` runs the
 pass on the per-scene (mono) rows or on the dense multi-candidate rows,
@@ -489,7 +491,7 @@ def _ddpm_chain(eps_of: Callable, ctx: Optional[GuidanceCtx], cfg: Config,
 chain_graph_captures = 0
 chain_graph_replays = 0
 
-#: eps weights (the eps function's ``weights``) -> {key: _ChainGraph}: a
+#: eps weights (the eps function's ``weights``) -> {key: _Graph}: a
 #: graph lives as long as the weight pieces it reads
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -519,8 +521,68 @@ def _capture_cuda(body: Callable, dev: torch.device):
     return first, out, graph.replay, held
 
 
-#: device type -> how a chain is captured there
+#: device type -> how a graph (the chain's, ``sim``'s selection tail's) is
+#: captured there
 _CAPTURE = {"cuda": _capture_cuda}
+
+
+class _Graph(NamedTuple):
+    static: dict        # name -> the buffer a call's tensor is copied into
+    out: tuple          # the outputs in the graph's memory
+    replay: Callable
+    counters: tuple     # (module, name) of each counter a replay adds to
+    held: tuple         # what a replay adds to each of them
+    keep: object        # what the graph reads besides its buffers: kept
+                        # alive with it
+
+
+def _distinct(t: Tensor) -> Tensor:
+    """``t`` with each broadcast (stride-0) axis narrowed to one entry: its
+    distinct elements, which a copy may write."""
+    for d, (n, st) in enumerate(zip(t.shape, t.stride())):
+        if st == 0 and n > 1:
+            t = t.narrow(d, 0, 1)
+    return t
+
+
+def run_graph(graphs: dict, key, fresh: dict, make_body: Callable,
+              dev: torch.device, keep=None):
+    """Run the graph of ``key`` in ``graphs`` on ``fresh`` (name -> the
+    tensors a call makes fresh): they are copied into the graph's static
+    buffers and it is replayed, adding what its capture held to each
+    counter its body names.  A buffer has its tensor's shape, dtype and
+    strides (a broadcast stays one), so the graph runs the kernels an
+    eager call on those tensors runs; the layouts join ``key``.  The first
+    call of a key captures ``make_body(static)`` (:data:`_CAPTURE`; the
+    body returns a tuple of tensors and names its ``counters``) and gives
+    the outputs of the eager run made before the capture, so that the body
+    runs once, as an eager call does.  Returns (the outputs, whether this
+    call captured); those of a replay lie in the graph's memory, which the
+    next replay overwrites."""
+    key = (key, tuple((k, tuple(v.shape), v.stride(), v.dtype)
+                      for k, v in fresh.items()))
+    g = graphs.get(key)
+    static = g.static if g is not None else {
+        k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                               device=v.device)
+        for k, v in fresh.items()}
+    for k, v in fresh.items():
+        _distinct(static[k]).copy_(_distinct(v))
+    if g is None:
+        body = make_body(static)
+        first, out, replay, held = _CAPTURE[dev.type](body, dev)
+        graphs[key] = _Graph(static, out, replay, body.counters, held, keep)
+        return first, True
+    g.replay()
+    for (m, k), n in zip(g.counters, g.held):
+        setattr(m, k, getattr(m, k) + n)
+    return g.out, False
+
+
+def captures(dev: torch.device) -> bool:
+    """Whether tensors on ``dev`` can be captured as a graph
+    (:data:`_CAPTURE`: CUDA)."""
+    return dev.type in _CAPTURE
 
 
 def graph_eligible(cm_fn: Callable, cfg: Config,
@@ -533,18 +595,9 @@ def graph_eligible(cm_fn: Callable, cfg: Config,
     recording.  Everything else (the CPU, the XLA guidance loop, generator
     draws, the row-major chain, the fast samplers, the superstep,
     candidate sharding) keeps the eager loop."""
-    return (noise is not None and noise.device.type in _CAPTURE
+    return (noise is not None and captures(noise.device)
             and hasattr(cm_fn, "on_base") and cfg.guidance_pallas
             and not mesh.sharded() and not torch.is_grad_enabled())
-
-
-class _ChainGraph(NamedTuple):
-    static: dict        # name -> the buffer a plan's tensor is copied into
-    out: tuple          # (controls, all_steps) in the graph's memory
-    replay: Callable
-    counters: tuple     # (module, name) of each counter a replay adds to
-    held: tuple         # what a replay adds to each of them
-    coeffs: Coeffs      # read by the graph: kept alive with it
 
 
 def _static_chain(static: dict, cm_fn: Callable, fused_loss, cfg: Config,
@@ -568,41 +621,26 @@ def _static_chain(static: dict, cm_fn: Callable, fused_loss, cfg: Config,
 
 def _chain_graph(cm_fn: Callable, fused_loss, cfg: Config, coeffs: Coeffs,
                  trig: np.ndarray, maximize: bool, noise: Tensor):
-    """The candidate-minor chain as one graph replay: the plan's draws and
-    both collaborators' ``inputs`` are copied into the graph's static
-    buffers and the graph of this key (shapes and dtypes, ``cfg``,
-    ``maximize``, the eps weights, ``coeffs``) is replayed.  The first
-    call of a key captures it (:data:`_CAPTURE`) and returns the outputs
-    of the eager run made before the capture, so that it runs the chain
-    once, as the eager loop does.  The outputs leave as fresh tensors
-    (the next replay overwrites the graph's)."""
+    """The candidate-minor chain as one graph replay (:func:`run_graph`):
+    the plan's draws and both collaborators' ``inputs`` are copied in and
+    the graph of this key (their layouts, ``cfg``, ``maximize``, the eps
+    weights, ``coeffs``) is replayed; the first call of a key captures it.
+    The outputs leave as fresh tensors."""
     global chain_graph_captures, chain_graph_replays
     fresh = {"noise": noise,
              **{"eps." + k: v for k, v in cm_fn.inputs.items()},
              **{"loss." + k: v for k, v in fused_loss.inputs.items()}}
-    key = (cfg, bool(maximize), noise.device, id(coeffs.beta),
-           tuple((k, tuple(v.shape), v.dtype) for k, v in fresh.items()))
-    graphs = _GRAPHS.setdefault(cm_fn.weights, {})
-    g = graphs.get(key)
-    static = g.static if g is not None else {
-        k: torch.empty_like(v) for k, v in fresh.items()}
-    for k, v in fresh.items():
-        static[k].copy_(v)
-    if g is None:
-        body = _static_chain(static, cm_fn, fused_loss, cfg, coeffs, trig,
-                             maximize)
-        first, out, replay, held = _CAPTURE[noise.device.type](
-            body, noise.device)
-        graphs[key] = _ChainGraph(static, out, replay, body.counters, held,
-                                  coeffs)
+    key = (cfg, bool(maximize), noise.device, id(coeffs.beta))
+    out, captured = run_graph(
+        _GRAPHS.setdefault(cm_fn.weights, {}), key, fresh,
+        lambda static: _static_chain(static, cm_fn, fused_loss, cfg, coeffs,
+                                     trig, maximize),
+        noise.device, keep=coeffs)
+    if captured:
         chain_graph_captures += 1
     else:
-        g.replay()
         chain_graph_replays += 1
-        for (m, k), n in zip(g.counters, g.held):
-            setattr(m, k, getattr(m, k) + n)
-        first = g.out
-    steps = first[1].clone()
+    steps = out[1].clone()
     return steps[-1], steps
 
 

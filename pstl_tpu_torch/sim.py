@@ -20,13 +20,19 @@ seeded with it; the tests hand in the JAX key chain's draws as ``noise``.
 The planner runs every head: the diffusion policy, and the baselines'
 VAE (a prior latent decoded, with the init-hint draws under
 ``use_init_hint``) and BC heads, whose candidates go straight to the
-lane-keep argmax.  ``run_closed_loop_host(render_dir=...)`` draws the
+lane-keep argmax.  The plan's selection tail (:func:`_select`: multi-cands
+scoring, RefineNet and rolls, final score, lane-keep argmax) is, on the
+card, one CUDA graph captured once per key and replayed
+(:func:`_select_graph`, where :func:`select_graph_eligible`), as the DDPM
+chain is; ``select_graph_captures`` and ``select_graph_replays`` count
+them.  ``run_closed_loop_host(render_dir=...)`` draws the
 recorded episodes' frames and GIFs with ``viz``.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -348,11 +354,6 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
                 enc = net.encode(dense)
                 feature = torch.repeat_interleave(enc, M * 3, 0)
 
-            def score_controls(u):
-                trajs = dyn.rollout(states_flat, u, cfg.dt)
-                s = score_rows(trajs[:, :-1])
-                return s, trajs
-
             if cfg.diffusion:
                 nn_controls, all_steps = _candidates(
                     net, obs, dense, gt_stlp, states, states_flat, enc,
@@ -364,57 +365,22 @@ def make_planner(cfg: Config, net: Net, coeffs: diffusion.Coeffs,
                 all_steps = nn_controls[None]
 
             with span("plan.select"):
-                if cfg.rect_head and not cfg.not_use_rect:
-                    if cfg.multi_cands is not None:
-                        nn_controls, prev_scores = \
-                            diffusion.select_multi_cands(
-                                all_steps, cfg.multi_cands, states_flat,
-                                score_rows, cfg)
-                    else:
-                        prev_scores, _ = score_controls(nn_controls)
-                    stlp_rows = dense["stlp_dense"][:, 0]
-                    controls = net.rect(feature, highlevel, stlp_rows,
-                                        nn_controls, prev_scores)
-                    for _ in range(cfg.n_rolls or 0):
-                        s_re, _ = score_controls(controls)
-                        controls = net.rect(feature, highlevel, stlp_rows,
-                                            controls, s_re)
-                    if cfg.refinement or cfg.raw_refinement:
-                        # lite_refine (nusc_sim.py:554-557): skip the repair
-                        # when a lane-keep candidate of the batch already
-                        # satisfies its spec (the JAX package's lax.cond;
-                        # here a host sync)
-                        if not cfg.lite_refine or float(pmesh.shard_max(
-                                torch.amax(score_controls(controls)[0]
-                                           .reshape(bs, M, 3)[:, :, 0]))) \
-                                <= 0:
-                            controls = _refine(controls, all_steps,
-                                               states_flat, score_rows,
-                                               valid, cfg)
+                cands = (all_steps[-cfg.multi_cands:]
+                         if _rectifies(cfg) and cfg.multi_cands is not None
+                         else nn_controls)
+                args = (net, cands, states_flat, feature, highlevel,
+                        dense["stlp_dense"][:, 0], score_rows, cfg)
+                if select_graph_eligible(score_rows, cfg, dev):
+                    out = _select_graph(*args)
                 else:
-                    controls = nn_controls
-
-                scores, trajs = score_controls(controls)
-                scores3 = scores.reshape(bs, M, 3)
-                if cfg.forward_shield:
-                    min_v = torch.amin(trajs[..., 3],
-                                       dim=-1).reshape(bs, M, 3)
-                    scores3 = scores3 - torch.clamp(-min_v, min=0.0) * 1e3
-                keep = torch.arange(3, device=dev)[None, None, :] == 0
-                keep_scores = torch.where(keep, scores3,
-                                          torch.full_like(scores3, -10000.0))
-                best = torch.argmax(keep_scores.reshape(bs, M * 3), dim=-1)
-                u_all = controls.reshape(bs, M * 3, cfg.nt, 2)
-                tr_all = trajs.reshape(bs, M * 3, cfg.nt + 1, 4)
-                u_best = _rows(u_all, best)
-                tr_best = _rows(tr_all, best)
-                stl_acc = torch.mean((keep_scores[:, :, 0] > 0).float(),
-                                     dim=-1)
+                    out = _select(*args, repair=_repair(
+                        all_steps, states_flat, score_rows, valid, cfg))
+                u0, controls, trajs, scores, plan_traj, stl_acc = out
                 info = {"controls": controls, "trajs": trajs,
-                        "scores": scores, "plan_traj": tr_best,
+                        "scores": scores, "plan_traj": plan_traj,
                         "stl_acc": stl_acc,
                         "valids_dense": dense["valids_dense"]}
-        return u_best[:, 0, :], info
+        return u0, info
 
     return plan
 
@@ -502,14 +468,159 @@ def decode_baseline(net: Net, dense, feature: Tensor, cfg: Config,
                sample=z)[0]
 
 
-def _refine(controls: Tensor, all_steps: Tensor, states_flat: Tensor,
-            score_rows, valid: Tensor, cfg: Config) -> Tensor:
-    """The planner's test-time refinement: convex with K = 6, or raw."""
-    if cfg.refinement:
-        return refine.convex_refinement(controls, all_steps, states_flat,
-                                        score_rows, valid, cfg, K=6)
-    return refine.raw_refinement(controls, states_flat, score_rows, valid,
-                                 cfg)
+# ---------------------------------------------------------------------------
+# selection: eager, or replayed as one CUDA graph
+# ---------------------------------------------------------------------------
+
+#: selection tails captured as a graph, and graph replays (each replay also
+#: adds what its capture held of the counters the scorer names)
+select_graph_captures = 0
+select_graph_replays = 0
+
+#: the plan's net -> {key: diffusion._Graph}: a graph lives as long as the
+#: net whose RefineNet it reads
+_SELECT_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _rectifies(cfg: Config) -> bool:
+    """Whether the plan rectifies its candidates with the RefineNet."""
+    return cfg.rect_head and not cfg.not_use_rect
+
+
+def _score_controls(u: Tensor, states_flat: Tensor, score_rows,
+                    cfg: Config):
+    """The rollouts of controls ``u`` (n, nt, 2) from ``states_flat`` and
+    their robustness: (scores (n,), trajs (n, nt + 1, 4))."""
+    trajs = dyn.rollout(states_flat, u, cfg.dt)
+    return score_rows(trajs[:, :-1]), trajs
+
+
+def _select(net: Net, cands: Tensor, states_flat: Tensor, feature: Tensor,
+            highlevel: Tensor, stlp_rows: Tensor, score_rows, cfg: Config,
+            repair=None):
+    """The plan's selection tail on its n dense rows: with the RefineNet
+    (``rect_head``) the best of the last ``multi_cands`` decodings
+    (``cands`` (k, n, nt, 2); without ``multi_cands`` the candidates
+    (n, nt, 2), scored) rectified, then ``n_rolls`` times re-scored and
+    rectified again, and ``repair(controls)`` (the test-time refinement)
+    where given; without it the candidates ``cands`` themselves.  Then the
+    final score, the forward shield, the lane-keep argmax and its rows.
+    Returns (u0 (bs, 2), controls (n, nt, 2), trajs (n, nt + 1, 4), scores
+    (n,), plan_traj (bs, nt + 1, 4), stl_acc (bs,)).  Run eagerly, and
+    captured by :func:`_select_graph` on static inputs."""
+    M = cfg.n_randoms
+    bs = states_flat.shape[0] // (M * 3)
+    if _rectifies(cfg):
+        if cfg.multi_cands is not None:
+            nn_controls, prev_scores = diffusion.select_multi_cands(
+                cands, cfg.multi_cands, states_flat, score_rows, cfg)
+        else:
+            nn_controls = cands
+            prev_scores, _ = _score_controls(cands, states_flat, score_rows,
+                                             cfg)
+        controls = net.rect(feature, highlevel, stlp_rows, nn_controls,
+                            prev_scores)
+        for _ in range(cfg.n_rolls or 0):
+            s_re, _ = _score_controls(controls, states_flat, score_rows,
+                                      cfg)
+            controls = net.rect(feature, highlevel, stlp_rows, controls,
+                                s_re)
+        if repair is not None:
+            controls = repair(controls)
+    else:
+        controls = cands
+
+    scores, trajs = _score_controls(controls, states_flat, score_rows, cfg)
+    scores3 = scores.reshape(bs, M, 3)
+    if cfg.forward_shield:
+        min_v = torch.amin(trajs[..., 3], dim=-1).reshape(bs, M, 3)
+        scores3 = scores3 - torch.clamp(-min_v, min=0.0) * 1e3
+    keep = torch.arange(3, device=scores.device)[None, None, :] == 0
+    keep_scores = torch.where(keep, scores3,
+                              torch.full_like(scores3, -10000.0))
+    best = torch.argmax(keep_scores.reshape(bs, M * 3), dim=-1)
+    u_best = _rows(controls.reshape(bs, M * 3, cfg.nt, 2), best)
+    tr_best = _rows(trajs.reshape(bs, M * 3, cfg.nt + 1, 4), best)
+    stl_acc = torch.mean((keep_scores[:, :, 0] > 0).float(), dim=-1)
+    return u_best[:, 0, :], controls, trajs, scores, tr_best, stl_acc
+
+
+def select_graph_eligible(score_rows, cfg: Config, dev: torch.device
+                          ) -> bool:
+    """Whether the plan's selection tail runs as a captured graph
+    (:func:`_select_graph`): its tensors on a device that captures (CUDA),
+    a scorer that can be rebased on static buffers (``on_base``: the
+    ``TiledScorer``), no sharding (``parallel.mesh``), no autograd
+    recording, and no host-synced branch in the tail (``refinement``,
+    ``raw_refinement``).  The tail draws nothing, so generator draws
+    qualify.  Everything else runs it eagerly."""
+    return (diffusion.captures(dev) and hasattr(score_rows, "on_base")
+            and not pmesh.sharded() and not torch.is_grad_enabled()
+            and not (cfg.refinement or cfg.raw_refinement))
+
+
+def _select_graph(net: Net, cands: Tensor, states_flat: Tensor,
+                  feature: Tensor, highlevel: Tensor, stlp_rows: Tensor,
+                  scorer, cfg: Config):
+    """:func:`_select` as one graph replay (``diffusion.run_graph``): the
+    plan's tensors that it reads (the RefineNet's inputs only where it
+    runs) and the scorer's ``inputs`` are copied in and the graph of this
+    key (their layouts, ``cfg``, where the net's parameters lie: the graph
+    reads them there) is replayed; the first call of a key captures it.
+    The outputs leave as fresh tensors."""
+    global select_graph_captures, select_graph_replays
+    fresh = {"cands": cands, "states_flat": states_flat,
+             **{"score." + k: v for k, v in scorer.inputs.items()}}
+    if _rectifies(cfg):
+        fresh.update(feature=feature, highlevel=highlevel,
+                     stlp_rows=stlp_rows)
+    key = (cfg, cands.device, tuple(p.data_ptr() for p in net.parameters()))
+
+    def make_body(static):
+        score = scorer.on_base({k[len("score."):]: v
+                                for k, v in static.items()
+                                if k.startswith("score.")})
+
+        def body():
+            return _select(net, static["cands"], static["states_flat"],
+                           static.get("feature"), static.get("highlevel"),
+                           static.get("stlp_rows"), score, cfg)
+        body.counters = scorer.counters
+        return body
+
+    out, captured = diffusion.run_graph(_SELECT_GRAPHS.setdefault(net, {}),
+                                        key, fresh, make_body, cands.device)
+    if captured:
+        select_graph_captures += 1
+    else:
+        select_graph_replays += 1
+    return tuple(t.clone() for t in out)
+
+
+def _repair(all_steps: Tensor, states_flat: Tensor, score_rows,
+            valid: Tensor, cfg: Config):
+    """The planner's test-time refinement as ``repair(controls)`` for
+    :func:`_select` (convex with K = 6 under ``refinement``, else raw under
+    ``raw_refinement``), or None where neither is set."""
+    if not (cfg.refinement or cfg.raw_refinement):
+        return None
+    M = cfg.n_randoms
+
+    def repair(controls):
+        # lite_refine (nusc_sim.py:554-557): skip the repair unless no
+        # lane-keep candidate of the batch satisfies its spec (the JAX
+        # package's lax.cond; here a host sync)
+        if cfg.lite_refine:
+            s, _ = _score_controls(controls, states_flat, score_rows, cfg)
+            if not float(pmesh.shard_max(torch.amax(
+                    s.reshape(-1, M, 3)[:, :, 0]))) <= 0:
+                return controls
+        if cfg.refinement:
+            return refine.convex_refinement(controls, all_steps, states_flat,
+                                            score_rows, valid, cfg, K=6)
+        return refine.raw_refinement(controls, states_flat, score_rows,
+                                     valid, cfg)
+    return repair
 
 
 def _apply_backup(u0: Tensor, info: Dict[str, Tensor],

@@ -20,6 +20,7 @@ each clause once (the production scorer), and every function that takes
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -552,7 +553,13 @@ class TiledScorer:
     maneuvers): each row evaluates only its own maneuver's formula against
     its own lane, and the scene constants stay per scene.  ``__call__(trajs)``
     maps (N, T, >=4) rollout states (t = 0..T-1) to per-row robustness (N,).
-    See ``pstl_tpu.specs.TiledScorer``."""
+    See ``pstl_tpu.specs.TiledScorer``.  ``inputs``, ``on_base`` and
+    ``counters`` are what the plan's captured selection tail reads of it
+    (``sim``), as the DDPM chain's graph reads the fused loss."""
+
+    #: launch counters a captured scorer holds: none, it runs plain torch
+    #: ops (the clearance kernels are ``prep_signals``' route)
+    counters = ()
 
     def __init__(self, batch: Dict[str, Tensor], stlp_dense: Tensor,
                  cfg: Config, n_randoms: Optional[int] = None):
@@ -577,6 +584,27 @@ class TiledScorer:
             self.sf = torch.clamp(s[..., I_DSAFE], min=0.3)
         else:
             self.vf = self.df = self.sf = 1.0
+
+    @property
+    def inputs(self) -> Dict[str, Tensor]:
+        """By name, the tensors a plan makes fresh: the neighbor discs'
+        fields ("discs.<field>"), the lanes, the stlp and, under
+        ``norm_stl``, the norm factors."""
+        out = {"discs." + k: v for k, v in self.discs._asdict().items()}
+        out.update(lanes=self.lanes, stlp=self.stlp)
+        if torch.is_tensor(self.vf):
+            out.update(vf=self.vf, df=self.df, sf=self.sf)
+        return out
+
+    def on_base(self, d: Dict[str, Tensor]) -> "TiledScorer":
+        """A copy that reads :attr:`inputs` from ``d``."""
+        scorer = copy.copy(self)
+        scorer.discs = geom.NeighborDiscs(
+            *(d["discs." + k] for k in geom.NeighborDiscs._fields))
+        for k in ("lanes", "stlp", "vf", "df", "sf"):
+            if k in d:
+                setattr(scorer, k, d[k])
+        return scorer
 
     def _alw(self, g, tau, hard):
         return stl.soft_min(g, tau, dim=-1, hard=hard, dtype=self.dtype)
