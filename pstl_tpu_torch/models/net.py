@@ -12,12 +12,12 @@ BC head and the headless policy, each with the init-hint input under
 ``use_init_hint``.  :func:`init_flax_like` draws fresh parameters as flax's
 ``Dense`` does.
 
-``Net(cfg, eps_net=spec)`` puts Diffusion Policy's ConditionalUnet1D
-(``models/unet1d.py``) in the place of the diffusion head's eps MLP: it
-reads the noisy controls as 2 channels over the nt steps, the timestep
-through its own step encoder and the rest of the MLP's input (scene
-feature, highlevel, stlp) as its global condition, and returns epsilon
-itself (no ``+ noise`` residual).  :func:`init_seeded` draws such a net.
+``Net(cfg, eps_net=spec)`` puts another eps network in the place of the
+diffusion head's eps MLP: the spec builds it (``models/eps_head``), and
+it reads the noisy controls, the timestep and the rest of the MLP's input
+(scene feature, highlevel, stlp, and the ego inputs of
+:func:`ego_inputs`) and returns epsilon itself (no ``+ noise``
+residual).  :func:`init_seeded` draws such a net.
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ import torch
 from torch import nn
 
 from pstl_tpu_torch.config import Config
-from pstl_tpu_torch.models import convert, unet1d
-from pstl_tpu_torch.ops import unet1d_norm
+from pstl_tpu_torch.models import convert, eps_head
 
 Tensor = torch.Tensor
 
@@ -98,34 +97,25 @@ class MLP(nn.Module):
         return x.float()
 
 
-def check_unet_route(cfg: Config) -> None:
-    """Raise for what a ConditionalUnet1D eps head cannot run: the
-    superstep kernel (kernel 5 embeds the eps MLP) and the init-hint input
-    (an input block of the MLP's first layer)."""
-    if cfg.guidance_pallas_superstep:
-        raise NotImplementedError(
-            "guidance_pallas_superstep: the superstep kernel (kernel 5) "
-            "computes the eps MLP inside it; a ConditionalUnet1D eps head "
-            "runs on the candidate-minor chain (guidance_pallas_superstep="
-            "False)")
-    if cfg.use_init_hint:
-        raise NotImplementedError(
-            "use_init_hint: the init hint is an input block of the eps "
-            "MLP's first layer; a ConditionalUnet1D eps head has no such "
-            "input")
+def ego_inputs(batch: Dict[str, Tensor]) -> Tensor:
+    """What the ego encoder reads of each scene (bs, 6): the first ego
+    state in its own frame, then its remaining fields."""
+    ego = batch["ego_traj"][:, 0]
+    ego_xyth = normalize_xyth(ego[..., :3], ego[..., :3])
+    return torch.cat([ego_xyth, ego[..., 3:]], dim=-1)
 
 
 class Net(nn.Module):
     """Conditional diffusion policy with the RefineNet rectification head;
-    with ``eps_net`` (a ``unet1d.UnetSpec``) the diffusion head is a
-    ConditionalUnet1D instead of the eps MLP."""
+    with ``eps_net`` (a spec of ``models/eps_head``) the diffusion head is
+    the network it builds instead of the eps MLP."""
     FEAT_DIM = 32
     STLP_DIM = 6
     TIME_DIM = 32
     LANE_DIM = 3
 
     def __init__(self, cfg: Config,
-                 eps_net: Optional[unet1d.UnetSpec] = None):
+                 eps_net=None):
         super().__init__()
         self.cfg = cfg
         h = tuple(cfg.hiddens)
@@ -143,10 +133,8 @@ class Net(nn.Module):
             if not cfg.diffusion:
                 raise ValueError("eps_net is a diffusion head: it needs "
                                  "cfg.diffusion")
-            check_unet_route(cfg)
-            unet1d.check_horizon(eps_net, cfg.nt)
-            self.eps_net = unet1d.ConditionalUnet1D(
-                2, feat + 1 + self.STLP_DIM, eps_net)
+            self.eps_net = eps_net.build(cfg, eps_head.Planner(
+                7, F, 1 + self.STLP_DIM))
         if cfg.vae:
             self.traj_encoder = MLP(cfg.nt * 2, h + (cfg.vae_dim * 2,), dt)
         if cfg.rect_head:
@@ -163,8 +151,7 @@ class Net(nn.Module):
         """Scene feature (bs, 7*32)."""
         cfg = self.cfg
         bs = batch["ego_traj"].shape[0]
-        ego = batch["ego_traj"][:, 0]
-        ego_un = ego[:, None, :]
+        ego_un = batch["ego_traj"][:, 0][:, None, :]
         neis = batch["neighbors"]                          # (bs, K, 7)
         neis_xyth = normalize_xyth(neis[..., 1:4], ego_un[..., :3],
                                    neis[..., 0])
@@ -176,9 +163,7 @@ class Net(nn.Module):
         lanes_in = torch.cat(
             [lanes[..., 0:1, :], lanes[..., 1:, :] - lanes[..., :-1, :]],
             dim=-2).reshape(bs, 3, cfg.n_segs * self.LANE_DIM)
-        ego_xyth = normalize_xyth(ego[..., :3], ego[..., :3])
-        ego_in = torch.cat([ego_xyth, ego[..., 3:]], dim=-1)
-        ego_feat = self.ego_encoder(ego_in)
+        ego_feat = self.ego_encoder(ego_inputs(batch))
         nei_feat = self.neighbor_encoder(neis_in)          # (bs, K, 32)
         nei_feat = torch.cat([torch.amin(nei_feat, 1),
                               torch.mean(nei_feat, 1),
@@ -224,17 +209,11 @@ class Net(nn.Module):
         tile = lambda v: torch.repeat_interleave(v, n_randoms, 0)
         latent_stats = (None, None, None)
         if self.eps_net is not None:
-            # ConditionalUnet1D: x as 2 channels over nt, its own step
-            # encoder, the rest of the MLP's input as global condition
             cond = [feature, ext["highlevel"], stlp_feat]
             if not multi:
                 cond = [tile(v) for v in cond]
-            w = unet1d.unet_weights(self.eps_net, compute_dtype(cfg))
-            eps = unet1d.forward(
-                self.eps_net, w,
-                ext["noise"].reshape(-1, cfg.nt, 2).transpose(1, 2),
-                ext["timestep"].reshape(-1),
-                torch.cat(cond, -1)).transpose(1, 2)
+            eps = self.eps_net.rows(self, batch, *cond, ext["noise"],
+                                    ext["timestep"])
             return (eps, feature) if get_feature else eps
         if cfg.diffusion:
             time_feat = pos_encoding(ext["timestep"], self.TIME_DIM)
@@ -368,14 +347,13 @@ def init_flax_like(net: nn.Module, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_seeded(net: Net, generator: torch.Generator) -> None:
     """Fresh parameters for ``net`` from ``generator``: its MLPs as flax's
-    ``Dense`` (:func:`init_flax_like`), in module order, then a
-    ConditionalUnet1D head with PyTorch's default initialization, as the
-    published code keeps it (``unet1d.init_torch_default``)."""
+    ``Dense`` (:func:`init_flax_like`), in module order, then an eps head
+    by its own rule (``EpsHead.init_seeded``: the published code's)."""
     for name, child in net.named_children():
         if name != "eps_net":
             init_flax_like(child, generator)
     if net.eps_net is not None:
-        unet1d.init_torch_default(net.eps_net, generator)
+        net.eps_net.init_seeded(generator)
 
 
 class EpsWeights:
@@ -425,11 +403,10 @@ class EpsWeights:
 
 
 def eps_weights(net: Net, cfg: Config):
-    """The net's :class:`EpsWeights` (a ConditionalUnet1D head's
-    ``unet1d.UnetWeights``), made once while its policy MLP's parameters
-    stay (``convert.cast_once``)."""
+    """The net's :class:`EpsWeights` (an eps head's ``weights``), made
+    once while its policy MLP's parameters stay (``convert.cast_once``)."""
     if net.eps_net is not None:
-        return unet1d.unet_weights(net.eps_net, compute_dtype(cfg))
+        return net.eps_net.weights(compute_dtype(cfg))
     return convert.cast_once(net.policy_net, (compute_dtype(cfg), cfg.nt),
                              lambda: EpsWeights(net, cfg))
 
@@ -475,18 +452,16 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
     (:func:`eps_weights`), made once.  Returns ``eps_cm(x_cm (bs, nt, 2,
     R), t) -> eps`` with r = j*M + m (``specs.CandMinorGuidanceLoss``'s
     layout; :func:`cm_eps`); its ``operands`` dict holds the pieces for the
-    superstep kernel.  A ConditionalUnet1D head gives :func:`cm_unet_eps`
-    on the rows' condition instead.
+    superstep kernel.  An eps head gives its own (``EpsHead.cm_eps``).
     """
     M = n_randoms if n_randoms is not None else cfg.n_randoms
     bs = feature.shape[0] // (M * 3)
     R = M * 3
     stlp_feat = batch["stlp_dense"][:, 0]
     if net.eps_net is not None:
-        check_unet_route(cfg)
-        g = torch.cat([feature, highlevel, stlp_feat], -1)
-        g_cm = g.reshape(bs, M, 3, -1).transpose(1, 2).reshape(bs * R, -1)
-        return cm_unet_eps(g_cm, net, eps_weights(net, cfg), R)
+        net.eps_net.check_route(cfg)
+        return net.eps_net.cm_eps(net, batch, highlevel, feature, stlp_feat,
+                                  cfg, M)
     w = eps_weights(net, cfg)
     dt = w.dt
     base = (feature.to(dt) @ w.Wf + highlevel.to(dt) @ w.Wh
@@ -499,24 +474,3 @@ def make_cm_eps_fn(net: Net, batch: Dict[str, Tensor], highlevel: Tensor,
         bs, h1, R)
     return cm_eps(base_cm, w, cfg)
 
-
-def cm_unet_eps(g_cm: Tensor, net: Net, w: unet1d.UnetWeights, R: int):
-    """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` of a ConditionalUnet1D
-    head: the candidates turned to rows (b * R + r, 2, nt), the U-Net on
-    them with the condition ``g_cm`` (bs * R, G) laid out alike and the
-    step's timestep, turned back; with what the chain's graph reads of it
-    (``diffusion``; ``inputs`` {"g"}, ``counters`` the U-Net's passes and
-    rows and its epilogue kernel's launches)."""
-    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
-        bs, nt = x_cm.shape[:2]
-        x = x_cm.permute(0, 3, 2, 1).reshape(bs * R, 2, nt)
-        te = torch.full((1,), float(t), device=x_cm.device)
-        e = unet1d.forward(net.eps_net, w, x, te, g_cm)
-        return e.reshape(bs, R, 2, nt).permute(0, 3, 2, 1).contiguous()
-
-    eps_cm.weights = w
-    eps_cm.inputs = {"g": g_cm}
-    eps_cm.on_base = lambda d: cm_unet_eps(d["g"], net, w, R)
-    eps_cm.counters = ((unet1d, "calls"), (unet1d, "rows"),
-                       (unet1d_norm, "launches"))
-    return eps_cm

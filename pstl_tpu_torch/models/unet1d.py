@@ -1,6 +1,9 @@
 """ConditionalUnet1D, Diffusion Policy's epsilon network (Chi et al., RSS
 2023; ``diffusion_policy/model/diffusion/conditional_unet1d.py``), as an
-eps head of :class:`pstl_tpu_torch.models.net.Net`.
+eps head of :class:`pstl_tpu_torch.models.net.Net` (``models/eps_head``):
+it reads the noisy controls as 2 channels over the nt steps, the timestep
+through its own step encoder and the rest of the eps MLP's input (scene
+feature, highlevel, stlp) as its global condition.
 
 The modules and their parameter names are the published ones, so a
 published state dict loads.  The forward (:func:`forward`) walks them
@@ -48,13 +51,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pstl_tpu_torch.models import convert
+from pstl_tpu_torch.config import Config
+from pstl_tpu_torch.models import convert, eps_head
+from pstl_tpu_torch.models.net import compute_dtype
 from pstl_tpu_torch.ops import unet1d_norm
 
 Tensor = torch.Tensor
@@ -82,6 +88,13 @@ class UnetSpec:
         """What the horizon must be divisible by: one halving a level but
         the last."""
         return 2 ** (len(self.down_dims) - 1)
+
+    def build(self, cfg: Config, planner: eps_head.Planner):
+        """The network for the planner's rows (``eps_head``): 2 channels,
+        the rows' feature, highlevel and stlp as the global condition."""
+        eps_head.check_route(cfg, ConditionalUnet1D.kind)
+        check_horizon(self, cfg.nt)
+        return ConditionalUnet1D(2, planner.cond_dim, self)
 
 
 def check_horizon(spec: UnetSpec, nt: int) -> None:
@@ -138,9 +151,10 @@ class Upsample1d(nn.Module):
         self.conv = nn.ConvTranspose1d(dim, dim, 4, 2, 1)
 
 
-class ConditionalUnet1D(nn.Module):
+class ConditionalUnet1D(eps_head.EpsHead):
     """The published module tree (``input_dim`` channels in and out, a
     global condition of ``global_cond_dim``); :func:`forward` runs it."""
+    kind = "ConditionalUnet1D"
 
     def __init__(self, input_dim: int, global_cond_dim: int,
                  spec: UnetSpec):
@@ -173,6 +187,28 @@ class ConditionalUnet1D(nn.Module):
         self.final_conv = nn.Sequential(
             Conv1dBlock(start, start, spec.kernel_size, spec.n_groups),
             nn.Conv1d(start, input_dim, 1))
+
+    # -- the eps head (``models/eps_head.EpsHead``) -------------------------
+    def init_seeded(self, generator: torch.Generator) -> None:
+        init_torch_default(self, generator)
+
+    def weights(self, dt: torch.dtype) -> "UnetWeights":
+        return unet_weights(self, dt)
+
+    def rows(self, net, batch, feature, highlevel, stlp, noise, timestep):
+        nt = noise.shape[-1] // 2
+        eps = forward(self, self.weights(compute_dtype(net.cfg)),
+                      noise.reshape(-1, nt, 2).transpose(1, 2),
+                      timestep.reshape(-1),
+                      torch.cat([feature, highlevel, stlp], -1))
+        return eps.transpose(1, 2)
+
+    def cm_eps(self, net, batch, highlevel, feature, stlp, cfg, M):
+        R = 3 * M
+        bs = feature.shape[0] // R
+        g = torch.cat([feature, highlevel, stlp], -1)
+        g_cm = g.reshape(bs, M, 3, -1).transpose(1, 2).reshape(bs * R, -1)
+        return cm_unet_eps(g_cm, self, self.weights(compute_dtype(cfg)), R)
 
 
 _AFFINE = (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)
@@ -321,3 +357,27 @@ def forward(net: ConditionalUnet1D, w: UnetWeights, x: Tensor, t: Tensor,
         h = _conv(h, up.conv, w)
     h, _ = _block(h, net.final_conv[0], w)
     return _conv(h, net.final_conv[1], w).float().transpose(1, 2)
+
+
+def cm_unet_eps(g_cm: Tensor, unet: ConditionalUnet1D, w: UnetWeights,
+                R: int):
+    """``eps_cm(x_cm (bs, nt, 2, R), t) -> eps`` of a ConditionalUnet1D
+    head: the candidates turned to rows (b * R + r, 2, nt), the U-Net on
+    them with the condition ``g_cm`` (bs * R, G) laid out alike and the
+    step's timestep, turned back; with what the chain's graph reads of it
+    (``diffusion``; ``inputs`` {"g"}, ``counters`` the U-Net's passes and
+    rows and its epilogue kernel's launches)."""
+    def eps_cm(x_cm: Tensor, t: int) -> Tensor:
+        bs, nt = x_cm.shape[:2]
+        x = x_cm.permute(0, 3, 2, 1).reshape(bs * R, 2, nt)
+        te = torch.full((1,), float(t), device=x_cm.device)
+        e = forward(unet, w, x, te, g_cm)
+        return e.reshape(bs, R, 2, nt).permute(0, 3, 2, 1).contiguous()
+
+    eps_cm.weights = w
+    eps_cm.inputs = {"g": g_cm}
+    eps_cm.on_base = lambda d: cm_unet_eps(d["g"], unet, w, R)
+    eps_cm.counters = ((sys.modules[__name__], "calls"),
+                       (sys.modules[__name__], "rows"),
+                       (unet1d_norm, "launches"))
+    return eps_cm

@@ -64,7 +64,8 @@ def test_package_import_loads_no_jax():
             "pstl_tpu_torch.data.dataset, pstl_tpu_torch.diffusion, "
             "pstl_tpu_torch.runtime, pstl_tpu_torch.runtime.shard_store, "
             "pstl_tpu_torch.ops.clearance_kernel, "
-            "pstl_tpu_torch.models.convert, pstl_tpu_torch.cli, "
+            "pstl_tpu_torch.models.convert, pstl_tpu_torch.models.rdt, "
+            "pstl_tpu_torch.models.unet1d, pstl_tpu_torch.cli, "
             "pstl_tpu_torch.viz, pstl_tpu_torch.parallel, "
             "pstl_tpu_torch.data.extract; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
